@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLIP main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's FLIP and APIC main paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py            # water_cube_drop at 129^3, ~1.99M particles
 
@@ -7,17 +8,23 @@ Phases, each of which raises on failure (nonzero exit):
 
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``fluidsim_tpu_torch/csrc`` and time the build;
-3. compare each kernel (K1 P2G, K2 G2P, K3 Laplacian, K4 Chebyshev step)
-   with its plain PyTorch version on the card at the main path's shapes,
-   and time both with CUDA events (median of the runs);
-4. run ``FlipSim`` for warm-up and timed frames: finite energy, particles
-   in the box, the projection's outer tolerance met, and every kernel
-   launched by the timed frames the number of times the frame's CG
+3. compare each FLIP kernel (K1 P2G, K2 G2P, K3 Laplacian, K4 Chebyshev
+   step) with its plain PyTorch version on the card at the main path's
+   shapes, and time both with CUDA events (median of the runs);
+4. run ``FlipSim`` (FLIP) for warm-up and timed frames: finite energy,
+   particles in the box, the projection's outer tolerance met, and every
+   kernel launched by the timed frames the number of times the frame's CG
    iterations call for; print ms/frame;
 5. determinism: the first frames rerun from the same seed give bit-identical
    kinetic energies;
-6. reference: a small scene stepped on the card matches the same scene
-   stepped on the CPU, where every kernel wrapper runs its plain version.
+6. the APIC kernels (K1 aff, K2 moments) against their plain versions at the
+   APIC configuration's shapes, timed as in phase 3;
+7. ``FlipSim(mode="apic")`` at the same size: warm-up and timed frames with
+   the checks of phase 4 and the launch counts of all six kernels;
+8. determinism of the APIC frames, as phase 5;
+9. reference: a small scene stepped on the card in FLIP, APIC and PIC mode
+   matches the same scene stepped on the CPU, where every kernel wrapper
+   runs its plain version (APIC: the affine matrices too).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -37,10 +44,15 @@ import time
 _SPIN_CYCLES = 20_000_000
 _REPS = 20          # timed runs per kernel and per plain version
 
-# the main path's configuration: the JAX package's bench scene, uncut
+# the least time of a kernel: H100 SXM HBM3 bandwidth and f32 rate outside
+# the tensor cores (NVIDIA's data sheet)
+_HBM_BYTES_PER_S = 3.35e12
+_F32_OPS_PER_S = 67e12
+
+# the main paths' configuration: the JAX package's bench scene, uncut
 BOUND = 64          # scene half-width: a (2*64+1)^3 = 129^3 grid
 DENSITY = 25.0      # particles per seeded voxel: ~1.99M particles
-FRAMES = 10         # timed frames, after 2 warm-up frames
+FRAMES = 10         # timed frames per mode, after 2 warm-up frames
 SEED = 0
 
 
@@ -70,10 +82,16 @@ def _max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def _compare(name, kernel, plain, rel_tol, torch):
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _compare(name, kernel, plain, rel_tol, inputs, ops, torch):
     """Run a kernel and its plain version on the same inputs; require
-    ``max|kernel - plain| <= rel_tol * max|plain|``.  Returns the error and
-    both times."""
+    ``max|kernel - plain| <= rel_tol * max|plain|``.  Returns the kernel's
+    line fields: the error, both times, and the bound — the larger of the
+    compulsory bytes (``inputs`` read once, the outputs written once) over
+    the HBM rate and ``ops`` f32 operations over the f32 rate."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
@@ -88,9 +106,111 @@ def _compare(name, kernel, plain, rel_tol, torch):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     ms = _cuda_ms(kernel, torch)
     plain_ms = _cuda_ms(plain, torch)
+    nbytes = _nbytes(inputs) + _nbytes(out_k)
+    bytes_ms, ops_ms = 1e3 * nbytes / _HBM_BYTES_PER_S, 1e3 * ops / _F32_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of {_REPS})")
-    return err, ms, plain_ms
+          f"(median of {_REPS}); bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+    # no single PyTorch call computes any of these functions
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _run_frames(sim, counted, torch):
+    """Step ``FRAMES`` frames with every launch count set to 0 just before;
+    check them and their launch counts; return (energies, launches)."""
+    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+
+    mode = sim.params.mode
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = [sim.step() for _ in range(FRAMES)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"{mode}: launches in the timed frames:", json.dumps(launches))
+
+    ke = [float(f["kinetic_energy"]) for f in frames]
+    cg = [f["cg_iters"] for f in frames]
+    outer = [f["outer_iters"] for f in frames]
+    print(f"{mode} frames: ke {ke[0]:.6g} .. {ke[-1]:.6g}, cg_iters {cg}, "
+          f"outer_iters {outer}, error(last) {float(frames[-1]['error']):.4g}")
+    pos = sim.state.pos
+    if not all(math.isfinite(k) for k in ke):
+        raise AssertionError(f"{mode}: non-finite kinetic energy")
+    if not bool(torch.isfinite(pos).all()) or float(pos.abs().max()) >= BOUND:
+        raise AssertionError(f"{mode}: particles left the box or went non-finite")
+    if sim.state.aff is not None and not bool(torch.isfinite(sim.state.aff).all()):
+        raise AssertionError(f"{mode}: non-finite affine matrices")
+    last = frames[-1]
+    if not (float(last["error"]) <= sim.params.outer_tol
+            or last["outer_iters"] < sim.params.max_outer):
+        raise AssertionError(f"{mode}: projection did not meet its outer tolerance")
+    # PCG: one apply for the initial residual plus one per iteration, and the
+    # preconditioner (degree - 1 fused steps) as often
+    solves = sum(cg) + sum(outer)
+    transfers = (("p2g_scatter_affine", "g2p_moments") if mode == "apic"
+                 else ("p2g_scatter", "g2p_gather"))
+    want = {name: 0 for name in launches}
+    want.update({transfers[0]: FRAMES, transfers[1]: FRAMES,
+                 "apply_laplacian": solves,
+                 "cheb_step": (sk.CHEB_DEGREE - 1) * solves})
+    if launches != want:
+        raise AssertionError(f"{mode}: kernel launches {launches}, expected {want}")
+    print(f"{mode}: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
+          f"{FRAMES / wall_s:.3f}  ({FRAMES} frames, host clock, synchronised)")
+    return ke, launches
+
+
+def _rerun(mode, kes, dev, torch):
+    """Determinism: the first frames rerun from the seed give the same
+    kinetic energies, bit for bit."""
+    from fluidsim_tpu_torch.models.flip import FlipSim
+
+    k = min(3, len(kes))
+    rerun = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+                    seed=SEED, device=dev, mode=mode)
+    ke2 = [float(rerun.step()["kinetic_energy"]) for _ in range(k)]
+    if ke2 != kes[:k]:
+        raise AssertionError(f"{mode}: rerun energies {ke2} != {kes[:k]}")
+    print(f"{mode} determinism: {k} frames rerun from seed {SEED}: "
+          f"bit-identical kinetic energy {ke2}")
+
+
+def _small_scene(mode, dev):
+    """A bound-8 scene, 3 frames on the card against 3 on the CPU."""
+    from fluidsim_tpu_torch.models.flip import FlipSim
+
+    small = dict(bound=8, density=3.0, seed=SEED, mode=mode)
+    gpu_sim = FlipSim("water_cube_drop", device=dev, **small)
+    cpu_sim = FlipSim("water_cube_drop", device="cpu", **small)
+    # f32 sums in another order may move CG's stopping test by one iteration
+    # in a pass; the outer passes, the energy and the positions must agree
+    for f in range(3):
+        mg, mc = gpu_sim.step(), cpu_sim.step()
+        kg, kc = float(mg["kinetic_energy"]), float(mc["kinetic_energy"])
+        print(f"reference {mode} frame {f}: card ke {kg:.7g} outer "
+              f"{mg['outer_iters']} cg {mg['cg_iters']} | cpu ke {kc:.7g} "
+              f"outer {mc['outer_iters']} cg {mc['cg_iters']}")
+        if (abs(kg - kc) > 1e-4 * abs(kc)
+                or mg["outer_iters"] != mc["outer_iters"]
+                or abs(mg["cg_iters"] - mc["cg_iters"]) > mc["outer_iters"]):
+            raise AssertionError(f"small scene {mode} frame {f}: card and "
+                                 "cpu differ")
+    pos_err = _max_err(gpu_sim.state.pos.cpu(), cpu_sim.state.pos)
+    if pos_err > 1e-3:
+        raise AssertionError(f"small scene {mode}: positions differ by {pos_err}")
+    msg = f"max pos diff card vs cpu {pos_err:.3e}"
+    if mode == "apic":
+        aff_err = _max_err(gpu_sim.state.aff.cpu(), cpu_sim.state.aff)
+        if aff_err > 1e-3:
+            raise AssertionError(f"small scene apic: aff differs by {aff_err}")
+        msg += f", max aff diff {aff_err:.3e}"
+    print(f"reference {mode}: bound 8, 3 frames, {msg}")
 
 
 def main() -> int:
@@ -104,11 +224,14 @@ def main() -> int:
         return 1
     from fluidsim_tpu_torch import native
     from fluidsim_tpu_torch.models.flip import FlipSim
+    from fluidsim_tpu_torch.ops import apic
     from fluidsim_tpu_torch.ops import pressure as pr
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
     from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
+    from fluidsim_tpu_torch.core.splines import cround
+    from fluidsim_tpu_torch.ops.svd3 import mv3
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -123,17 +246,17 @@ def main() -> int:
     native.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {native.library_path().name}")
     for line in native.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas:", line.strip())
 
-    # ---- 3. each kernel against its plain version at the main path's shapes
+    # ---- 3. each FLIP kernel against its plain version --------------------
     sim = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
                   seed=SEED, device=dev)
     B, wall, n = sim.params.bound, sim.params.wall, 2 * sim.params.bound + 1
-    print(f"scene water_cube_drop bound {B} grid {n}^3 particles "
-          f"{sim.num_particles}")
+    P = sim.num_particles
+    print(f"scene water_cube_drop bound {B} grid {n}^3 particles {P}")
     rng = np.random.default_rng(SEED)
-    vel0 = torch.as_tensor(rng.normal(scale=3.0, size=(sim.num_particles, 3))
+    vel0 = torch.as_tensor(rng.normal(scale=3.0, size=(P, 3))
                            .astype(np.float32), device=dev)
     pos_s, vel_s, flat = tk.sort_by_cell(sim.state.pos, vel0, B)
     w27t = tk.masked_weights_cm(pos_s, B)
@@ -142,13 +265,14 @@ def main() -> int:
     results["p2g_scatter"] = _compare(
         "K1 p2g_scatter", lambda: tk.p2g_scatter(w27t, vel_s, cs, n),
         lambda: tk.p2g_scatter_plain(w27t, vel_s, cs, n), 1e-5,
-        torch)
+        (w27t, vel_s, cs), 27 * 7 * P, torch)
     acc = tk.p2g_scatter(w27t, vel_s, cs, n)
     vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
     fm = tk.gather_fields(vc, B, wall)
     results["g2p_gather"] = _compare(
         "K2 g2p_gather", lambda: tk.g2p_gather(fm, w27t, flat),
-        lambda: tk.g2p_gather_plain(fm, w27t, flat), 1e-5, torch)
+        lambda: tk.g2p_gather_plain(fm, w27t, flat), 1e-5,
+        (fm, w27t, flat), 27 * 8 * P, torch)
 
     # K3/K4 on the adiag and pressure of a real frame (the 2nd of the sim)
     kes = [float(sim.step()["kinetic_energy"])]
@@ -170,97 +294,80 @@ def main() -> int:
     results["apply_laplacian"] = _compare(
         "K3 apply_laplacian", lambda: sk.apply_laplacian(z, adiag, scale),
         lambda: sk.apply_laplacian_plain(z, adiag, scale), 1e-6,
-        torch)
+        (z, adiag), 9 * n ** 3, torch)
     results["cheb_step"] = _compare(
         "K4 cheb_step", lambda: sk.cheb_step(z, adiag, r, d, scale, c1, c2),
         lambda: sk.cheb_step_plain(z, adiag, r, d, scale, c1, c2), 1e-6,
-        torch)
+        (z, adiag, r, d), 15 * n ** 3, torch)
     del acc, vc, fm, vel0, pos_s, vel_s, flat, w27t, cs, z, r, d, adiag
 
-    # ---- 4. the main path: the two frames above were its warm-up --------
-    counted = (tk.p2g_scatter, tk.g2p_gather, sk.apply_laplacian, sk.cheb_step)
-    for fn in counted:
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    frames = [sim.step() for _ in range(FRAMES)]
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
-    print("launches in the timed frames:", json.dumps(launches))
-
-    ke = [float(f["kinetic_energy"]) for f in frames]
+    # ---- 4. the FLIP main path: the two frames above were its warm-up ----
+    counted = (tk.p2g_scatter, tk.g2p_gather, tk.p2g_scatter_affine,
+               tk.g2p_moments, sk.apply_laplacian, sk.cheb_step)
+    ke, flip_launches = _run_frames(sim, counted, torch)
     kes += ke
-    cg = [f["cg_iters"] for f in frames]
-    outer = [f["outer_iters"] for f in frames]
-    print(f"frames: ke {ke[0]:.6g} .. {ke[-1]:.6g}, cg_iters {cg}, "
-          f"outer_iters {outer}, error(last) {float(frames[-1]['error']):.4g}")
-    pos = sim.state.pos
-    if not all(math.isfinite(k) for k in ke):
-        raise AssertionError("non-finite kinetic energy")
-    if not bool(torch.isfinite(pos).all()) or float(pos.abs().max()) >= B:
-        raise AssertionError("particles left the box or went non-finite")
-    last = frames[-1]
-    if not (float(last["error"]) <= sim.params.outer_tol
-            or last["outer_iters"] < sim.params.max_outer):
-        raise AssertionError("projection did not meet its outer tolerance")
-    # PCG: one apply for the initial residual plus one per iteration, and the
-    # preconditioner (degree - 1 fused steps) as often
-    solves = sum(cg) + sum(outer)
-    want = {"p2g_scatter": FRAMES, "g2p_gather": FRAMES,
-            "apply_laplacian": solves,
-            "cheb_step": (sk.CHEB_DEGREE - 1) * solves}
-    if launches != want or min(launches.values()) == 0:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
-    ms_frame = 1e3 * wall_s / FRAMES
-    print(f"ms/frame {ms_frame:.3f}  steps/s {FRAMES / wall_s:.3f}  "
-          f"({FRAMES} frames, host clock, synchronised)")
+    del sim
 
-    # ---- 5. determinism ---------------------------------------------------
-    k = min(3, len(kes))
-    rerun = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
-                    seed=SEED, device=dev)
-    ke2 = [float(rerun.step()["kinetic_energy"]) for _ in range(k)]
-    if ke2 != kes[:k]:
-        raise AssertionError(f"rerun energies {ke2} != {kes[:k]}")
-    print(f"determinism: {k} frames rerun from seed {SEED}: "
-          f"bit-identical kinetic energy {ke2}")
-    del rerun
+    # ---- 5. FLIP determinism ----------------------------------------------
+    _rerun("flip", kes, dev, torch)
 
-    # ---- 6. a small scene: card against the plain versions on the CPU -----
-    small = dict(bound=8, density=3.0, seed=SEED)
-    gpu_sim = FlipSim("water_cube_drop", device=dev, **small)
-    cpu_sim = FlipSim("water_cube_drop", device="cpu", **small)
-    # f32 sums in another order may move CG's stopping test by one iteration
-    # in a pass; the outer passes, the energy and the positions must agree
-    for f in range(3):
-        mg, mc = gpu_sim.step(), cpu_sim.step()
-        kg, kc = float(mg["kinetic_energy"]), float(mc["kinetic_energy"])
-        print(f"reference frame {f}: card ke {kg:.7g} outer {mg['outer_iters']}"
-              f" cg {mg['cg_iters']} | cpu ke {kc:.7g} outer "
-              f"{mc['outer_iters']} cg {mc['cg_iters']}")
-        if (abs(kg - kc) > 1e-4 * abs(kc)
-                or mg["outer_iters"] != mc["outer_iters"]
-                or abs(mg["cg_iters"] - mc["cg_iters"]) > mc["outer_iters"]):
-            raise AssertionError(f"small scene frame {f}: card and cpu differ")
-    pos_err = _max_err(gpu_sim.state.pos.cpu(), cpu_sim.state.pos)
-    if pos_err > 1e-3:
-        raise AssertionError(f"small scene positions differ by {pos_err}")
-    print(f"reference: bound 8, 3 frames, max pos diff card vs cpu "
-          f"{pos_err:.3e}")
+    # ---- 6. the APIC kernels against their plain versions -----------------
+    sim = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+                  seed=SEED, device=dev, mode="apic")
+    vel0 = torch.as_tensor(rng.normal(scale=3.0, size=(P, 3))
+                           .astype(np.float32), device=dev)
+    aff0 = torch.as_tensor(rng.normal(scale=0.5, size=(P, 9))
+                           .astype(np.float32), device=dev)
+    pos_s, vel_s, flat, aff_s = tk.sort_by_cell(sim.state.pos, vel0, B,
+                                                extra=aff0)
+    veff = vel_s + mv3(aff_s.reshape(-1, 3, 3), cround(pos_s) - pos_s)
+    w27t = tk.masked_weights_cm(pos_s, B)
+    cs = tk.cell_starts(flat, n)
+    results["p2g_scatter_affine"] = _compare(
+        "K1 aff p2g_scatter_affine",
+        lambda: tk.p2g_scatter_affine(w27t, veff, aff_s, cs, n),
+        lambda: tk.p2g_scatter_affine_plain(w27t, veff, aff_s, cs, n), 1e-5,
+        (w27t, veff, aff_s, cs), 27 * 25 * P, torch)
+    acc = tk.p2g_scatter_affine(w27t, veff, aff_s, cs, n)
+    vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
+    fm = tk.gather_fields(vc, B, wall)
+    results["g2p_moments"] = _compare(
+        "K2 moments g2p_moments", lambda: tk.g2p_moments(fm, w27t, flat),
+        lambda: tk.g2p_moments_plain(fm, w27t, flat), 1e-5,
+        (fm, w27t, flat), 27 * 44 * P, torch)
+    vel_a, c_a = apic.g2p_apic(w27t, flat, pos_s, vc, B, wall)
+    if not (bool(torch.isfinite(vel_a).all()) and bool(torch.isfinite(c_a).all())):
+        raise AssertionError("g2p_apic: non-finite velocity or C")
+    del acc, vc, fm, vel0, aff0, pos_s, vel_s, flat, aff_s, veff, w27t, cs
+    del vel_a, c_a
 
-    sources = {"p2g_scatter": ("fluidsim_tpu_torch/csrc/transfer.cu",
-                               "fluidsim_tpu/ops/pallas_transfer.py:1064"),
-               "g2p_gather": ("fluidsim_tpu_torch/csrc/transfer.cu",
-                              "fluidsim_tpu/ops/pallas_transfer.py:1339"),
-               "apply_laplacian": ("fluidsim_tpu_torch/csrc/stencil.cu",
-                                   "fluidsim_tpu/ops/pallas_stencil.py:89"),
-               "cheb_step": ("fluidsim_tpu_torch/csrc/stencil.cu",
-                             "fluidsim_tpu/ops/pallas_stencil.py:382")}
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], "max_abs_err": results[name][0],
-                "ms": results[name][1], "plain_ms": results[name][2]}
-               for name, (src, rep) in sources.items()]
+    # ---- 7. the APIC main path --------------------------------------------
+    kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
+    ke, apic_launches = _run_frames(sim, counted, torch)
+    kes += ke
+    del sim
+
+    # ---- 8. APIC determinism ----------------------------------------------
+    _rerun("apic", kes, dev, torch)
+
+    # ---- 9. a small scene: card against the plain versions on the CPU -----
+    for mode in ("flip", "apic", "pic"):
+        _small_scene(mode, dev)
+
+    csrc = "fluidsim_tpu_torch/csrc/"
+    sources = {
+        "p2g_scatter": ("transfer.cu", "pallas_transfer.py:1064", flip_launches),
+        "g2p_gather": ("transfer.cu", "pallas_transfer.py:1339", flip_launches),
+        "apply_laplacian": ("stencil.cu", "pallas_stencil.py:89", flip_launches),
+        "cheb_step": ("stencil.cu", "pallas_stencil.py:382", flip_launches),
+        "p2g_scatter_affine": ("transfer.cu", "pallas_transfer.py:1064",
+                               apic_launches),
+        "g2p_moments": ("transfer.cu", "pallas_transfer.py:1339",
+                        apic_launches)}
+    kernels = [{"name": name, "route": "cuda", "source": csrc + src,
+                "replaces": "fluidsim_tpu/ops/" + rep,
+                "launches": launches[name], **results[name]}
+               for name, (src, rep, launches) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""fluidsim_tpu_torch — the FLIP liquid solver of ``fluidsim_tpu`` on
-PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (H100).
+"""fluidsim_tpu_torch — the FLIP, PIC and APIC liquid solver of
+``fluidsim_tpu`` on PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper (H100).
 
 Plain tensor code is PyTorch; the particle transfers and the pressure-solve
 stencils are CUDA kernels (``csrc/``) built with ``nvcc`` at first use.  On

@@ -1,8 +1,8 @@
-// Particle <-> grid transfer kernels of the FLIP frame (K1, K2), for Hopper
-// (sm_90a), with a plain C interface bound through ctypes
-// (fluidsim_tpu_torch/ops/transfer_kernels.py).
+// Particle <-> grid transfer kernels of the FLIP, PIC and APIC frames (K1,
+// K2 and their APIC modes), for Hopper (sm_90a), with a plain C interface
+// bound through ctypes (fluidsim_tpu_torch/ops/transfer_kernels.py).
 //
-// Both kernels take particles sorted by the flat id (x*n + y)*n + z of their
+// All take particles sorted by the flat id (x*n + y)*n + z of their
 // clipped base cell round(pos) + B, and the transposed stencil weights
 // w27t (27, P) f32, zero for particles whose base cell is outside the box.
 // Offset o is (o/9 - 1, (o/3)%3 - 1, o%3 - 1).
@@ -34,7 +34,27 @@
 //   Design: one thread per particle; consecutive threads are consecutive
 //   sorted particles, so the weight reads and output writes are coalesced.
 //
-// Both are built with --fmad=false so every product and sum is rounded as
+// K1 aff fs_p2g_scatter_affine replaces the same TPU kernel with the APIC
+//   affine block live (pack_cols(aff=...), _wv_mats_cm):
+//   the velocity of offset o is veff_p + C_p off_o, i.e.
+//   veff_i + C[i,0]*off_0 + C[i,1]*off_1 + C[i,2]*off_2 summed in that order,
+//   with veff = v + C (base - pos) formed by the caller (ops/apic.py).
+//   Bound on the H100: memory.  Compulsory traffic adds C (36 B/particle)
+//   to K1's; at 129^3 / 2M particles ~353 MB.  Design: K1's pull with a
+//   template flag, so the FLIP instantiation is the same code as before.
+//
+// K2 moments fs_g2p_moments replaces the same TPU gather with nout=24
+//   (_contract_mat): the 22 live rows, from wf = w27t[o,p] * fm[:, base+off_o]
+//     row 0 den = sum wf3, rows 1-3 sum wf_c, rows 4-6 sum wf3 off_k,
+//     rows 7-15 sum wf_c off_k (row 7+3c+k), rows 16-21 sum wf3 off_k off_l
+//     over the pairs (00, 01, 02, 11, 12, 22).
+//   Output (22, P) f32.  Bound on the H100: memory; per particle 108 B of
+//   weights, 4 B of id, 88 B of output, the grid values from cache; ~432 MB
+//   at 129^3 / 2M particles.  Design: K2's thread per particle with 22
+//   register accumulators; the offsets are compile-time constants in
+//   {-1, 0, 1}, so every product by an offset is exact.
+//
+// All are built with --fmad=false so every product and sum is rounded as
 // in the plain PyTorch versions they are checked against.
 
 #include <cuda_runtime.h>
@@ -43,8 +63,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kAffine>
 __global__ void p2g_scatter_kernel(const float* __restrict__ w27t,
                                    const float* __restrict__ vel,
+                                   const float* __restrict__ aff,
                                    const int* __restrict__ cell_start,
                                    float* __restrict__ out, int n,
                                    long long np) {
@@ -56,26 +78,86 @@ __global__ void p2g_scatter_kernel(const float* __restrict__ w27t,
   const int z = (int)(c % n);
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
   for (int o = 0; o < 27; ++o) {
-    const int bx = x - (o / 9 - 1);
-    const int by = y - ((o / 3) % 3 - 1);
-    const int bz = z - (o % 3 - 1);
+    const int ox = o / 9 - 1, oy = (o / 3) % 3 - 1, oz = o % 3 - 1;
+    const int bx = x - ox;
+    const int by = y - oy;
+    const int bz = z - oz;
     if (bx < 0 || bx >= n || by < 0 || by >= n || bz < 0 || bz >= n) continue;
     const long long b = ((long long)bx * n + by) * n + bz;
     const int s = cell_start[b];
     const int e = cell_start[b + 1];
     const float* wo = w27t + (long long)o * np;
+    const float fx = (float)ox, fy = (float)oy, fz = (float)oz;
     for (int p = s; p < e; ++p) {
       const float w = wo[p];
+      float v0 = vel[3LL * p];
+      float v1 = vel[3LL * p + 1];
+      float v2 = vel[3LL * p + 2];
+      if (kAffine) {
+        const float* cp = aff + 9LL * p;
+        v0 = v0 + cp[0] * fx + cp[1] * fy + cp[2] * fz;
+        v1 = v1 + cp[3] * fx + cp[4] * fy + cp[5] * fz;
+        v2 = v2 + cp[6] * fx + cp[7] * fy + cp[8] * fz;
+      }
       a0 += w;
-      a1 += w * vel[3LL * p];
-      a2 += w * vel[3LL * p + 1];
-      a3 += w * vel[3LL * p + 2];
+      a1 += w * v0;
+      a2 += w * v1;
+      a3 += w * v2;
     }
   }
   out[c] = a0;
   out[ncell + c] = a1;
   out[2 * ncell + c] = a2;
   out[3 * ncell + c] = a3;
+}
+
+constexpr int kMoments = 22;
+
+__global__ void g2p_moments_kernel(const float* __restrict__ fm,
+                                   const float* __restrict__ w27t,
+                                   const int* __restrict__ flat,
+                                   float* __restrict__ out, int n,
+                                   long long np) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= np) return;
+  const long long ncell = (long long)n * n * n;
+  const int f = flat[p];
+  const int x = f / (n * n);
+  const int y = (f / n) % n;
+  const int z = f % n;
+  const int kPairK[6] = {0, 0, 0, 1, 1, 2};
+  const int kPairL[6] = {0, 1, 2, 1, 2, 2};
+  float acc[kMoments];
+#pragma unroll
+  for (int r = 0; r < kMoments; ++r) acc[r] = 0.f;
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    const int off[3] = {o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1};
+    const int cx = x + off[0];
+    const int cy = y + off[1];
+    const int cz = z + off[2];
+    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n) continue;
+    const long long c = ((long long)cx * n + cy) * n + cz;
+    const float w = w27t[(long long)o * np + p];
+    const float wf[4] = {w * fm[c], w * fm[ncell + c], w * fm[2 * ncell + c],
+                         w * fm[3 * ncell + c]};
+    acc[0] += wf[3];
+    acc[1] += wf[0];
+    acc[2] += wf[1];
+    acc[3] += wf[2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[4 + k] += wf[3] * (float)off[k];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        acc[7 + 3 * ch + k] += wf[ch] * (float)off[k];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      acc[16 + i] += wf[3] * (float)(off[kPairK[i]] * off[kPairL[i]]);
+  }
+#pragma unroll
+  for (int r = 0; r < kMoments; ++r) out[r * np + p] = acc[r];
 }
 
 __global__ void g2p_gather_kernel(const float* __restrict__ fm,
@@ -116,8 +198,19 @@ extern "C" int fs_p2g_scatter(const float* w27t, const float* vel,
                               long long np, void* stream) {
   const long long ncell = (long long)n * n * n;
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  p2g_scatter_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      w27t, vel, cell_start, out, n, np);
+  p2g_scatter_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      w27t, vel, nullptr, cell_start, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_p2g_scatter_affine(const float* w27t, const float* veff,
+                                     const float* aff, const int* cell_start,
+                                     float* out, int n, long long np,
+                                     void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
+  p2g_scatter_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      w27t, veff, aff, cell_start, out, n, np);
   return (int)cudaGetLastError();
 }
 
@@ -127,6 +220,16 @@ extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
   if (np == 0) return 0;
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   g2p_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      fm, w27t, flat, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_g2p_moments(const float* fm, const float* w27t,
+                              const int* flat, float* out, int n,
+                              long long np, void* stream) {
+  if (np == 0) return 0;
+  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
+  g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       fm, w27t, flat, out, n, np);
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,20 @@
-"""FLIP incompressible liquid frame on PyTorch — the counterpart of
-``fluidsim_tpu/models/flip.py`` on its kernel path (``mode="flip"`` with the
+"""FLIP / PIC / APIC incompressible liquid frame on PyTorch — the
+counterpart of ``fluidsim_tpu/models/flip.py`` on its kernel path (the
 fused transfers and the packed, Chebyshev-preconditioned projection).
 
 One ``flip_step`` is
 
-  sort by cell -> P2G (K1) -> occupancy -> pressure projection do-while
-  (PCG with K3 applies and K4 Chebyshev steps) -> FLIP delta G2P (K2) ->
-  CFL dt -> advection with solid bounce
+  sort by cell -> P2G (K1, or K1 aff in APIC) -> occupancy -> pressure
+  projection do-while (PCG with K3 applies and K4 Chebyshev steps) -> G2P
+  (FLIP: the delta through K2; PIC: the new velocity through K2; APIC: the
+  offset moments through K2 moments and the affine fit) -> CFL dt ->
+  advection with solid bounce (restitution 0 in FLIP, 0.5 in PIC and APIC)
 
 with every field a dense f32 tensor on one device.  The projection keeps
 the reference's outer divergence-correction loop (relative error <= 0.1)
 and its quirks (gradient at dt/10 strength, gravity re-applied per pass).
-The JAX package's other modes and schedules (PIC, APIC, chunked and
-sharded transfers, multigrid, the clean projection) are not ported here.
+The JAX package's other schedules (chunked and sharded transfers,
+multigrid, the clean projection) are not ported here.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm, flat_index
 from fluidsim_tpu_torch.core.splines import cround, cround_out
+from fluidsim_tpu_torch.ops import apic
 from fluidsim_tpu_torch.ops import pressure as pr
 from fluidsim_tpu_torch.ops import stencil_kernels as sk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
@@ -39,8 +42,9 @@ from fluidsim_tpu_torch.utils.profiling import check_finite
 class FlipParams:
     """Solver configuration.  Defaults mirror the reference constants: dt
     cap 0.1, rho = 1, dx = 1, gravity (0, -10, 0), outer tolerance 0.1.
-    The frame is FLIP mode with the FLIP spline and a Chebyshev-Jacobi
-    preconditioner of degree ``stencil_kernels.CHEB_DEGREE``."""
+    ``mode`` is "flip", "pic" or "apic".  The frame uses the FLIP spline
+    and a Chebyshev-Jacobi preconditioner of degree
+    ``stencil_kernels.CHEB_DEGREE``."""
 
     bound: int = 60
     wall: int = 58
@@ -52,8 +56,14 @@ class FlipParams:
     max_outer: int = 100
     pcg_rtol: float = 0.0            # 0 = auto by grid size (auto_pcg_rtol)
     pcg_maxiter: int = 400
+    mode: str = "flip"               # "flip" (e=0), "pic" or "apic" (e=0.5)
     walls_only_solid: bool = False   # solid == box walls exactly: analytic
                                      # bounce probe (auto-detected by FlipSim)
+
+    def __post_init__(self):
+        if self.mode not in ("flip", "pic", "apic"):
+            raise ValueError(f"mode {self.mode!r}: expected 'flip', 'pic' "
+                             "or 'apic'")
 
 
 @dataclasses.dataclass
@@ -64,6 +74,8 @@ class FlipState:
     t: torch.Tensor          # () accumulated simulation time
     frame: torch.Tensor      # () int32
     pressure: torch.Tensor   # (N,N,N) last pressure, warm-starts the next solve
+    aff: torch.Tensor | None = None   # (P, 3, 3) APIC affine matrices
+                                      # (mode="apic"), else None
 
 
 def lookup_bool(grid: torch.Tensor, cells: torch.Tensor, bound: int):
@@ -130,6 +142,10 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
 
     Returns (velg', err, n_outer, cg_iters_total, div_rms, pressure), with
     ``n_outer`` and ``cg_iters_total`` Python ints.
+
+    The JAX ``project`` caps the packed block size at 16 in APIC mode to fit
+    the TPU's VMEM; the dense layout here has no block size, so every mode
+    solves the same way.
     """
     g = params.gravity
     dx, rho = params.dx, params.rho
@@ -168,14 +184,24 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
 
 
 def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
-    """One FLIP frame; returns (new_state, metrics)."""
+    """One frame in ``params.mode``; returns (new_state, metrics)."""
     B, wall = params.bound, params.wall
     n = 2 * B + 1
     dt = state.dt
+    aff = state.aff
 
-    pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B)
-    w27t = tk.masked_weights_cm(pos, B)   # shared by P2G and G2P
-    weights, mom, occ = tk.p2g(w27t, vel, tk.cell_starts(flat, n), solid, B)
+    if params.mode == "apic":
+        pos, vel, flat, aff_flat = tk.sort_by_cell(
+            state.pos, state.vel, B, extra=aff.reshape(-1, 9))
+        aff = aff_flat.reshape(-1, 3, 3)
+        w27t = tk.masked_weights_cm(pos, B)   # shared by P2G and G2P
+        weights, mom, occ = apic.p2g_apic(w27t, pos, vel, aff,
+                                          tk.cell_starts(flat, n), solid, B)
+    else:
+        pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B)
+        w27t = tk.masked_weights_cm(pos, B)
+        weights, mom, occ = tk.p2g(w27t, vel, tk.cell_starts(flat, n),
+                                   solid, B)
     velg = normalize_velocity_cm(weights, mom)
     fluid = (occ > 0) & ~solid
     velb = velg
@@ -183,10 +209,17 @@ def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
     velg, err, n_outer, cg_iters, div_rms, pressure = project(
         params, velg, fluid, solid, dt, p0=state.pressure)
 
-    delta = tk.g2p(w27t, flat,
-                   cell_center_velocity_cm(velg) - cell_center_velocity_cm(velb),
-                   B, wall)
-    vel = vel + delta
+    vc_new = cell_center_velocity_cm(velg)
+    if params.mode == "apic":
+        vel, aff = apic.g2p_apic(w27t, flat, pos, vc_new, B, wall)
+        e = 0.5
+    elif params.mode == "flip":
+        vel = vel + tk.g2p(w27t, flat, vc_new - cell_center_velocity_cm(velb),
+                           B, wall)
+        e = 0.0
+    else:
+        vel = tk.g2p(w27t, flat, vc_new, B, wall)
+        e = 0.5
 
     # CFL
     speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
@@ -196,11 +229,11 @@ def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
                          torch.minimum(max_dt, params.dx / max_speed), max_dt)
 
     pos, vel = advect_bounce(
-        pos, vel, dt_new, solid, B, 0.0, rounding="round",
+        pos, vel, dt_new, solid, B, e, rounding="round",
         analytic_wall=params.wall if params.walls_only_solid else None)
 
     new_state = FlipState(pos=pos, vel=vel, dt=dt_new, t=state.t + dt_new,
-                          frame=state.frame + 1, pressure=pressure)
+                          frame=state.frame + 1, pressure=pressure, aff=aff)
     metrics = {
         "error": err,
         "dt_used": dt,
@@ -218,13 +251,17 @@ def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
     return new_state, metrics
 
 
-def _auto_params(scene: Scene, params: FlipParams | None) -> FlipParams:
-    """The scene's default parameters, with the analytic bounce probe
-    switched on when the scene's solid is exactly the box walls."""
+def _auto_params(scene: Scene, params: FlipParams | None,
+                 mode: str | None = None) -> FlipParams:
+    """The scene's default parameters (``mode``, when given, replaces the
+    mode of ``params``), with the analytic bounce probe switched on when the
+    scene's solid is exactly the box walls."""
     if params is None:
         params = FlipParams(bound=scene.spec.bound, wall=scene.spec.wall,
                             dx=scene.spec.dx,
                             gravity=tuple(scene.gravity))
+    if mode is not None:
+        params = dataclasses.replace(params, mode=mode)
     # Walls-only scenes take the analytic bounce probe.
     if (not params.walls_only_solid
             and params.wall == scene.spec.wall
@@ -236,8 +273,11 @@ def _auto_params(scene: Scene, params: FlipParams | None) -> FlipParams:
 
 
 class FlipSim:
-    """The simulation: owns the state on one explicit device and runs the
-    frame loop.
+    """The simulation: owns the state on one device and runs the frame loop.
+
+    ``device`` is "cuda" unless the caller asks for another (the tests pass
+    "cpu"); without a card the default raises.  ``mode`` ("flip", "pic" or
+    "apic"), when given, replaces the mode of ``params``.
 
     f32 throughout.  TF32 is switched off for matmuls and cuDNN (both
     process-wide PyTorch flags) when a sim is built, so no f32 product on
@@ -246,10 +286,10 @@ class FlipSim:
 
     def __init__(self, scene: Scene | str = "water_cube_drop",
                  params: FlipParams | None = None, seed: int = 0, *,
-                 device, **scene_kwargs):
+                 device="cuda", mode: str | None = None, **scene_kwargs):
         if isinstance(scene, str):
             scene = get_scene(scene, **scene_kwargs)
-        params = _auto_params(scene, params)
+        params = _auto_params(scene, params, mode)
         device = torch.device(device)
         pos, vel = seed_particles(scene, seed=seed)
         f32 = dict(dtype=torch.float32, device=device)
@@ -257,26 +297,32 @@ class FlipSim:
             pos=torch.as_tensor(pos, **f32), vel=torch.as_tensor(vel, **f32),
             dt=torch.tensor(params.max_dt, **f32), t=torch.zeros((), **f32),
             frame=torch.zeros((), dtype=torch.int32, device=device),
-            pressure=torch.zeros(scene.spec.shape, **f32))
+            pressure=torch.zeros(scene.spec.shape, **f32),
+            aff=(torch.zeros((pos.shape[0], 3, 3), **f32)
+                 if params.mode == "apic" else None))
         self._setup(scene, params, state, device)
 
     @classmethod
     def from_state(cls, scene: Scene | str, state: FlipState,
-                   params: FlipParams | None = None, *, device,
-                   **scene_kwargs) -> "FlipSim":
+                   params: FlipParams | None = None, *, device="cuda",
+                   mode: str | None = None, **scene_kwargs) -> "FlipSim":
         """A sim that continues from ``state`` (e.g. one carried over from
         the JAX package by ``interop.state_from_numpy``)."""
         if isinstance(scene, str):
             scene = get_scene(scene, **scene_kwargs)
         device = torch.device(device)
         sim = cls.__new__(cls)
-        moved = FlipState(**{f.name: getattr(state, f.name).to(device)
-                             for f in dataclasses.fields(FlipState)})
-        sim._setup(scene, _auto_params(scene, params), moved, device)
+        moved = FlipState(**{
+            f.name: (None if getattr(state, f.name) is None
+                     else getattr(state, f.name).to(device))
+            for f in dataclasses.fields(FlipState)})
+        sim._setup(scene, _auto_params(scene, params, mode), moved, device)
         return sim
 
     def _setup(self, scene: Scene, params: FlipParams,
                state: FlipState, device: torch.device):
+        if params.mode == "apic" and state.aff is None:
+            raise ValueError("mode='apic' needs a state with aff (P, 3, 3)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.scene = scene

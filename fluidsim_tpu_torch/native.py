@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface and loaded with ``ctypes``.  The
-build runs at first use, into ``fluidsim_tpu_torch/_build/`` (listed in
-``.gitignore``), under a name keyed by a hash of the sources and flags, so a
-fresh checkout builds once and an edited source rebuilds.  Nothing here runs
-at import time: the CPU tests import every module without a CUDA toolkit.
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at
+first use, into ``fluidsim_tpu_torch/_build/`` (listed in ``.gitignore``),
+under a name keyed by a hash of the sources and flags, so a fresh checkout
+builds once and an edited source rebuilds.  Nothing here runs at import
+time: the CPU tests import every module without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -25,14 +26,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("transfer.cu", "stencil.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as void*, sizes as int64)
     "fs_p2g_scatter": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
+    "fs_p2g_scatter_affine": (_P, _P, _P, _P, _P, ctypes.c_int,
+                              ctypes.c_longlong, _P),
     "fs_g2p_gather": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
+    "fs_g2p_moments": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "fs_apply_laplacian": (_P, _P, _P, ctypes.c_float, ctypes.c_int, _P),
     "fs_cheb_step": (_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
                      ctypes.c_float, ctypes.c_int, _P),
@@ -56,7 +60,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -65,25 +69,33 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if no library for these sources exists yet;
-    return its path.  The library is written under a temporary name and
-    renamed into place, so concurrent builders never load a partial file."""
+    return its path.  Each source compiles in its own ``nvcc`` process, all
+    at once; the objects are linked under a temporary name and renamed into
+    place, so concurrent builders never load a partial file."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s),
+                                   "-o", o], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        build_log = "".join(p.communicate()[0] for p in procs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        lib = os.path.join(tmp, out.name)
+        res = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib, *objs],
+                             capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{build_log}")
+        os.replace(lib, out)
     return out
 
 

@@ -2,7 +2,9 @@
 and G2P (K2) kernels — the counterpart of ``fluidsim_tpu/ops/transfer_pallas.py``
 (``sort_by_cell_h``, ``masked_weights_cm``, ``p2g_pallas``, ``g2p_pallas``) and
 ``fluidsim_tpu/ops/pallas_transfer.py`` (``scatter_wv_fused``,
-``gather_wv_fused``).
+``gather_wv_fused``).  The APIC modes of those two kernels (the affine
+scatter, ``aff=``, and the 24-moment gather, ``nout=24``) are
+``p2g_scatter_affine`` and ``g2p_moments``; ``ops.apic`` wraps them.
 
 Particles are sorted by the plain flat id ``(x*n + y)*n + z`` of their
 clipped base cell; ``cell_start`` (n^3 + 1 offsets into the sorted arrays)
@@ -10,10 +12,10 @@ gives each cell's particle range.  The (27, P) stencil weights are computed
 once per frame and shared by both directions.  The TPU path's window layout
 (haloed ids, packed columns, one-hot matmuls) is not needed here.
 
-``p2g_scatter`` and ``g2p_gather`` launch the CUDA kernels of
-``csrc/transfer.cu`` for CUDA tensors and use their plain PyTorch versions
-only for CPU tensors; anything else raises.  Each counts its kernel launches
-in ``.launches``.
+``p2g_scatter``, ``p2g_scatter_affine``, ``g2p_gather`` and ``g2p_moments``
+launch the CUDA kernels of ``csrc/transfer.cu`` for CUDA tensors and use
+their plain PyTorch versions only for CPU tensors; anything else raises.
+Each counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -25,19 +27,24 @@ from fluidsim_tpu_torch.core.splines import cround
 from fluidsim_tpu_torch.ops.transfer import _KERNELS, _OFFSETS
 
 
-def sort_by_cell(pos: torch.Tensor, vel: torch.Tensor, bound: int):
+def sort_by_cell(pos: torch.Tensor, vel: torch.Tensor, bound: int,
+                 extra: torch.Tensor | None = None):
     """Stable sort of particles by the flat id of their clipped base cell.
 
-    Returns ``(pos_s, vel_s, flat_s)`` with ``flat_s`` int32.  Particles
-    outside the box clip to the boundary cell; their weights vanish
-    (``masked_weights_cm``).  The JAX package's haloed ids give the same
-    order, and its sort is stable too, so both sort into the same sequence.
+    Returns ``(pos_s, vel_s, flat_s)`` with ``flat_s`` int32, and with
+    ``extra`` (an optional (P, k) payload, e.g. the flattened APIC C) its
+    sorted rows as a fourth element.  Particles outside the box clip to the
+    boundary cell; their weights vanish (``masked_weights_cm``).  The JAX
+    package's haloed ids give the same order, and its sort is stable too,
+    so both sort into the same sequence.
     """
     n = 2 * bound + 1
     bc = torch.clamp(cround(pos).to(torch.int32) + bound, 0, n - 1)
     flat = (bc[:, 0] * n + bc[:, 1]) * n + bc[:, 2]
     flat_s, perm = torch.sort(flat, stable=True)
-    return pos[perm], vel[perm], flat_s
+    if extra is None:
+        return pos[perm], vel[perm], flat_s
+    return pos[perm], vel[perm], flat_s, extra[perm]
 
 
 def cell_starts(flat_s: torch.Tensor, n: int) -> torch.Tensor:
@@ -124,20 +131,89 @@ def p2g_scatter(w27t: torch.Tensor, vel_s: torch.Tensor,
 p2g_scatter.launches = 0
 
 
+# ---- K1 aff: APIC P2G scatter ---------------------------------------------
+
+_OFF = torch.as_tensor(_OFFSETS, dtype=torch.float32)       # (27, 3)
+
+
+def p2g_scatter_affine_plain(w27t: torch.Tensor, veff_s: torch.Tensor,
+                             aff_s: torch.Tensor, cell_start: torch.Tensor,
+                             n: int) -> torch.Tensor:
+    """Plain PyTorch K1 aff: as ``p2g_scatter_plain`` with the velocity of
+    offset o ``veff + C off_o`` (``veff_i + C[i,0] off_0 + C[i,1] off_1 +
+    C[i,2] off_2``, summed in that order).  ``aff_s`` is (P, 9), row-major
+    C.  Returns (4, n, n, n)."""
+    counts = (cell_start[1:] - cell_start[:-1]).to(torch.int64)
+    flat = torch.repeat_interleave(
+        torch.arange(n ** 3, device=w27t.device), counts)
+    off = _OFF.to(w27t.device)
+    c = aff_s.reshape(-1, 1, 3, 3)
+    v = (veff_s[:, None, :] + c[..., 0] * off[None, :, 0, None]
+         + c[..., 1] * off[None, :, 1, None]
+         + c[..., 2] * off[None, :, 2, None])                 # (P, 27, 3)
+    u = torch.cat([w27t.T[..., None], w27t.T[..., None] * v], dim=-1)
+    d = torch.zeros((n ** 3, 27 * 4), dtype=w27t.dtype, device=w27t.device)
+    d.index_add_(0, flat, u.reshape(-1, 27 * 4))
+    d = d.reshape(n, n, n, 27, 4)
+    acc = torch.zeros((n, n, n, 4), dtype=w27t.dtype, device=w27t.device)
+    for o in range(27):
+        acc = acc + _shift3(d[..., o, :], _OFFSETS[o])
+    return acc.permute(3, 0, 1, 2).contiguous()
+
+
+def p2g_scatter_affine(w27t: torch.Tensor, veff_s: torch.Tensor,
+                       aff_s: torch.Tensor, cell_start: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """K1 aff: ``out[g, c] = sum_o sum_{p: base(p) = c - off_o} w27t[o, p] *
+    [1, veff_p + C_p off_o][g]``, dropping contributions outside the box.
+    (4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_affine``
+    (``csrc/transfer.cu``); CPU tensors take ``p2g_scatter_affine_plain``."""
+    if w27t.device.type == "cpu":
+        return p2g_scatter_affine_plain(w27t, veff_s, aff_s, cell_start, n)
+    native.require_cuda(w27t, "p2g_scatter_affine")
+    dev = w27t.device
+    p = veff_s.shape[0]
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
+    native.check_tensor("veff_s", veff_s, torch.float32, (p, 3), dev)
+    native.check_tensor("aff_s", aff_s, torch.float32, (p, 9), dev)
+    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
+    if p >= 2 ** 31:
+        raise ValueError("p2g_scatter_affine: more than 2^31 - 1 particles")
+    out = torch.empty((4, n, n, n), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_p2g_scatter_affine(w27t.data_ptr(), veff_s.data_ptr(),
+                                       aff_s.data_ptr(), cell_start.data_ptr(),
+                                       out.data_ptr(), n, p,
+                                       native.stream_ptr(dev))
+    native.check_launch("p2g_scatter_affine", rc)
+    p2g_scatter_affine.launches += 1
+    return out
+
+
+p2g_scatter_affine.launches = 0
+
+
 # ---- K2: G2P gather -------------------------------------------------------
 
-def g2p_gather_plain(fm: torch.Tensor, w27t: torch.Tensor,
-                     flat_s: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K2: 27 masked gathers of the 4 channels.  (4, P)."""
+def _neighbour_fields(fm: torch.Tensor, flat_s: torch.Tensor):
+    """Yield ``(o, vals)`` for the 27 offsets in order: the (4, P) values of
+    ``fm`` at ``base(p) + off_o``, 0 where that cell is outside the box."""
     n = fm.shape[1]
     bc = torch.stack([flat_s // (n * n), (flat_s // n) % n, flat_s % n], -1)
     fm_flat = fm.reshape(4, -1)
-    out = torch.zeros((4, flat_s.shape[0]), dtype=fm.dtype, device=fm.device)
     for o in range(27):
         cell = bc + torch.as_tensor(_OFFSETS[o], device=fm.device)
         inb = torch.all((cell >= 0) & (cell < n), dim=-1)
         ids = ((cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]).clamp(0, n ** 3 - 1)
-        vals = torch.where(inb[None], fm_flat[:, ids], 0.0)
+        yield o, torch.where(inb[None], fm_flat[:, ids], 0.0)
+
+
+def g2p_gather_plain(fm: torch.Tensor, w27t: torch.Tensor,
+                     flat_s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2: 27 masked gathers of the 4 channels.  (4, P)."""
+    out = torch.zeros((4, flat_s.shape[0]), dtype=fm.dtype, device=fm.device)
+    for o, vals in _neighbour_fields(fm, flat_s):
         out = out + w27t[o][None] * vals
     return out
 
@@ -171,6 +247,67 @@ def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor,
 g2p_gather.launches = 0
 
 
+# ---- K2 moments: APIC G2P offset moments -----------------------------------
+
+MOMENT_ROWS = 22
+_SYM_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def g2p_moments_plain(fm: torch.Tensor, w27t: torch.Tensor,
+                      flat_s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2 moments: the 22 live rows of the JAX package's
+    ``_contract_mat(24)``, each summed over the 27 offsets in order, from
+    ``wf = w27t[o] * fm(base + off_o)``:
+
+      row 0       den     = sum wf[3]                 (wf[3] = w * mask)
+      rows 1-3    vnum_c  = sum wf[c]
+      rows 4-6    mbar_k  = sum wf[3] off_k
+      rows 7-15   F_{c,k} = sum wf[c] off_k           (row 7 + 3c + k)
+      rows 16-21  M_{kl}  = sum wf[3] off_k off_l     (``_SYM_PAIRS``)
+
+    Returns (22, P)."""
+    out = torch.zeros((MOMENT_ROWS, flat_s.shape[0]), dtype=fm.dtype,
+                      device=fm.device)
+    for o, vals in _neighbour_fields(fm, flat_s):
+        wf = w27t[o][None] * vals
+        off = [int(v) for v in _OFFSETS[o]]
+        terms = [wf[3], wf[0], wf[1], wf[2]]
+        terms += [wf[3] * float(off[k]) for k in range(3)]
+        terms += [wf[c] * float(off[k]) for c in range(3) for k in range(3)]
+        terms += [wf[3] * float(off[k] * off[l]) for k, l in _SYM_PAIRS]
+        out = out + torch.stack(terms)
+    return out
+
+
+def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor,
+                flat_s: torch.Tensor) -> torch.Tensor:
+    """K2 moments: the (22, P) f32 offset moments of ``g2p_moments_plain``
+    (neighbours outside the box read 0).  CUDA tensors launch
+    ``fs_g2p_moments`` (``csrc/transfer.cu``); CPU tensors take
+    ``g2p_moments_plain``."""
+    if fm.device.type == "cpu":
+        return g2p_moments_plain(fm, w27t, flat_s)
+    native.require_cuda(fm, "g2p_moments")
+    dev = fm.device
+    n = fm.shape[1]
+    p = flat_s.shape[0]
+    native.check_tensor("fm", fm, torch.float32, (4, n, n, n), dev)
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
+    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    out = torch.empty((MOMENT_ROWS, p), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_g2p_moments(fm.data_ptr(), w27t.data_ptr(),
+                                flat_s.data_ptr(), out.data_ptr(), n, p,
+                                native.stream_ptr(dev))
+    native.check_launch("g2p_moments", rc)
+    g2p_moments.launches += 1
+    return out
+
+
+g2p_moments.launches = 0
+
+
 # ---- the transfers around the kernels -------------------------------------
 
 def _box_within(bound: int, m: int, device) -> torch.Tensor:
@@ -181,14 +318,18 @@ def _box_within(bound: int, m: int, device) -> torch.Tensor:
 
 def p2g(w27t: torch.Tensor, vel_s: torch.Tensor, cell_start: torch.Tensor,
         solid: torch.Tensor, bound: int):
-    """Full P2G: K1, then the reference's target-cell masks.
+    """Full P2G: K1, then the reference's target-cell masks
+    (``p2g_masks``).  Returns ``weights`` (N,N,N), channel-major ``mom``
+    (3,N,N,N) and ``occ`` (N,N,N)."""
+    accn = p2g_scatter(w27t, vel_s, cell_start, 2 * bound + 1)
+    return p2g_masks(accn, solid, bound)
 
-    Weights and momentum keep cells within ``bound - 2`` that are not solid;
-    occupancy keeps every non-solid cell.  Returns ``weights`` (N,N,N),
-    channel-major ``mom`` (3,N,N,N) and ``occ`` (N,N,N)."""
-    n = 2 * bound + 1
-    accn = p2g_scatter(w27t, vel_s, cell_start, n)
-    p2g_mask = _box_within(bound, bound - 2, w27t.device) & ~solid
+
+def p2g_masks(accn: torch.Tensor, solid: torch.Tensor, bound: int):
+    """Split K1's (4, N, N, N) sums into (weights, mom, occ): weights and
+    momentum keep cells within ``bound - 2`` that are not solid; occupancy
+    keeps every non-solid cell."""
+    p2g_mask = _box_within(bound, bound - 2, accn.device) & ~solid
     weights = torch.where(p2g_mask, accn[0], 0.0)
     mom = torch.where(p2g_mask[None], accn[1:4], 0.0)
     occ = torch.where(~solid, accn[0], 0.0)

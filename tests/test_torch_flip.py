@@ -9,6 +9,8 @@ Advection is elementwise and selects per particle, so it must agree
 exactly.
 """
 
+import inspect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -25,11 +27,11 @@ BOUND, DENSITY, FRAMES = 8, 3.0, 3
 _STATE_KEYS = ("pos", "vel", "dt", "t", "frame", "pressure")
 
 
-def _jax_sim():
+def _jax_sim(mode="flip"):
     scene = jget_scene("water_cube_drop", bound=BOUND, density=DENSITY)
     params = jflip.FlipParams(bound=BOUND, wall=scene.spec.wall,
                               dx=scene.spec.dx, gravity=tuple(scene.gravity),
-                              pallas_transfer=True)
+                              pallas_transfer=True, mode=mode)
     return jflip.FlipSim(scene, params=params, seed=0)
 
 
@@ -68,15 +70,25 @@ def test_frames_match_pallas_branch(runs):
     assert np.isfinite(pos).all() and np.abs(pos).max() < BOUND
 
 
-def test_one_frame_from_a_carried_jax_state(runs):
-    """Start both packages from the JAX state after the run above."""
-    jsim, *_ = runs
-    d = {k: np.asarray(getattr(jsim.state, k)) for k in _STATE_KEYS}
+@pytest.mark.parametrize("mode", ["flip", "apic"])
+def test_one_frame_from_a_carried_jax_state(mode, request):
+    """Start both packages from a JAX state: FLIP's after the run above,
+    APIC's (with its affine matrices) after one frame."""
+    if mode == "flip":
+        jsim = request.getfixturevalue("runs")[0]
+    else:
+        jsim = _jax_sim("apic")
+        with pltpu.force_tpu_interpret_mode():
+            jsim.step()
+    keys = _STATE_KEYS + (("aff",) if mode == "apic" else ())
+    d = {k: np.asarray(getattr(jsim.state, k)) for k in keys}
     state = interop.state_from_numpy(d, device="cpu")
     back = interop.state_to_numpy(state)
-    for k in _STATE_KEYS:
+    assert set(back) == set(keys)
+    for k in keys:
         np.testing.assert_array_equal(back[k], d[k])
-    tsim = tflip.FlipSim.from_state(jsim.scene, state, device="cpu")
+    tsim = tflip.FlipSim.from_state(jsim.scene, state, device="cpu",
+                                    mode=mode)
     with pltpu.force_tpu_interpret_mode():
         jm = jsim.step()
     tm = tsim.step()
@@ -86,6 +98,37 @@ def test_one_frame_from_a_carried_jax_state(runs):
     assert tm["cg_iters"] == int(jm["cg_iters"])
     np.testing.assert_allclose(tsim.state.pos.numpy(),
                                np.asarray(jsim.state.pos), atol=1e-3)
+    if mode == "apic":
+        np.testing.assert_allclose(tsim.state.aff.numpy(),
+                                   np.asarray(jsim.state.aff), atol=1e-3)
+
+
+def test_frame_profile_covers_the_phases():
+    """The frame profiler times every phase of the frame, runs the same
+    frames in each of its runs and puts the wrapped functions back."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import frame_profile
+
+    sort = tk.sort_by_cell
+    sim = tflip.FlipSim("water_cube_drop", bound=6, density=2.0,
+                        device="cpu", mode="apic")
+    sim.step()
+    out = frame_profile.profile_frames(sim, frames=2)
+    assert set(out["phases"]) == {"sort", "stencil weights", "cell ranges",
+                                  "P2G", "projection", "G2P", "advection"}
+    assert all(v["wall_ms"] > 0 and v["kernel_ms"] == 0
+               for v in out["phases"].values())
+    assert out["kernel_ms_per_frame"] == 0 and out["ms_per_frame"] > 0
+    assert out["first_frame"] == 2 and len(out["frame_ms"]) == 2
+    assert len(out["cg_iters"]) == 2 and out["cg_iters"][0] > 0
+    assert tk.sort_by_cell is sort and int(sim.state.frame) == 3
+
+
+def test_entry_points_default_to_the_card():
+    """No device argument means "cuda", never a pick by availability."""
+    for fn in (tflip.FlipSim, tflip.FlipSim.from_state,
+               interop.state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("name,bound,analytic", [

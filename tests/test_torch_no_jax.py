@@ -1,17 +1,20 @@
 """The port runs where JAX is not installed: in a fresh interpreter that
 cannot import ``jax``, import ``fluidsim_tpu_torch`` and step one frame on
-CPU."""
+CPU, in FLIP and in APIC mode."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 _SCRIPT = """
 import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
 import fluidsim_tpu_torch
 from fluidsim_tpu_torch.models.flip import FlipSim
-sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu")
+sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
+              mode=sys.argv[1])
 m = sim.step()
 assert m["outer_iters"] >= 1
 assert not any(k == "jax" or k.startswith(("jax.", "fluidsim_tpu."))
@@ -20,9 +23,10 @@ print("ke", float(m["kinetic_energy"]))
 """
 
 
-def test_port_runs_without_jax():
+@pytest.mark.parametrize("mode", ["flip", "apic"])
+def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
-    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root,
+    res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ke ")
