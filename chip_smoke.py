@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLIP and APIC main paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's FLIP, APIC and MPM main paths on one NVIDIA GPU
+and check them.
 
-    python3 chip_smoke.py            # water_cube_drop at 129^3, ~1.99M particles
+    python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
+                            # mpm_cone at 127^3 (473,798 particles)
 
 Phases, each of which raises on failure (nonzero exit):
 
@@ -24,7 +25,17 @@ Phases, each of which raises on failure (nonzero exit):
 8. determinism of the APIC frames, as phase 5;
 9. reference: a small scene stepped on the card in FLIP, APIC and PIC mode
    matches the same scene stepped on the CPU, where every kernel wrapper
-   runs its plain version (APIC: the affine matrices too).
+   runs its plain version (APIC: the affine matrices too);
+10. the MPM kernels (K1 fg, K2 gw) against their plain versions on the
+   sorted state, stress and grid velocity of ``MpmSim("mpm_cone")`` after
+   its 2 warm-up frames, timed as in phase 3;
+11. the MPM main path: 10 timed frames with finite energy and deformation
+   gradients, particles in the box, det(FP) > 0, every implicit solve
+   converged, and the launch counts of all eight kernels; ms/frame and CG
+   iterations per frame;
+12. determinism of the MPM frames, as phase 5;
+13. reference: ``mpm_cone`` at bound 15 with the "full" operator and with
+   a forced SPD fallback ("hybrid", cap 1), card against CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -54,6 +65,10 @@ BOUND = 64          # scene half-width: a (2*64+1)^3 = 129^3 grid
 DENSITY = 25.0      # particles per seeded voxel: ~1.99M particles
 FRAMES = 10         # timed frames per mode, after 2 warm-up frames
 SEED = 0
+# the MPM path's configuration: the JAX package's scaled MPM bench row,
+# uncut, with the scene's density of 400 particles per seeded voxel
+MPM_BOUND = 63      # a 127^3 grid, 473,798 particles; "hybrid" operator
+MPM_SMALL = dict(bound=15, density=40.0)   # phase 13's reference scene
 
 
 def _cuda_ms(fn, torch):
@@ -213,6 +228,100 @@ def _small_scene(mode, dev):
     print(f"reference {mode}: bound 8, 3 frames, {msg}")
 
 
+def _mpm_solves(m, params):
+    """The number of CG solves of an MPM frame, and whether the solve its
+    velocity came from converged before its cap."""
+    if params.hessian == "hybrid" and m["spd_fallback"] == 0:
+        return 1, m["cg_iters"] < params.cg_hybrid_cap
+    spd_iters = m["cg_iters"] - (params.cg_hybrid_cap
+                                 if params.hessian == "hybrid" else 0)
+    return 1 + m["spd_fallback"], spd_iters < params.cg_maxiter
+
+
+def _run_mpm_frames(sim, counted, torch):
+    """Step ``FRAMES`` MPM frames with every launch count set to 0 just
+    before; check them and their launch counts; return (energies,
+    launches)."""
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = [sim.step() for _ in range(FRAMES)]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print("mpm: launches in the timed frames:", json.dumps(launches))
+
+    ke = [float(f["kinetic_energy"]) for f in frames]
+    cg = [f["cg_iters"] for f in frames]
+    spd = [f["spd_fallback"] for f in frames]
+    print(f"mpm frames: ke {ke[0]:.6g} .. {ke[-1]:.6g}, cg_iters {cg}, "
+          f"spd_fallback {spd}, min_det_fp(last) "
+          f"{float(frames[-1]['min_det_fp']):.6g}")
+    st = sim.state
+    if not all(math.isfinite(k) for k in ke):
+        raise AssertionError("mpm: non-finite kinetic energy")
+    if (not bool(torch.isfinite(st.pos).all())
+            or float(st.pos.abs().max()) >= MPM_BOUND):
+        raise AssertionError("mpm: particles left the box or went non-finite")
+    if not all(bool(torch.isfinite(f).all()) for f in (st.FE, st.FP)):
+        raise AssertionError("mpm: non-finite deformation gradients")
+    if not all(float(f["min_det_fp"]) > 0 for f in frames):
+        raise AssertionError("mpm: det(FP) <= 0")
+    applies = 0
+    for f, m in enumerate(frames):
+        solves, converged = _mpm_solves(m, sim.params)
+        if not converged:
+            raise AssertionError(f"mpm frame {f}: the solve stopped at its cap")
+        # one apply for each solve's initial residual plus one per iteration
+        applies += m["cg_iters"] + solves
+    want = {name: 0 for name in launches}
+    want.update({"p2g_scatter": FRAMES, "g2p_gather": 2 * FRAMES,
+                 "p2g_scatter_force": FRAMES + applies,
+                 "g2p_gather_gw": applies + FRAMES})
+    if launches != want:
+        raise AssertionError(f"mpm: kernel launches {launches}, expected {want}")
+    print(f"mpm: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
+          f"{FRAMES / wall_s:.3f}  CG iterations/frame {sum(cg) / FRAMES:.1f} "
+          f"({FRAMES} frames, host clock, synchronised)")
+    return ke, launches
+
+
+def _mpm_small_scene(hessian, dev):
+    """``mpm_cone`` at bound 15, 3 frames on the card against 3 on the CPU."""
+    from fluidsim_tpu_torch.models.mpm import MpmParams, MpmSim
+
+    params = MpmParams(hessian=hessian,
+                       cg_hybrid_cap=1 if hessian == "hybrid" else 150)
+    gpu_sim = MpmSim("mpm_cone", params=params, seed=SEED, device=dev,
+                     **MPM_SMALL)
+    cpu_sim = MpmSim("mpm_cone", params=params, seed=SEED, device="cpu",
+                     **MPM_SMALL)
+    fallbacks = 0
+    for f in range(3):
+        mg, mc = gpu_sim.step(), cpu_sim.step()
+        kg, kc = float(mg["kinetic_energy"]), float(mc["kinetic_energy"])
+        print(f"reference mpm {hessian} frame {f}: card ke {kg:.7g} cg "
+              f"{mg['cg_iters']} spd {mg['spd_fallback']} | cpu ke {kc:.7g} "
+              f"cg {mc['cg_iters']} spd {mc['spd_fallback']}")
+        solves, _ = _mpm_solves(mc, params)
+        if (abs(kg - kc) > 1e-4 * abs(kc)
+                or int(mg["num_active_cells"]) != int(mc["num_active_cells"])
+                or mg["spd_fallback"] != mc["spd_fallback"]
+                or abs(mg["cg_iters"] - mc["cg_iters"]) > solves):
+            raise AssertionError(f"mpm {hessian} frame {f}: card and cpu differ")
+        fallbacks += mc["spd_fallback"]
+    if hessian == "hybrid" and fallbacks == 0:
+        raise AssertionError("mpm hybrid cap 1: no frame took the SPD fallback")
+    pos_err = _max_err(gpu_sim.state.pos.cpu(), cpu_sim.state.pos)
+    fe_err = _max_err(gpu_sim.state.FE.cpu(), cpu_sim.state.FE)
+    if pos_err > 1e-4 or fe_err > 1e-5:
+        raise AssertionError(f"mpm {hessian}: positions differ by {pos_err}, "
+                             f"FE by {fe_err}")
+    print(f"reference mpm {hessian}: bound 15, 3 frames, max pos diff card vs "
+          f"cpu {pos_err:.3e}, max FE diff {fe_err:.3e}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -224,14 +333,17 @@ def main() -> int:
         return 1
     from fluidsim_tpu_torch import native
     from fluidsim_tpu_torch.models.flip import FlipSim
+    from fluidsim_tpu_torch.models.mpm import MpmSim
     from fluidsim_tpu_torch.ops import apic
+    from fluidsim_tpu_torch.ops import mpm_kernels as mk
     from fluidsim_tpu_torch.ops import pressure as pr
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
     from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.core.splines import cround
-    from fluidsim_tpu_torch.ops.svd3 import mv3
+    from fluidsim_tpu_torch.ops.svd3 import (det3, hardening, mm3, mv3,
+                                             piola_linearized)
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -303,7 +415,8 @@ def main() -> int:
 
     # ---- 4. the FLIP main path: the two frames above were its warm-up ----
     counted = (tk.p2g_scatter, tk.g2p_gather, tk.p2g_scatter_affine,
-               tk.g2p_moments, sk.apply_laplacian, sk.cheb_step)
+               tk.g2p_moments, tk.p2g_scatter_force, tk.g2p_gather_gw,
+               sk.apply_laplacian, sk.cheb_step)
     ke, flip_launches = _run_frames(sim, counted, torch)
     kes += ke
     del sim
@@ -354,6 +467,72 @@ def main() -> int:
     for mode in ("flip", "apic", "pic"):
         _small_scene(mode, dev)
 
+    # ---- 10. the MPM kernels against their plain versions -----------------
+    sim = MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED, device=dev)
+    prm = sim.params
+    B, n, P = prm.bound, 2 * prm.bound + 1, sim.num_particles
+    print(f"scene mpm_cone bound {B} grid {n}^3 particles {P} "
+          f"operator {prm.hessian}")
+    kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
+    st = sim.state
+    pos_s, vel_s, fe, fp, vol, flat = mk.sort_mpm(st.pos, st.vel, st.FE,
+                                                  st.FP, st.volume, B)
+    w27t, gradw = mk.mpm_stencil(pos_s, B)
+    cs = tk.cell_starts(flat, n)
+    # the pull's serial work: a target cell's thread walks the particles of
+    # its 27 source cells one after another
+    per_cell = (cs[1:] - cs[:-1]).reshape(n, n, n)
+    padded = torch.nn.functional.pad(per_cell, (1, 1) * 3)
+    chain = sum(padded[i:i + n, j:j + n, k:k + n]
+                for i in range(3) for j in range(3) for k in range(3))
+    print(f"K1 fg pull: {int((per_cell > 0).sum())} occupied cells, at most "
+          f"{int(per_cell.max())} particles each; {int((chain > 0).sum())} "
+          f"target cells with work, the longest walks {int(chain.max())} "
+          "particles")
+    mass, mom = mk.p2g_mpm(w27t, vel_s, cs, sim.solid, B)
+    heavy = mass > prm.mass_threshold
+    velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
+                       0.0)
+    mu, lam = hardening(prm.mu0, prm.lam0, prm.hardening_eps, det3(fp),
+                        exponent_cap=prm.hardening_max)
+    p0, _, _ = piola_linearized(fe, mu, lam)
+    valid = torch.all(torch.abs(cround(pos_s)) <= B, dim=-1)
+    m9 = (torch.where(valid, -vol, 0.0)[:, None]
+          * mm3(p0, fe.transpose(-1, -2)).reshape(P, 9)).contiguous()
+    print(f"mpm frame 2 state: {int(heavy.sum())} cells above the mass "
+          f"threshold, max|M| {float(m9.abs().max()):.4g}, "
+          f"max|velg| {float(velg.abs().max()):.4g}")
+    results["p2g_scatter_force"] = _compare(
+        "K1 fg p2g_scatter_force",
+        lambda: tk.p2g_scatter_force(gradw, m9, cs, n),
+        lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
+        (gradw, m9, cs), 27 * 18 * P, torch)
+    fm = torch.where(~sim.solid[None], velg, 0.0)
+    results["g2p_gather_gw"] = _compare(
+        "K2 gw g2p_gather_gw", lambda: tk.g2p_gather_gw(fm, gradw, flat),
+        lambda: tk.g2p_gather_gw_plain(fm, gradw, flat), 1e-5,
+        (fm, gradw, flat), 27 * 18 * P, torch)
+    del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, per_cell, padded
+    del chain, mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
+
+    # ---- 11. the MPM main path: the two frames above were its warm-up -----
+    ke, mpm_launches = _run_mpm_frames(sim, counted, torch)
+    kes += ke
+    del sim
+
+    # ---- 12. MPM determinism ----------------------------------------------
+    rerun = MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED, device=dev)
+    ke2 = [float(rerun.step()["kinetic_energy"]) for _ in range(3)]
+    if ke2 != kes[:3]:
+        raise AssertionError(f"mpm: rerun energies {ke2} != {kes[:3]}")
+    print(f"mpm determinism: 3 frames rerun from seed {SEED}: bit-identical "
+          f"kinetic energy {ke2}")
+    del rerun
+
+    # ---- 13. a small MPM scene: card against the plain versions on the CPU -
+    for hessian in ("full", "hybrid"):
+        _mpm_small_scene(hessian, dev)
+
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
         "p2g_scatter": ("transfer.cu", "pallas_transfer.py:1064", flip_launches),
@@ -363,10 +542,16 @@ def main() -> int:
         "p2g_scatter_affine": ("transfer.cu", "pallas_transfer.py:1064",
                                apic_launches),
         "g2p_moments": ("transfer.cu", "pallas_transfer.py:1339",
-                        apic_launches)}
+                        apic_launches),
+        "p2g_scatter_force": ("transfer.cu", "pallas_transfer.py:1064",
+                              mpm_launches),
+        "g2p_gather_gw": ("transfer.cu", "pallas_transfer.py:1339",
+                          mpm_launches)}
+    paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
-                "launches": launches[name], **results[name]}
+                "launches": launches[name], **results[name],
+                "launches_by_path": {k: v[name] for k, v in paths.items()}}
                for name, (src, rep, launches) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 PyTorch counterpart of ``fluidsim_tpu/core/splines.py``.
 
 The FLIP kernel is ``1.5 * B(|x|)`` and the MPM kernel ``B(|x - 0.5|)``,
-where ``B`` is the cubic B-spline compressed to support ``|x| < 1``.  The
-f32 operations and their order match the JAX functions, so values agree
-bit for bit on the same inputs.
+where ``B`` is the cubic B-spline compressed to support ``|x| < 1``;
+``spline2`` is ``B(|x|)`` itself and ``dspline2`` its signed derivative,
+from which ``grad_w_mpm`` builds the MPM weight gradients.  The f32
+operations and their order match the JAX functions, so values agree bit
+for bit on the same inputs.
 """
 
 from __future__ import annotations
@@ -31,6 +33,37 @@ def spline_flip(x: torch.Tensor) -> torch.Tensor:
 def spline_mpm(x: torch.Tensor) -> torch.Tensor:
     """MPM transfer weight: ``bspline_base(|x - 0.5|)``."""
     return bspline_base(torch.abs(x - 0.5))
+
+
+def spline2(x: torch.Tensor) -> torch.Tensor:
+    """Unshifted, unscaled base kernel ``bspline_base(|x|)``."""
+    return bspline_base(torch.abs(x))
+
+
+def dspline2(x: torch.Tensor) -> torch.Tensor:
+    """Signed derivative of ``spline2``: ``sign(x)`` times ``12a^2 - 8a``
+    for ``a = |x| < 0.5``, ``-4a^2 + 8a - 4`` for ``a <= 1``, else 0
+    (``torch.sign(0) == 0``, as ``jnp.sign``)."""
+    a = torch.abs(x)
+    a2 = a * a
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    mag = torch.where(a < 0.5, 12.0 * a2 - 8.0 * a,
+                      torch.where(a <= 1.0, -4.0 * a2 + 8.0 * a - 4.0, zero))
+    return torch.sign(x) * mag
+
+
+def grad_w_mpm(delta: torch.Tensor):
+    """MPM weight and its gradient with respect to the grid node, from
+    ``delta = p - c`` (..., 3): per axis ``spline2(delta_d - 0.5)`` and
+    ``-dspline2(delta_d - 0.5)``.  Returns ``(w (...,), grad (..., 3))``."""
+    s = delta - 0.5
+    wd = spline2(s)
+    gd = -dspline2(s)
+    w = wd[..., 0] * wd[..., 1] * wd[..., 2]
+    gx = gd[..., 0] * wd[..., 1] * wd[..., 2]
+    gy = wd[..., 0] * gd[..., 1] * wd[..., 2]
+    gz = wd[..., 0] * wd[..., 1] * gd[..., 2]
+    return w, torch.stack([gx, gy, gz], dim=-1)
 
 
 def cround(x: torch.Tensor) -> torch.Tensor:

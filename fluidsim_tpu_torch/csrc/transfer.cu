@@ -1,6 +1,6 @@
-// Particle <-> grid transfer kernels of the FLIP, PIC and APIC frames (K1,
-// K2 and their APIC modes), for Hopper (sm_90a), with a plain C interface
-// bound through ctypes (fluidsim_tpu_torch/ops/transfer_kernels.py).
+// Particle <-> grid transfer kernels of the FLIP, PIC, APIC and MPM frames
+// (K1, K2 and their APIC and MPM modes), for Hopper (sm_90a), with a plain
+// C interface bound through ctypes (fluidsim_tpu_torch/ops/transfer_kernels.py).
 //
 // All take particles sorted by the flat id (x*n + y)*n + z of their
 // clipped base cell round(pos) + B, and the transposed stencil weights
@@ -53,6 +53,30 @@
 //   at 129^3 / 2M particles.  Design: K2's thread per particle with 22
 //   register accumulators; the offsets are compile-time constants in
 //   {-1, 0, 1}, so every product by an offset is exact.
+//
+// K1 fg fs_p2g_scatter_force replaces the same TPU scatter with
+//   expand='fg' (_fg_expand_cm): the MPM grid force
+//   out[c, cell] = sum_o sum_{p : base(p) = cell - off_o}
+//                  (M[p,c,0]*gW[p,o,0] + M[p,c,1]*gW[p,o,1] + M[p,c,2]*gW[p,o,2])
+//   for c = 0..2, the k-sum in that order, with M = -V sigma (P, 9)
+//   row-major and gradW (81, P) with row 3o+k; contributions to cells
+//   outside the box are dropped.  Output (3, n, n, n) f32.
+//   Bound on the H100: memory.  Compulsory traffic is gradW (324 B), M
+//   (36 B) per particle, cell_start and 12 B/cell out; at 127^3 / 473,798
+//   particles ~203 MB.  Design: K1's deterministic pull, one thread per
+//   target cell, no atomics, so the MPM frame stays bit-reproducible.
+//   Each visit reads the particle's 3 gradW values of offset o (coalesced
+//   rows of the (81, P) layout) and its 9 M values (from cache).
+//
+// K2 gw fs_g2p_gather_gw replaces the same TPU gather with contract='gw',
+//   nout=16: out[3c+k, p] = sum_o gW[p,o,k] * fm[c, base(p) + off_o] for
+//   c, k = 0..2 (the TPU kernel's live rows 4k+c; its rows 4k+3 contract
+//   the mask channel and every caller drops them), neighbours outside the
+//   box reading 0.  fm is (3, n, n, n).  Output (9, P) f32.
+//   Bound on the H100: memory; per particle 324 B of gradW, 4 B of id and
+//   36 B of output, the grid values from cache; ~197 MB at 127^3 / 473,798
+//   particles.  Design: K2's thread per sorted particle with 9 register
+//   accumulators over the 27 neighbours.
 //
 // All are built with --fmad=false so every product and sum is rounded as
 // in the plain PyTorch versions they are checked against.
@@ -191,6 +215,76 @@ __global__ void g2p_gather_kernel(const float* __restrict__ fm,
   out[3 * np + p] = s3;
 }
 
+__global__ void p2g_scatter_force_kernel(const float* __restrict__ gradw,
+                                         const float* __restrict__ m9,
+                                         const int* __restrict__ cell_start,
+                                         float* __restrict__ out, int n,
+                                         long long np) {
+  const long long ncell = (long long)n * n * n;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncell) return;
+  const int x = (int)(c / ((long long)n * n));
+  const int y = (int)((c / n) % n);
+  const int z = (int)(c % n);
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  for (int o = 0; o < 27; ++o) {
+    const int bx = x - (o / 9 - 1);
+    const int by = y - ((o / 3) % 3 - 1);
+    const int bz = z - (o % 3 - 1);
+    if (bx < 0 || bx >= n || by < 0 || by >= n || bz < 0 || bz >= n) continue;
+    const long long b = ((long long)bx * n + by) * n + bz;
+    const int s = cell_start[b];
+    const int e = cell_start[b + 1];
+    const float* g0 = gradw + 3LL * o * np;
+    const float* g1 = g0 + np;
+    const float* g2 = g1 + np;
+    for (int p = s; p < e; ++p) {
+      const float gx = g0[p], gy = g1[p], gz = g2[p];
+      const float* m = m9 + 9LL * p;
+      a0 += m[0] * gx + m[1] * gy + m[2] * gz;
+      a1 += m[3] * gx + m[4] * gy + m[5] * gz;
+      a2 += m[6] * gx + m[7] * gy + m[8] * gz;
+    }
+  }
+  out[c] = a0;
+  out[ncell + c] = a1;
+  out[2 * ncell + c] = a2;
+}
+
+__global__ void g2p_gather_gw_kernel(const float* __restrict__ fm,
+                                     const float* __restrict__ gradw,
+                                     const int* __restrict__ flat,
+                                     float* __restrict__ out, int n,
+                                     long long np) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= np) return;
+  const long long ncell = (long long)n * n * n;
+  const int f = flat[p];
+  const int x = f / (n * n);
+  const int y = (f / n) % n;
+  const int z = f % n;
+  float acc[9];
+#pragma unroll
+  for (int r = 0; r < 9; ++r) acc[r] = 0.f;
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    const int cx = x + (o / 9 - 1);
+    const int cy = y + ((o / 3) % 3 - 1);
+    const int cz = z + (o % 3 - 1);
+    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n) continue;
+    const long long c = ((long long)cx * n + cy) * n + cz;
+    const float fv[3] = {fm[c], fm[ncell + c], fm[2 * ncell + c]};
+    const float gv[3] = {gradw[3LL * o * np + p], gradw[(3LL * o + 1) * np + p],
+                         gradw[(3LL * o + 2) * np + p]};
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc[3 * ch + k] += fv[ch] * gv[k];
+  }
+#pragma unroll
+  for (int r = 0; r < 9; ++r) out[r * np + p] = acc[r];
+}
+
 }  // namespace
 
 extern "C" int fs_p2g_scatter(const float* w27t, const float* vel,
@@ -231,5 +325,25 @@ extern "C" int fs_g2p_moments(const float* fm, const float* w27t,
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       fm, w27t, flat, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_p2g_scatter_force(const float* gradw, const float* m9,
+                                    const int* cell_start, float* out, int n,
+                                    long long np, void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
+  p2g_scatter_force_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      gradw, m9, cell_start, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_g2p_gather_gw(const float* fm, const float* gradw,
+                                const int* flat, float* out, int n,
+                                long long np, void* stream) {
+  if (np == 0) return 0;
+  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
+  g2p_gather_gw_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      fm, gradw, flat, out, n, np);
   return (int)cudaGetLastError();
 }

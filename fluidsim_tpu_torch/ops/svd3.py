@@ -1,11 +1,15 @@
-"""Batched 3x3 products, determinant and cofactor matrix — the counterpart
-of ``mm3``, ``mv3``, ``det3`` and ``cofactor3`` in
-``fluidsim_tpu/ops/svd3.py``.
+"""Batched 3x3 linear algebra of the MPM frame — the counterpart of
+``fluidsim_tpu/ops/svd3.py``: products, determinant, cofactor matrix, the
+closed-form SVD (unrolled cyclic Jacobi on F^T F), the polar decomposition
+and its differential, the corotated Piola stress with its linearisation,
+hardening and the singular-value clamp.
 
 Each is unrolled into f32 elementwise operations in the reference's order,
-with no ``@`` and no ``torch.linalg``: a matmul on the card could run in
-TF32, and the elementwise form rounds the same on every device.  The SVD,
-polar decomposition and stress of the reference module come with MPM.
+with no ``@``, no ``torch.linalg`` and no data-dependent loop: a matmul on
+the card could run in TF32, and the elementwise form rounds the same on
+every device.  The reference's ``custom_jvp`` polar rotation and its
+``jax.jvp`` of the cofactor matrix become the explicit differentials
+``polar_delta`` and ``dcofactor3``.
 """
 
 from __future__ import annotations
@@ -49,3 +53,215 @@ def cofactor3(f: torch.Tensor) -> torch.Tensor:
                      f[..., 0, 2] * f[..., 1, 0] - f[..., 0, 0] * f[..., 1, 2],
                      f[..., 0, 0] * f[..., 1, 1] - f[..., 0, 1] * f[..., 1, 0]], dim=-1),
     ], dim=-2)
+
+
+def _mat(rows) -> torch.Tensor:
+    """(..., 3, 3) from three rows of three (...,) tensors."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _rot_apply(a: torch.Tensor, v: torch.Tensor, p: int, q: int,
+               c: torch.Tensor, s: torch.Tensor):
+    """Apply the Givens rotation J(p,q; c,s) as A <- J^T A J, V <- V J (A
+    symmetric (..., 3, 3))."""
+    r = 3 - p - q
+    app, aqq, apq = a[..., p, p], a[..., q, q], a[..., p, q]
+    arp, arq = a[..., r, p], a[..., r, q]
+    app_n = c * c * app - 2.0 * s * c * apq + s * s * aqq
+    aqq_n = s * s * app + 2.0 * s * c * apq + c * c * aqq
+    arp_n = c * arp - s * arq
+    arq_n = s * arp + c * arq
+    zero = torch.zeros_like(app)
+    ent = {(p, p): app_n, (q, q): aqq_n, (r, r): a[..., r, r],
+           (p, q): zero, (q, p): zero,
+           (r, p): arp_n, (p, r): arp_n, (r, q): arq_n, (q, r): arq_n}
+    a_n = _mat([[ent[(i, j)] for j in range(3)] for i in range(3)])
+    vp, vq = v[..., :, p], v[..., :, q]
+    cn, sn = c[..., None], s[..., None]
+    cols = [v[..., :, 0], v[..., :, 1], v[..., :, 2]]
+    cols[p], cols[q] = cn * vp - sn * vq, sn * vp + cn * vq
+    return a_n, torch.stack(cols, dim=-1)
+
+
+def _jacobi_eigh3(a: torch.Tensor, sweeps: int = 5):
+    """Symmetric 3x3 eigendecomposition by ``sweeps`` unrolled cyclic
+    Jacobi sweeps.  Returns (w, V) with A ~= V diag(w) V^T."""
+    v = torch.eye(3, dtype=a.dtype, device=a.device).expand(a.shape)
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            apq = a[..., p, q]
+            diff = a[..., q, q] - a[..., p, p]
+            nz = torch.abs(apq) > 0
+            tau = diff / (2.0 * torch.where(nz, apq, one))
+            # tau == 0 (equal diagonal) takes the full 45-degree rotation
+            sgn = torch.where(tau >= 0, one, -one)
+            t = sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(nz, t, 0.0)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            a, v = _rot_apply(a, v, p, q, c, t * c)
+    return torch.stack([a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]], dim=-1), v
+
+
+def _sort_desc3(w: torch.Tensor, v: torch.Tensor):
+    """Descending 3-element sort network on the eigenvalues, permuting V's
+    columns along."""
+    cols = [v[..., :, 0], v[..., :, 1], v[..., :, 2]]
+    ws = [w[..., 0], w[..., 1], w[..., 2]]
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        sw = ws[i] < ws[j]
+        ws[i], ws[j] = (torch.where(sw, ws[j], ws[i]),
+                        torch.where(sw, ws[i], ws[j]))
+        cols[i], cols[j] = (torch.where(sw[..., None], cols[j], cols[i]),
+                            torch.where(sw[..., None], cols[i], cols[j]))
+    return torch.stack(ws, dim=-1), torch.stack(cols, dim=-1)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., 3) . (..., 3) -> (..., 1), summed in index order."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])[..., None]
+
+
+def _unit(x: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
+    n = torch.sqrt(_dot3(x, x))
+    ok = n > 1e-20
+    return torch.where(ok, x / torch.where(ok, n, 1.0), fallback)
+
+
+def svd3(f: torch.Tensor):
+    """Closed-form SVD of (..., 3, 3): eigendecomposition of F^T F by
+    unrolled Jacobi, U from F V with Gram-Schmidt and an orthonormal
+    completion for (near-)singular values.  s >= 0 descending, U and V
+    orthogonal with ``det(U V^T) = sign(det F)``.  Returns (U, s, V^T)."""
+    w, v = _jacobi_eigh3(mm3(f.transpose(-1, -2), f))
+    w, v = _sort_desc3(w, v)
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+
+    # proper V (det +1): flip the last column where the sort left det -1
+    flip = torch.where(det3(v) < 0, -1.0, 1.0)
+    v = torch.stack([v[..., :, 0], v[..., :, 1], v[..., :, 2] * flip[..., None]],
+                    dim=-1)
+
+    fv = mm3(f, v)
+    eye = torch.eye(3, dtype=f.dtype, device=f.device).expand(f.shape)
+    u0 = _unit(fv[..., :, 0], eye[..., :, 0])
+    f1 = fv[..., :, 1]
+    g1 = f1 - _dot3(u0, f1) * u0
+    # rank-1 fallback: cross u0 with the axis least aligned with it
+    k = torch.argmin(torch.abs(u0), dim=-1)
+    ek = torch.nn.functional.one_hot(k, 3).to(f.dtype)
+    u1_fb = _unit(_cross(u0, ek), eye[..., :, 1])
+    n1 = torch.sqrt(_dot3(g1, g1))
+    ok1 = n1 > 1e-12 * torch.clamp(s[..., 0:1], min=1e-30)
+    u1 = torch.where(ok1, g1 / torch.where(ok1, n1, 1.0), u1_fb)
+    sgn = torch.where(det3(f) < 0, -1.0, 1.0)[..., None]
+    u2 = sgn * _unit(_cross(u0, u1), eye[..., :, 2])
+    return torch.stack([u0, u1, u2], dim=-1), s, v.transpose(-1, -2)
+
+
+def polar_rs(f: torch.Tensor):
+    """(R, S) of the polar decomposition F = R S, from one SVD."""
+    u, s, vt = svd3(f)
+    return mm3(u, vt), mm3(vt.transpose(-1, -2), s[..., :, None] * vt)
+
+
+def polar_delta(r: torch.Tensor, s: torch.Tensor, df: torch.Tensor):
+    """Rotation differential dR for a perturbation dF of F = R S: solve the
+    3x3 skew system built from S (closed-form adjugate inverse) for the
+    entries of ``R^T dR``, then ``dR = R skew(x)``.  Linear in ``dF``."""
+    rhs = mm3(r.transpose(-1, -2), df) - mm3(df.transpose(-1, -2), r)
+    v = torch.stack([rhs[..., 0, 1], rhs[..., 0, 2], rhs[..., 1, 2]], dim=-1)
+    m = _mat([[s[..., 0, 0] + s[..., 1, 1], s[..., 1, 2], -s[..., 0, 2]],
+              [s[..., 1, 2], s[..., 0, 0] + s[..., 2, 2], s[..., 0, 1]],
+              [-s[..., 0, 2], s[..., 0, 1], s[..., 1, 1] + s[..., 2, 2]]])
+    det = det3(m)
+    minv = cofactor3(m).transpose(-1, -2) / torch.where(
+        det != 0, det, 1.0)[..., None, None]
+    x = mv3(minv, v)
+    zero = torch.zeros_like(x[..., 0])
+    k = _mat([[zero, x[..., 0], x[..., 1]],
+              [-x[..., 0], zero, x[..., 2]],
+              [-x[..., 1], -x[..., 2], zero]])
+    return mm3(r, k)
+
+
+def dcofactor3(f: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """Differential of ``cofactor3`` at F along dF: each entry ``a*b - c*d``
+    becomes ``(da*b + a*db) - (dc*d + c*dd)``, the order of ``jax.jvp``."""
+    def e(i, j, k, l, m, n, o, q):
+        return ((df[..., i, j] * f[..., k, l] + f[..., i, j] * df[..., k, l])
+                - (df[..., m, n] * f[..., o, q] + f[..., m, n] * df[..., o, q]))
+    return _mat([
+        [e(1, 1, 2, 2, 1, 2, 2, 1), e(1, 2, 2, 0, 1, 0, 2, 2),
+         e(1, 0, 2, 1, 1, 1, 2, 0)],
+        [e(0, 2, 2, 1, 0, 1, 2, 2), e(0, 0, 2, 2, 0, 2, 2, 0),
+         e(0, 1, 2, 0, 0, 0, 2, 1)],
+        [e(0, 1, 1, 2, 0, 2, 1, 1), e(0, 2, 1, 0, 0, 0, 1, 2),
+         e(0, 0, 1, 1, 0, 1, 1, 0)]])
+
+
+def _ddot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Frobenius product of (..., 3, 3) tensors: the 9-term elementwise
+    sum in row-major order (the JAX package's HIGHEST-precision einsum)."""
+    out = a[..., 0, 0] * b[..., 0, 0]
+    for i, j in ((0, 1), (0, 2), (1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2)):
+        out = out + a[..., i, j] * b[..., i, j]
+    return out
+
+
+def piola_linearized(fe: torch.Tensor, mu: torch.Tensor, lam: torch.Tensor):
+    """The corotated first Piola stress at FE,
+    ``P0 = 2 mu (FE - R) + lam (J - 1) cof(FE)``, and its two linear
+    differentials, from one polar decomposition:
+
+      dP_full(dF) = 2 mu (dF - dR) + lam ((cof:dF) cof + (J - 1) dcof)
+      dP_spd(dF)  = 2 mu dF + lam (cof:dF) cof
+
+    ``dP_full`` is the exact corotated Hessian; ``dP_spd`` keeps its
+    positive-semidefinite Gauss-Newton part.  Returns (P0, dP_full, dP_spd).
+    """
+    r, s = polar_rs(fe)
+    j = det3(fe)
+    cof = cofactor3(fe)
+    mu_, lam_ = mu[..., None, None], lam[..., None, None]
+    p0 = 2.0 * mu_ * (fe - r) + (lam * (j - 1.0))[..., None, None] * cof
+
+    def dp_full(df):
+        dr = polar_delta(r, s, df)
+        dcof = dcofactor3(fe, df)
+        return (2.0 * mu_ * (df - dr)
+                + lam_ * (_ddot(cof, df)[..., None, None] * cof
+                          + (j - 1.0)[..., None, None] * dcof))
+
+    def dp_spd(df):
+        return 2.0 * mu_ * df + lam_ * _ddot(cof, df)[..., None, None] * cof
+
+    return p0, dp_full, dp_spd
+
+
+def hardening(mu0: float, lam0: float, eps: float, jp: torch.Tensor,
+              exponent_cap: float | None = None):
+    """Exponential hardening ``mu = mu0 exp(eps (1 - Jp))``, likewise
+    lambda, with the exponent clamped to ``[-cap, cap]`` when a cap is
+    given."""
+    e = eps * (1.0 - jp)
+    if exponent_cap is not None:
+        e = torch.clamp(e, -exponent_cap, exponent_cap)
+    h = torch.exp(e)
+    return mu0 * h, lam0 * h
+
+
+def clamp_singular(f: torch.Tensor, minv: float, maxv: float):
+    """Clamp F's singular values to ``[minv, maxv]``: returns
+    ``(U clamp(s) V^T, V clamp(s)^-1 U^T)``."""
+    u, s, vt = svd3(f)
+    sc = torch.clamp(s, minv, maxv)
+    fe = mm3(u, sc[..., :, None] * vt)
+    return fe, mm3(vt.transpose(-1, -2), u.transpose(-1, -2) / sc[..., :, None])

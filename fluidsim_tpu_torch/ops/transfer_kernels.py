@@ -4,7 +4,10 @@ and G2P (K2) kernels — the counterpart of ``fluidsim_tpu/ops/transfer_pallas.p
 ``fluidsim_tpu/ops/pallas_transfer.py`` (``scatter_wv_fused``,
 ``gather_wv_fused``).  The APIC modes of those two kernels (the affine
 scatter, ``aff=``, and the 24-moment gather, ``nout=24``) are
-``p2g_scatter_affine`` and ``g2p_moments``; ``ops.apic`` wraps them.
+``p2g_scatter_affine`` and ``g2p_moments``; ``ops.apic`` wraps them.  The
+MPM modes (the force scatter, ``expand='fg'``, and the gradW gather,
+``contract='gw'``) are ``p2g_scatter_force`` and ``g2p_gather_gw``;
+``ops.mpm_kernels`` wraps them.
 
 Particles are sorted by the plain flat id ``(x*n + y)*n + z`` of their
 clipped base cell; ``cell_start`` (n^3 + 1 offsets into the sorted arrays)
@@ -12,9 +15,10 @@ gives each cell's particle range.  The (27, P) stencil weights are computed
 once per frame and shared by both directions.  The TPU path's window layout
 (haloed ids, packed columns, one-hot matmuls) is not needed here.
 
-``p2g_scatter``, ``p2g_scatter_affine``, ``g2p_gather`` and ``g2p_moments``
-launch the CUDA kernels of ``csrc/transfer.cu`` for CUDA tensors and use
-their plain PyTorch versions only for CPU tensors; anything else raises.
+Each kernel wrapper (``p2g_scatter``, ``p2g_scatter_affine``,
+``p2g_scatter_force``, ``g2p_gather``, ``g2p_moments``, ``g2p_gather_gw``)
+launches its CUDA kernel of ``csrc/transfer.cu`` for CUDA tensors and
+uses its plain PyTorch version only for CPU tensors; anything else raises.
 Each counts its kernel launches in ``.launches``.
 """
 
@@ -24,6 +28,7 @@ import torch
 
 from fluidsim_tpu_torch import native
 from fluidsim_tpu_torch.core.splines import cround
+from fluidsim_tpu_torch.ops.smallmat import apply_mat27, outer_sum27
 from fluidsim_tpu_torch.ops.transfer import _KERNELS, _OFFSETS
 
 
@@ -82,23 +87,31 @@ def _shift3(a: torch.Tensor, d) -> torch.Tensor:
 
 # ---- K1: P2G scatter ------------------------------------------------------
 
-def p2g_scatter_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
-                      cell_start: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain PyTorch K1: one ``index_add_`` of the 27x4 per-particle values
-    onto the base cell, then 27 shifted adds (the schedule of
-    ``transfer_fast.p2g_fused``).  Returns (4, n, n, n)."""
+def _scatter27_plain(u: torch.Tensor, cell_start: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """The plain schedule of the K1 modes (``transfer_fast.p2g_fused``):
+    one ``index_add_`` of the (P, 27, C) per-(particle, offset) values onto
+    the base cells, then 27 shifted adds.  Returns (C, n, n, n)."""
+    p, _, c = u.shape
     counts = (cell_start[1:] - cell_start[:-1]).to(torch.int64)
     flat = torch.repeat_interleave(
-        torch.arange(n ** 3, device=w27t.device), counts)
-    u = torch.cat([w27t.T[..., None], w27t.T[..., None] * vel_s[:, None, :]],
-                  dim=-1)                                      # (P, 27, 4)
-    d = torch.zeros((n ** 3, 27 * 4), dtype=w27t.dtype, device=w27t.device)
-    d.index_add_(0, flat, u.reshape(-1, 27 * 4))
-    d = d.reshape(n, n, n, 27, 4)
-    acc = torch.zeros((n, n, n, 4), dtype=w27t.dtype, device=w27t.device)
+        torch.arange(n ** 3, device=u.device), counts)
+    d = torch.zeros((n ** 3, 27 * c), dtype=u.dtype, device=u.device)
+    d.index_add_(0, flat, u.reshape(p, 27 * c))
+    d = d.reshape(n, n, n, 27, c)
+    acc = torch.zeros((n, n, n, c), dtype=u.dtype, device=u.device)
     for o in range(27):
         acc = acc + _shift3(d[..., o, :], _OFFSETS[o])
     return acc.permute(3, 0, 1, 2).contiguous()
+
+
+def p2g_scatter_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
+                      cell_start: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch K1: the 27x4 per-particle values ``w * [1, v]``
+    through ``_scatter27_plain``.  Returns (4, n, n, n)."""
+    u = torch.cat([w27t.T[..., None], w27t.T[..., None] * vel_s[:, None, :]],
+                  dim=-1)                                      # (P, 27, 4)
+    return _scatter27_plain(u, cell_start, n)
 
 
 def p2g_scatter(w27t: torch.Tensor, vel_s: torch.Tensor,
@@ -143,22 +156,13 @@ def p2g_scatter_affine_plain(w27t: torch.Tensor, veff_s: torch.Tensor,
     offset o ``veff + C off_o`` (``veff_i + C[i,0] off_0 + C[i,1] off_1 +
     C[i,2] off_2``, summed in that order).  ``aff_s`` is (P, 9), row-major
     C.  Returns (4, n, n, n)."""
-    counts = (cell_start[1:] - cell_start[:-1]).to(torch.int64)
-    flat = torch.repeat_interleave(
-        torch.arange(n ** 3, device=w27t.device), counts)
     off = _OFF.to(w27t.device)
     c = aff_s.reshape(-1, 1, 3, 3)
     v = (veff_s[:, None, :] + c[..., 0] * off[None, :, 0, None]
          + c[..., 1] * off[None, :, 1, None]
          + c[..., 2] * off[None, :, 2, None])                 # (P, 27, 3)
     u = torch.cat([w27t.T[..., None], w27t.T[..., None] * v], dim=-1)
-    d = torch.zeros((n ** 3, 27 * 4), dtype=w27t.dtype, device=w27t.device)
-    d.index_add_(0, flat, u.reshape(-1, 27 * 4))
-    d = d.reshape(n, n, n, 27, 4)
-    acc = torch.zeros((n, n, n, 4), dtype=w27t.dtype, device=w27t.device)
-    for o in range(27):
-        acc = acc + _shift3(d[..., o, :], _OFFSETS[o])
-    return acc.permute(3, 0, 1, 2).contiguous()
+    return _scatter27_plain(u, cell_start, n)
 
 
 def p2g_scatter_affine(w27t: torch.Tensor, veff_s: torch.Tensor,
@@ -197,11 +201,12 @@ p2g_scatter_affine.launches = 0
 # ---- K2: G2P gather -------------------------------------------------------
 
 def _neighbour_fields(fm: torch.Tensor, flat_s: torch.Tensor):
-    """Yield ``(o, vals)`` for the 27 offsets in order: the (4, P) values of
-    ``fm`` at ``base(p) + off_o``, 0 where that cell is outside the box."""
+    """Yield ``(o, vals)`` for the 27 offsets in order: the (C, P) values of
+    the (C, n, n, n) ``fm`` at ``base(p) + off_o``, 0 where that cell is
+    outside the box."""
     n = fm.shape[1]
     bc = torch.stack([flat_s // (n * n), (flat_s // n) % n, flat_s % n], -1)
-    fm_flat = fm.reshape(4, -1)
+    fm_flat = fm.reshape(fm.shape[0], -1)
     for o in range(27):
         cell = bc + torch.as_tensor(_OFFSETS[o], device=fm.device)
         inb = torch.all((cell >= 0) & (cell < n), dim=-1)
@@ -306,6 +311,103 @@ def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor,
 
 
 g2p_moments.launches = 0
+
+
+# ---- K1 fg: MPM force scatter ----------------------------------------------
+
+def _gradw_p27(gradw: torch.Tensor) -> torch.Tensor:
+    """(81, P) gradW rows ``3o + k`` -> (P, 27, 3)."""
+    return gradw.T.reshape(-1, 27, 3)
+
+
+def p2g_scatter_force_plain(gradw: torch.Tensor, m9: torch.Tensor,
+                            cell_start: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch K1 fg: the per-(particle, offset) force ``M gradW(o)``
+    (``apply_mat27``, each row summed over k = 0, 1, 2 in order) through
+    ``_scatter27_plain``.  ``m9`` is (P, 9), row-major M.  Returns
+    (3, n, n, n)."""
+    u = apply_mat27(m9.reshape(-1, 3, 3), _gradw_p27(gradw))   # (P, 27, 3)
+    return _scatter27_plain(u, cell_start, n)
+
+
+def p2g_scatter_force(gradw: torch.Tensor, m9: torch.Tensor,
+                      cell_start: torch.Tensor, n: int) -> torch.Tensor:
+    """K1 fg: ``out[c, cell] = sum_o sum_{p: base(p) = cell - off_o}
+    sum_k M_p[c, k] gradW_k(p, o)`` over sorted particles, dropping
+    contributions outside the box.  ``gradw`` is (81, P) with row
+    ``3o + k``; ``m9`` (P, 9) row-major M.  (3, n, n, n) f32.  CUDA tensors
+    launch ``fs_p2g_scatter_force`` (``csrc/transfer.cu``); CPU tensors take
+    ``p2g_scatter_force_plain``."""
+    if gradw.device.type == "cpu":
+        return p2g_scatter_force_plain(gradw, m9, cell_start, n)
+    native.require_cuda(gradw, "p2g_scatter_force")
+    dev = gradw.device
+    p = m9.shape[0]
+    native.check_tensor("gradw", gradw, torch.float32, (81, p), dev)
+    native.check_tensor("m9", m9, torch.float32, (p, 9), dev)
+    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
+    if p >= 2 ** 31:
+        raise ValueError("p2g_scatter_force: more than 2^31 - 1 particles")
+    out = torch.empty((3, n, n, n), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_p2g_scatter_force(gradw.data_ptr(), m9.data_ptr(),
+                                      cell_start.data_ptr(), out.data_ptr(),
+                                      n, p, native.stream_ptr(dev))
+    native.check_launch("p2g_scatter_force", rc)
+    p2g_scatter_force.launches += 1
+    return out
+
+
+p2g_scatter_force.launches = 0
+
+
+# ---- K2 gw: MPM gradW gather -----------------------------------------------
+
+def g2p_gather_gw_plain(fm: torch.Tensor, gradw: torch.Tensor,
+                        flat_s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2 gw: the (P, 27, 3) neighbour values of ``fm``
+    (27 masked gathers through ``_neighbour_fields``) contracted with
+    gradW over the offsets (``outer_sum27``).  Returns (9, P), row
+    ``3c + k``."""
+    vals = torch.stack([v.T for _, v in _neighbour_fields(fm, flat_s)],
+                       dim=1)                                  # (P, 27, 3)
+    g = outer_sum27(vals, _gradw_p27(gradw))                   # (P, 3, 3)
+    return g.reshape(-1, 9).T.contiguous()
+
+
+def g2p_gather_gw(fm: torch.Tensor, gradw: torch.Tensor,
+                  flat_s: torch.Tensor) -> torch.Tensor:
+    """K2 gw: ``out[3c + k, p] = sum_o gradW_k(p, o) * fm[c, base(p) +
+    off_o]`` for c, k < 3, neighbours outside the box reading 0; ``fm`` is
+    (3, n, n, n), ``gradw`` (81, P) with row ``3o + k``.  These are the 9
+    live rows of the TPU kernel's ``contract='gw'`` output (its rows
+    ``4k + c``; its rows ``4k + 3`` contract the mask channel, which every
+    caller drops).  ``out.reshape(3, 3, P).permute(2, 0, 1)`` is the
+    (P, 3, 3) ``g[p, c, k]``.  (9, P) f32.  CUDA tensors launch
+    ``fs_g2p_gather_gw`` (``csrc/transfer.cu``); CPU tensors take
+    ``g2p_gather_gw_plain``."""
+    if fm.device.type == "cpu":
+        return g2p_gather_gw_plain(fm, gradw, flat_s)
+    native.require_cuda(fm, "g2p_gather_gw")
+    dev = fm.device
+    n = fm.shape[1]
+    p = flat_s.shape[0]
+    native.check_tensor("fm", fm, torch.float32, (3, n, n, n), dev)
+    native.check_tensor("gradw", gradw, torch.float32, (81, p), dev)
+    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    out = torch.empty((9, p), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_g2p_gather_gw(fm.data_ptr(), gradw.data_ptr(),
+                                  flat_s.data_ptr(), out.data_ptr(), n, p,
+                                  native.stream_ptr(dev))
+    native.check_launch("g2p_gather_gw", rc)
+    g2p_gather_gw.launches += 1
+    return out
+
+
+g2p_gather_gw.launches = 0
 
 
 # ---- the transfers around the kernels -------------------------------------

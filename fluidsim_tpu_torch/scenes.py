@@ -1,4 +1,4 @@
-"""Named FLIP scene registry — the counterpart of ``fluidsim_tpu/scenes.py``.
+"""Named FLIP and MPM scene registry — the counterpart of ``fluidsim_tpu/scenes.py``.
 
 A scene bundles static geometry only (host-side numpy); particle seeding is
 ``fluidsim_tpu_torch.seeding``.  The geometry is the JAX package's, array for
@@ -21,7 +21,7 @@ class Scene:
 
     Attributes:
       name: registry key.
-      kind: "flip" (MPM scenes are not ported yet).
+      kind: "flip" or "mpm".
       spec: grid geometry.
       solid: (N,N,N) bool — walls plus obstacles.
       normals: (N,N,N,3) f32 wall normals (unused by the dynamics).
@@ -150,3 +150,82 @@ def big_wall(bound: int = 60) -> Scene:
     seed = _box_mask(spec, (-20,) * 3, (20,) * 3)
     wall = _box_mask(spec, (-58, -58, -30), (58, -50, -25))
     return _flip_base(spec, seed, extra_solid=wall, name="big_wall")
+
+
+# ----------------------------- MPM scenes --------------------------------
+
+def _mpm_base(spec: GridSpec, seed_mask: np.ndarray, name: str,
+              density: float = 400.0) -> Scene:
+    return Scene(name=name, kind="mpm", spec=spec, solid=spec.wall_mask(),
+                 normals=spec.wall_normals(), seed_mask=seed_mask,
+                 density=density, gravity=(0.0, -10.0, 0.0),
+                 initial_velocity=(0.0, -50.0, 0.0))
+
+
+@register("mpm_cone")
+def mpm_cone(bound: int = 15, density: float = 400.0) -> Scene:
+    """Headline MPM scene: a cone standing on the floor whose radius grows
+    with height, ``(j - lo) / 2`` on layer ``j`` from ``lo = -(bound - 2)``.
+    Bound 15 has 4 layers; larger bounds scale the height to
+    ``round(4 * bound / 15)`` layers with the same radius slope."""
+    spec = GridSpec(bound=bound, wall=bound - 2)
+    c = spec.coords()
+    seed = np.zeros(spec.shape, dtype=bool)
+    lo = -(bound - 2)
+    layers = max(4, round(4 * bound / 15))
+    for j in range(lo, lo + layers):
+        r = (j - lo) / 2.0
+        disk = (c[:, None] ** 2 + c[None, :] ** 2) <= r * r
+        seed[:, j + bound, :] |= disk
+    return _mpm_base(spec, seed, name="mpm_cone", density=density)
+
+
+@register("mpm_pea")
+def mpm_pea(bound: int = 15, density: float = 400.0) -> Scene:
+    """A small block near the floor."""
+    spec = GridSpec(bound=bound, wall=bound - 2)
+    seed = _box_mask(spec, (-1, -13, -1), (2, -10, 2))
+    return _mpm_base(spec, seed, name="mpm_pea", density=density)
+
+
+@register("mpm_block_drop")
+def mpm_block_drop(bound: int = 15, density: float = 400.0) -> Scene:
+    """A block filling -13..-10 on every axis."""
+    spec = GridSpec(bound=bound, wall=bound - 2)
+    seed = _box_mask(spec, (-13, -13, -13), (-10, -10, -10))
+    return _mpm_base(spec, seed, name="mpm_block_drop", density=density)
+
+
+@register("mpm_double_balls")
+def mpm_double_balls(bound: int = 15, density: float = 400.0) -> Scene:
+    """Two radius-2 balls centred at y = -11 and y = -7."""
+    spec = GridSpec(bound=bound, wall=bound - 2)
+    c = spec.coords()
+    seed = np.zeros(spec.shape, dtype=bool)
+    r2 = c[:, None, None] ** 2 + c[None, None, :] ** 2
+    for yc in (-11, -7):
+        seed |= (r2 + (c[None, :, None] - yc) ** 2) <= 4
+    return _mpm_base(spec, seed, name="mpm_double_balls", density=density)
+
+
+@register("mpm_sphere")
+def mpm_sphere(bound: int = 15, density: float = 400.0) -> Scene:
+    """A radius-3 ball centred at y = -10."""
+    spec = GridSpec(bound=bound, wall=bound - 2)
+    c = spec.coords()
+    seed = (c[:, None, None] ** 2 + (c[None, :, None] + 10) ** 2
+            + c[None, None, :] ** 2) <= 9
+    return _mpm_base(spec, seed, name="mpm_sphere", density=density)
+
+
+@register("mpm_o")
+def mpm_o(bound: int = 15, density: float = 400.0) -> Scene:
+    """A flat "O" (the annulus 4 <= r <= 5 around y = -8) in the z = 0
+    plane."""
+    spec = GridSpec(bound=bound, wall=bound - 2)
+    c = spec.coords()
+    r2 = c[:, None] ** 2 + (c[None, :] + 8) ** 2
+    ring = (r2 <= 25) & (r2 >= 16)
+    seed = np.zeros(spec.shape, dtype=bool)
+    seed[:, :, bound] = ring
+    return _mpm_base(spec, seed, name="mpm_o", density=density)

@@ -1,24 +1,25 @@
-"""Where the time of a frame goes: profile a few frames of ``FlipSim`` and
-print each phase's wall time, the device time of the kernels it ran, the
-busiest kernels and the device's busy share.
+"""Where the time of a frame goes: profile a few frames of ``FlipSim`` or
+``MpmSim`` and print each phase's wall time, the device time of the
+kernels it ran, the busiest kernels and the device's busy share.
 
     python -m fluidsim_tpu_torch.utils.frame_profile --mode apic
+    python -m fluidsim_tpu_torch.utils.frame_profile --mode mpm
 
-The scene is ``water_cube_drop`` at 129^3 (bound 64, density 25, ~1.99M
-particles), seed 0, on "cuda".  After 5 warm-up frames (past the splash of
-frames 1-4, whose projection runs up to 7 outer passes) the same 3 frames
-run four times from the same state: twice unprofiled, once under
-``torch.profiler``, and once more unprofiled.  The frames are
-deterministic, so every run does the same work; their iteration counts are
-checked equal.
+The FLIP, PIC and APIC scene is ``water_cube_drop`` at 129^3 (bound 64,
+density 25, ~1.99M particles); the MPM scene ``mpm_cone`` at 127^3 (bound
+63, 473,798 particles, the "hybrid" operator); seed 0, on "cuda".  After 5
+warm-up frames (past FLIP's splash of frames 1-4, whose projection runs up
+to 7 outer passes) the same 3 frames run four times from the same state:
+twice unprofiled, once under ``torch.profiler``, and once more
+unprofiled.  The frames are deterministic, so every run does the same
+work; their iteration counts are checked equal.
 
-Method.  Each phase (the functions ``flip_step`` calls: sort, stencil
-weights, cell ranges, P2G, projection, G2P, advection) is wrapped for the
-profiled run in a ``record_function`` range with a device synchronise at
-both ends, so every kernel a phase launches runs inside the phase's host
-range; a kernel counts for the phase whose range holds its midpoint.  The
-synchronises and the profiler's own per-operation cost make the profiled
-run slower than the unprofiled ones.  The frame time is the mean of the
+Method.  Each phase (the functions ``flip_step`` or ``mpm_step`` calls,
+``PHASES``) is wrapped for the profiled run in a ``record_function`` range
+with a device synchronise at both ends, so every kernel a phase launches
+runs inside the phase's host range; a kernel counts for the phase whose
+range holds its midpoint.  The synchronises and the profiler's own
+per-operation cost make the profiled run slower than the unprofiled ones.  The frame time is the mean of the
 two unprofiled runs before the profile, and the busy share is the profiled
 run's kernel time over it; the run after the profile shows what the
 profiler leaves behind in the process.  The last line is a JSON object
@@ -38,37 +39,61 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from fluidsim_tpu_torch.models import flip
+from fluidsim_tpu_torch.models import flip, mpm
 from fluidsim_tpu_torch.ops import apic
+from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
-BOUND = 64          # scene half-width: a (2*64+1)^3 = 129^3 grid
+BOUND = 64          # FLIP scene half-width: a (2*64+1)^3 = 129^3 grid
 DENSITY = 25.0      # particles per seeded voxel: ~1.99M particles
+MPM_BOUND = 63      # mpm_cone: a 127^3 grid, 473,798 particles
 SEED = 0
 WARMUP = 5          # frames stepped before the profiled window
 FRAMES = 3          # frames in the window, run three times
 
-# (phase, module, function): the calls of flip_step, one phase each
-PHASES = (
-    ("sort", tk, "sort_by_cell"),
-    ("stencil weights", tk, "masked_weights_cm"),
-    ("cell ranges", tk, "cell_starts"),
-    ("P2G", tk, "p2g"),
-    ("P2G", apic, "p2g_apic"),
-    ("projection", flip, "project"),
-    ("G2P", tk, "g2p"),
-    ("G2P", apic, "g2p_apic"),
-    ("advection", flip, "advect_bounce"),
-)
+# (phase, module, function): the calls of each frame, one phase each
+PHASES = {
+    "flip": (
+        ("sort", tk, "sort_by_cell"),
+        ("stencil weights", tk, "masked_weights_cm"),
+        ("cell ranges", tk, "cell_starts"),
+        ("P2G", tk, "p2g"),
+        ("P2G", apic, "p2g_apic"),
+        ("projection", flip, "project"),
+        ("G2P", tk, "g2p"),
+        ("G2P", apic, "g2p_apic"),
+        ("advection", flip, "advect_bounce"),
+    ),
+    "mpm": (
+        ("sort", mk, "sort_mpm"),
+        ("stencil", mk, "mpm_stencil"),
+        ("cell ranges", tk, "cell_starts"),
+        ("P2G", mk, "p2g_mpm"),
+        ("density", mk, "density"),
+        ("stress (polar)", mk, "make_force_fns"),
+        ("implicit solve", mpm, "pcg"),
+        ("gradV", mk, "gradv_gather"),
+        ("F update (SVD)", mpm, "clamp_singular"),
+        ("FLIP delta", mk, "flip_delta"),
+        ("advection", mpm, "advect_bounce"),
+    ),
+}
+# per frame: the counts that must agree between the runs
+_COUNTS = {"flip": ("outer_iters", "cg_iters"),
+           "mpm": ("spd_fallback", "cg_iters")}
 _TAG = "phase:"
 
 
+def _kind(sim) -> str:
+    return "mpm" if isinstance(sim, mpm.MpmSim) else "flip"
+
+
 @contextlib.contextmanager
-def _phase_ranges(sync):
+def _phase_ranges(kind, sync):
     """Wrap the phase functions in synchronised ``record_function`` ranges
     for the duration of the block."""
     saved = []
-    for phase, mod, name in PHASES:
+    for phase, mod, name in PHASES[kind]:
         fn = getattr(mod, name)
 
         def wrapped(*args, _fn=fn, _phase=phase, **kwargs):
@@ -87,9 +112,11 @@ def _phase_ranges(sync):
             setattr(mod, name, fn)
 
 
-def _run(sim: flip.FlipSim, start: flip.FlipState, frames: int, sync):
+def _run(sim, start, frames: int, sync):
     """Step ``frames`` frames from ``start``; return (ms/frame, the host
-    time of each frame up to its ``step`` returning, (outer, cg) counts)."""
+    time of each frame up to its ``step`` returning, the ``_COUNTS`` of
+    each frame)."""
+    keys = _COUNTS[_kind(sim)]
     sim.state = start
     sync()
     t0 = time.perf_counter()
@@ -97,18 +124,19 @@ def _run(sim: flip.FlipSim, start: flip.FlipState, frames: int, sync):
     for _ in range(frames):
         m = sim.step()
         marks.append(time.perf_counter())
-        counts.append((m["outer_iters"], m["cg_iters"]))
+        counts.append(tuple(m[k] for k in keys))
     sync()
     ms = 1e3 * (time.perf_counter() - t0) / frames
     return ms, [1e3 * (b - a) for a, b in zip(marks, marks[1:])], counts
 
 
-def profile_frames(sim: flip.FlipSim, frames: int = FRAMES) -> dict:
+def profile_frames(sim, frames: int = FRAMES) -> dict:
     """Run ``frames`` frames from the sim's state four times (unprofiled
     twice, profiled, unprofiled) and leave the sim after them; return
     ms/frame of each run, the frames' iteration counts, each phase's wall
     and kernel ms/frame, the kernels by device time, and the busy share of
     the device."""
+    kind = _kind(sim)
     cuda = sim.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     start = sim.state
@@ -116,7 +144,7 @@ def profile_frames(sim: flip.FlipSim, frames: int = FRAMES) -> dict:
     ms_a, frame_ms, counts = _run(sim, start, frames, sync)
     ms_b, _, counts_b = _run(sim, start, frames, sync)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with _phase_ranges(sync), profile(activities=acts) as prof:
+    with _phase_ranges(kind, sync), profile(activities=acts) as prof:
         profiled_ms, _, counts_p = _run(sim, start, frames, sync)
     ms_after, _, counts_after = _run(sim, start, frames, sync)
     if not counts == counts_b == counts_p == counts_after:
@@ -148,11 +176,11 @@ def profile_frames(sim: flip.FlipSim, frames: int = FRAMES) -> dict:
                 break
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
     return {
-        "mode": sim.params.mode, "particles": sim.num_particles,
+        "mode": sim.params.mode if kind == "flip" else "mpm",
+        "particles": sim.num_particles,
         "grid": 2 * sim.params.bound + 1, "frames": frames,
         "first_frame": int(start.frame) + 1,
-        "outer_iters": [o for o, _ in counts],
-        "cg_iters": [c for _, c in counts],
+        **{k: [c[i] for c in counts] for i, k in enumerate(_COUNTS[kind])},
         "ms_per_frame": frame_ms_mean,
         "ms_per_frame_runs": [ms_a, ms_b],
         "frame_ms": frame_ms,
@@ -169,15 +197,19 @@ def profile_frames(sim: flip.FlipSim, frames: int = FRAMES) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", default="flip", choices=("flip", "pic", "apic"))
+    ap.add_argument("--mode", default="flip",
+                    choices=("flip", "pic", "apic", "mpm"))
     args = ap.parse_args(argv)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip())
-    sim = flip.FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
-                       seed=SEED, mode=args.mode)
+    if args.mode == "mpm":
+        sim = mpm.MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED)
+    else:
+        sim = flip.FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+                           seed=SEED, mode=args.mode)
     torch.cuda.reset_peak_memory_stats(sim.device)
     for _ in range(WARMUP):
         sim.step()
@@ -185,7 +217,7 @@ def main(argv=None) -> int:
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated(sim.device) / 1e9
     print(f"{out['mode']} {out['grid']}^3 {out['particles']} particles, "
           f"frames {out['first_frame']}-{out['first_frame'] + FRAMES - 1}: "
-          f"outer {out['outer_iters']} cg {out['cg_iters']}")
+          + " ".join(f"{k} {out[k]}" for k in _COUNTS[_kind(sim)]))
     print(f"unprofiled {out['ms_per_frame_runs'][0]:.3f} and "
           f"{out['ms_per_frame_runs'][1]:.3f} ms/frame (first run by frame: "
           + ", ".join(f"{t:.3f}" for t in out["frame_ms"])

@@ -124,6 +124,29 @@ def test_frame_profile_covers_the_phases():
     assert tk.sort_by_cell is sort and int(sim.state.frame) == 3
 
 
+def test_frame_profile_wraps_the_mpm_phases():
+    """Every MPM phase function is wrapped while the block runs and put
+    back after it, and a run reports the frame's fallback and CG counts
+    (one frame outside the profiler: under it an MPM frame's thousands of
+    small operations take tens of seconds on the CPU)."""
+    from fluidsim_tpu_torch.models import mpm
+    from fluidsim_tpu_torch.utils import frame_profile
+
+    phases = frame_profile.PHASES["mpm"]
+    originals = [getattr(mod, name) for _, mod, name in phases]
+    sim = mpm.MpmSim("mpm_cone", density=10.0, device="cpu")
+    start = sim.state
+    with frame_profile._phase_ranges("mpm", lambda: None):
+        assert all(getattr(mod, name) is not fn
+                   for (_, mod, name), fn in zip(phases, originals))
+        ms, frame_ms, counts = frame_profile._run(sim, start, 1, lambda: None)
+    assert all(getattr(mod, name) is fn
+               for (_, mod, name), fn in zip(phases, originals))
+    assert ms > 0 and len(frame_ms) == 1
+    assert counts[0][0] == 0 and counts[0][1] > 0      # (spd_fallback, cg)
+    assert frame_profile._kind(sim) == "mpm" and int(sim.state.frame) == 1
+
+
 def test_entry_points_default_to_the_card():
     """No device argument means "cuda", never a pick by availability."""
     for fn in (tflip.FlipSim, tflip.FlipSim.from_state,

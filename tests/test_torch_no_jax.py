@@ -1,6 +1,7 @@
 """The port runs where JAX is not installed: in a fresh interpreter that
-cannot import ``jax``, import ``fluidsim_tpu_torch`` and step one frame on
-CPU, in FLIP and in APIC mode."""
+can import neither ``jax`` nor ``fluidsim_tpu``, import
+``fluidsim_tpu_torch`` and step one frame on CPU, in FLIP and APIC mode
+and of the MPM cone."""
 
 import subprocess
 import sys
@@ -11,19 +12,24 @@ import pytest
 _SCRIPT = """
 import sys
 sys.modules["jax"] = None          # any import of jax now raises ImportError
+sys.modules["fluidsim_tpu"] = None
 import fluidsim_tpu_torch
-from fluidsim_tpu_torch.models.flip import FlipSim
-sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
-              mode=sys.argv[1])
-m = sim.step()
-assert m["outer_iters"] >= 1
+from fluidsim_tpu_torch import FlipSim, MpmSim
+if sys.argv[1] == "mpm":
+    m = MpmSim("mpm_cone", density=10.0, device="cpu").step()
+    assert m["cg_iters"] >= 1
+else:
+    sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
+                  mode=sys.argv[1])
+    m = sim.step()
+    assert m["outer_iters"] >= 1
 assert not any(k == "jax" or k.startswith(("jax.", "fluidsim_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ke", float(m["kinetic_energy"]))
 """
 
 
-@pytest.mark.parametrize("mode", ["flip", "apic"])
+@pytest.mark.parametrize("mode", ["flip", "apic", "mpm"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
