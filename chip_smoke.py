@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLIP, APIC and MPM main paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
@@ -35,7 +35,19 @@ Phases, each of which raises on failure (nonzero exit):
    iterations per frame;
 12. determinism of the MPM frames, as phase 5;
 13. reference: ``mpm_cone`` at bound 15 with the "full" operator and with
-   a forced SPD fallback ("hybrid", cap 1), card against CPU.
+   a forced SPD fallback ("hybrid", cap 1), card against CPU;
+14. the bucket path's kernels (K5 bucket move, K6a base-cell scatter, K6b
+   shift-reduce) against their plain versions on the window-grouped state
+   of ``FlipSim(sort_method="bucket")`` after its 2 warm-up frames, timed
+   as in phase 3, each beside one PyTorch call that computes the same
+   function (``index_select``, ``index_add_``, ``conv3d``);
+15. the bucket path at 129^3: 10 timed frames with the checks of phase 4,
+   the launch counts (K5 once per frame that kept the bucket order, K6a
+   and K6b once per frame, K1 never), how many frames fell back to the
+   full sort, and ms/frame beside the full path's;
+16. determinism of the bucket frames, as phase 5;
+17. reference: FLIP, APIC and PIC on the bucket path at bound 16 (10,648
+   particles), card against CPU, as phase 9.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -69,6 +81,9 @@ SEED = 0
 # uncut, with the scene's density of 400 particles per seeded voxel
 MPM_BOUND = 63      # a 127^3 grid, 473,798 particles; "hybrid" operator
 MPM_SMALL = dict(bound=15, density=40.0)   # phase 13's reference scene
+# phase 17's reference scene: more than one 512-row chunk of particles, so
+# the bucket order differs from the cell order
+BUCKET_SMALL = dict(bound=16, density=8.0)
 
 
 def _cuda_ms(fn, torch):
@@ -101,12 +116,13 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _compare(name, kernel, plain, rel_tol, inputs, ops, torch):
+def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None):
     """Run a kernel and its plain version on the same inputs; require
     ``max|kernel - plain| <= rel_tol * max|plain|``.  Returns the kernel's
-    line fields: the error, both times, and the bound — the larger of the
-    compulsory bytes (``inputs`` read once, the outputs written once) over
-    the HBM rate and ``ops`` f32 operations over the f32 rate."""
+    line fields: the error, both times (and ``library``'s, one PyTorch call
+    of the same function, where there is one), and the bound — the larger
+    of the compulsory bytes (``inputs`` read once, the outputs written once)
+    over the HBM rate and ``ops`` f32 operations over the f32 rate."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
@@ -121,33 +137,58 @@ def _compare(name, kernel, plain, rel_tol, inputs, ops, torch):
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     ms = _cuda_ms(kernel, torch)
     plain_ms = _cuda_ms(plain, torch)
+    library_ms = None if library is None else _cuda_ms(library, torch)
     nbytes = _nbytes(inputs) + _nbytes(out_k)
     bytes_ms, ops_ms = 1e3 * nbytes / _HBM_BYTES_PER_S, 1e3 * ops / _F32_OPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+    lib = "" if library is None else f", library {library_ms:.4f} ms"
+    print(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib} "
           f"(median of {_REPS}); bound {bound_ms:.4f} ms by {bound_by} "
           f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
-    # no single PyTorch call computes any of these functions
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _flip_sim(dev, mode="flip", sort_method="full", bound=BOUND,
+              density=DENSITY):
+    """``FlipSim`` of ``water_cube_drop`` from ``SEED`` with the scene's own
+    parameters, in ``mode`` with ``sort_method``."""
+    from fluidsim_tpu_torch.models.flip import FlipParams, FlipSim
+    from fluidsim_tpu_torch.scenes import get_scene
+
+    scene = get_scene("water_cube_drop", bound=bound, density=density)
+    params = FlipParams(bound=bound, wall=scene.spec.wall, dx=scene.spec.dx,
+                        gravity=tuple(scene.gravity), mode=mode,
+                        sort_method=sort_method)
+    return FlipSim(scene, params=params, seed=SEED, device=dev)
 
 
 def _run_frames(sim, counted, torch):
     """Step ``FRAMES`` frames with every launch count set to 0 just before;
-    check them and their launch counts; return (energies, launches)."""
+    check them and their launch counts; return (energies, launches,
+    ms/frame)."""
+    from fluidsim_tpu_torch.ops import bucket_sort as bs
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
 
-    mode = sim.params.mode
+    bucket = sim.params.sort_method == "bucket"
+    mode = sim.params.mode + ("-bucket" if bucket else "")
     for fn in counted:
         fn.launches = 0
+    fallbacks = bs.bucket_or_sort.fallbacks
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames = [sim.step() for _ in range(FRAMES)]
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
+    fallbacks = bs.bucket_or_sort.fallbacks - fallbacks
     print(f"{mode}: launches in the timed frames:", json.dumps(launches))
+    if bucket:
+        print(f"{mode}: {fallbacks} of {FRAMES} timed frames fell back to "
+              "the full sort")
+        if fallbacks == FRAMES:
+            raise AssertionError(f"{mode}: every timed frame fell back")
 
     ke = [float(f["kinetic_energy"]) for f in frames]
     cg = [f["cg_iters"] for f in frames]
@@ -168,41 +209,43 @@ def _run_frames(sim, counted, torch):
     # PCG: one apply for the initial residual plus one per iteration, and the
     # preconditioner (degree - 1 fused steps) as often
     solves = sum(cg) + sum(outer)
-    transfers = (("p2g_scatter_affine", "g2p_moments") if mode == "apic"
-                 else ("p2g_scatter", "g2p_gather"))
+    gather = "g2p_moments" if sim.params.mode == "apic" else "g2p_gather"
+    if bucket:
+        scatters = {"p2g_scatter_base": FRAMES, "shift_reduce": FRAMES,
+                    "bucket_move": FRAMES - fallbacks}
+    elif sim.params.mode == "apic":
+        scatters = {"p2g_scatter_affine": FRAMES}
+    else:
+        scatters = {"p2g_scatter": FRAMES}
     want = {name: 0 for name in launches}
-    want.update({transfers[0]: FRAMES, transfers[1]: FRAMES,
-                 "apply_laplacian": solves,
+    want.update({gather: FRAMES, **scatters, "apply_laplacian": solves,
                  "cheb_step": (sk.CHEB_DEGREE - 1) * solves})
     if launches != want:
         raise AssertionError(f"{mode}: kernel launches {launches}, expected {want}")
-    print(f"{mode}: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
-          f"{FRAMES / wall_s:.3f}  ({FRAMES} frames, host clock, synchronised)")
-    return ke, launches
+    ms = 1e3 * wall_s / FRAMES
+    print(f"{mode}: ms/frame {ms:.3f}  steps/s {FRAMES / wall_s:.3f}  "
+          f"({FRAMES} frames, host clock, synchronised)")
+    return ke, launches, ms
 
 
-def _rerun(mode, kes, dev, torch):
+def _rerun(mode, kes, dev, sort_method="full"):
     """Determinism: the first frames rerun from the seed give the same
     kinetic energies, bit for bit."""
-    from fluidsim_tpu_torch.models.flip import FlipSim
-
     k = min(3, len(kes))
-    rerun = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
-                    seed=SEED, device=dev, mode=mode)
+    rerun = _flip_sim(dev, mode, sort_method)
     ke2 = [float(rerun.step()["kinetic_energy"]) for _ in range(k)]
     if ke2 != kes[:k]:
-        raise AssertionError(f"{mode}: rerun energies {ke2} != {kes[:k]}")
-    print(f"{mode} determinism: {k} frames rerun from seed {SEED}: "
-          f"bit-identical kinetic energy {ke2}")
+        raise AssertionError(f"{mode} {sort_method}: rerun energies {ke2} "
+                             f"!= {kes[:k]}")
+    print(f"{mode} {sort_method} determinism: {k} frames rerun from seed "
+          f"{SEED}: bit-identical kinetic energy {ke2}")
 
 
-def _small_scene(mode, dev):
-    """A bound-8 scene, 3 frames on the card against 3 on the CPU."""
-    from fluidsim_tpu_torch.models.flip import FlipSim
-
-    small = dict(bound=8, density=3.0, seed=SEED, mode=mode)
-    gpu_sim = FlipSim("water_cube_drop", device=dev, **small)
-    cpu_sim = FlipSim("water_cube_drop", device="cpu", **small)
+def _small_scene(mode, dev, sort_method="full", bound=8, density=3.0):
+    """A small scene, 3 frames on the card against 3 on the CPU."""
+    gpu_sim = _flip_sim(dev, mode, sort_method, bound, density)
+    cpu_sim = _flip_sim("cpu", mode, sort_method, bound, density)
+    mode = f"{mode} {sort_method}"
     # f32 sums in another order may move CG's stopping test by one iteration
     # in a pass; the outer passes, the energy and the positions must agree
     for f in range(3):
@@ -220,12 +263,13 @@ def _small_scene(mode, dev):
     if pos_err > 1e-3:
         raise AssertionError(f"small scene {mode}: positions differ by {pos_err}")
     msg = f"max pos diff card vs cpu {pos_err:.3e}"
-    if mode == "apic":
+    if cpu_sim.params.mode == "apic":
         aff_err = _max_err(gpu_sim.state.aff.cpu(), cpu_sim.state.aff)
         if aff_err > 1e-3:
             raise AssertionError(f"small scene apic: aff differs by {aff_err}")
         msg += f", max aff diff {aff_err:.3e}"
-    print(f"reference {mode}: bound 8, 3 frames, {msg}")
+    print(f"reference {mode}: bound {bound}, {cpu_sim.num_particles} "
+          f"particles, 3 frames, {msg}")
 
 
 def _mpm_solves(m, params):
@@ -335,11 +379,12 @@ def main() -> int:
     from fluidsim_tpu_torch.models.flip import FlipSim
     from fluidsim_tpu_torch.models.mpm import MpmSim
     from fluidsim_tpu_torch.ops import apic
+    from fluidsim_tpu_torch.ops import bucket_sort as bs
     from fluidsim_tpu_torch.ops import mpm_kernels as mk
     from fluidsim_tpu_torch.ops import pressure as pr
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
-    from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
+    from fluidsim_tpu_torch.ops.transfer import _OFFSETS, normalize_velocity_cm
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.core.splines import cround
     from fluidsim_tpu_torch.ops.svd3 import (det3, hardening, mm3, mv3,
@@ -416,13 +461,14 @@ def main() -> int:
     # ---- 4. the FLIP main path: the two frames above were its warm-up ----
     counted = (tk.p2g_scatter, tk.g2p_gather, tk.p2g_scatter_affine,
                tk.g2p_moments, tk.p2g_scatter_force, tk.g2p_gather_gw,
-               sk.apply_laplacian, sk.cheb_step)
-    ke, flip_launches = _run_frames(sim, counted, torch)
+               sk.apply_laplacian, sk.cheb_step, bs.bucket_move,
+               tk.p2g_scatter_base, tk.shift_reduce)
+    ke, flip_launches, flip_ms = _run_frames(sim, counted, torch)
     kes += ke
     del sim
 
     # ---- 5. FLIP determinism ----------------------------------------------
-    _rerun("flip", kes, dev, torch)
+    _rerun("flip", kes, dev)
 
     # ---- 6. the APIC kernels against their plain versions -----------------
     sim = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
@@ -456,12 +502,12 @@ def main() -> int:
 
     # ---- 7. the APIC main path --------------------------------------------
     kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
-    ke, apic_launches = _run_frames(sim, counted, torch)
+    ke, apic_launches, _ = _run_frames(sim, counted, torch)
     kes += ke
     del sim
 
     # ---- 8. APIC determinism ----------------------------------------------
-    _rerun("apic", kes, dev, torch)
+    _rerun("apic", kes, dev)
 
     # ---- 9. a small scene: card against the plain versions on the CPU -----
     for mode in ("flip", "apic", "pic"):
@@ -533,6 +579,77 @@ def main() -> int:
     for hessian in ("full", "hybrid"):
         _mpm_small_scene(hessian, dev)
 
+    # ---- 14. the bucket path's kernels against their plain versions -------
+    sim = _flip_sim(dev, sort_method="bucket")
+    kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
+    st = sim.state
+    B, n, P = sim.params.bound, 2 * sim.params.bound + 1, sim.num_particles
+    bc = torch.clamp(cround(st.pos).to(torch.int32) + B, 0, n - 1)
+    flat = (bc[:, 0] * n + bc[:, 1]) * n + bc[:, 2]
+    key_s, pay_s, tbl, stats = bs.bucket_plan(
+        flat, torch.cat([st.pos.T, st.vel.T]), w=tk.WINDOW,
+        emax=tk.BUCKET_EMAX)
+    stats = stats.tolist()
+    to = 1024
+    print(f"bucket plan of the frame-2 state: {tbl.shape[0]} output blocks "
+          f"of {to} rows; at most {stats[0]} runs in a 512-row chunk (cap 8) "
+          f"and {stats[1]} runs meeting an output block (cap "
+          f"{tk.BUCKET_EMAX}; the JAX package's 8 would "
+          f"{'hold' if bs.caps_hold(stats) else 'fall back'})")
+    if not bs.caps_hold(stats, emax=tk.BUCKET_EMAX):
+        raise AssertionError("bucket: the state after 2 frames trips the caps")
+    perm = bs.move_permutation(tbl, P, to)
+    rows = torch.cat([key_s.view(torch.float32)[None], pay_s])
+    results["bucket_move"] = _compare(
+        "K5 bucket_move", lambda: bs.bucket_move(key_s, pay_s, tbl, P, to),
+        lambda: bs.bucket_move_plain(key_s, pay_s, tbl, P, to), 0.0,
+        (key_s, pay_s, tbl), 0, torch,
+        library=lambda: rows.index_select(1, perm))
+    flat_o, cols_o = bs.bucket_move(key_s, pay_s, tbl, P, to)
+    pos_s, vel_s = cols_o[0:3].T.contiguous(), cols_o[3:6].T.contiguous()
+    w27t = tk.masked_weights_cm(pos_s, B)
+    ws = tk.window_starts(flat_o, n)
+    u108 = torch.cat([w27t.T[..., None], w27t.T[..., None] * vel_s[:, None]],
+                     dim=-1).reshape(P, 108)
+    flat64 = flat_o.to(torch.int64)
+    results["p2g_scatter_base"] = _compare(
+        "K6a p2g_scatter_base",
+        lambda: tk.p2g_scatter_base(w27t, vel_s, flat_o, ws, n),
+        lambda: tk.p2g_scatter_base_plain(w27t, vel_s, flat_o, n), 1e-5,
+        (w27t, vel_s, flat_o, ws), 27 * 7 * P, torch,
+        library=lambda: torch.zeros((n ** 3, 108), device=dev).index_add_(
+            0, flat64, u108))
+    d = tk.p2g_scatter_base(w27t, vel_s, flat_o, ws, n)
+    onehot = torch.zeros((4, 108, 3, 3, 3), device=dev)
+    for o, off in enumerate(_OFFSETS):
+        for g in range(4):
+            onehot[g, 4 * o + g, 1 - off[0], 1 - off[1], 1 - off[2]] = 1.0
+    torch.backends.cudnn.allow_tf32 = False
+    conv = lambda: torch.nn.functional.conv3d(d.view(1, 108, n, n, n),
+                                              onehot, padding=1)
+    results["shift_reduce"] = _compare(
+        "K6b shift_reduce", lambda: tk.shift_reduce(d),
+        lambda: tk.shift_reduce_plain(d), 0.0, (d,), 27 * 4 * n ** 3, torch,
+        library=conv)
+    print(f"K6b library conv3d: max |conv3d - kernel| "
+          f"{_max_err(conv()[0], tk.shift_reduce(d)):.3e}")
+    del st, bc, flat, key_s, pay_s, tbl, perm, rows, flat_o, cols_o
+    del pos_s, vel_s, w27t, ws, u108, flat64, d, onehot
+
+    # ---- 15. the bucket path: the two frames above were its warm-up ------
+    ke, bucket_launches, bucket_ms = _run_frames(sim, counted, torch)
+    kes += ke
+    print(f"flip-bucket: ms/frame {bucket_ms:.3f} against the full sort's "
+          f"{flip_ms:.3f} in phase 4 of this process")
+    del sim
+
+    # ---- 16. bucket determinism -------------------------------------------
+    _rerun("flip", kes, dev, "bucket")
+
+    # ---- 17. a small bucket scene: card against the CPU -------------------
+    for mode in ("flip", "apic", "pic"):
+        _small_scene(mode, dev, "bucket", **BUCKET_SMALL)
+
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
         "p2g_scatter": ("transfer.cu", "pallas_transfer.py:1064", flip_launches),
@@ -546,8 +663,13 @@ def main() -> int:
         "p2g_scatter_force": ("transfer.cu", "pallas_transfer.py:1064",
                               mpm_launches),
         "g2p_gather_gw": ("transfer.cu", "pallas_transfer.py:1339",
-                          mpm_launches)}
-    paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches}
+                          mpm_launches),
+        "bucket_move": ("bucket.cu", "bucket_sort.py:168", bucket_launches),
+        "p2g_scatter_base": ("transfer.cu", "pallas_transfer.py:728",
+                             bucket_launches),
+        "shift_reduce": ("stencil.cu", "pallas_shift.py:252", bucket_launches)}
+    paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches,
+             "flip_bucket": bucket_launches}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
                 "launches": launches[name], **results[name],

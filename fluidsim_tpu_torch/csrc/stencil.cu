@@ -29,6 +29,21 @@
 //   written by the same thread, so the step is one pass instead of an apply
 //   and four elementwise sweeps.
 //
+// K6b fs_shift_reduce replaces fluidsim_tpu/ops/pallas_shift.py:
+//   reduce_haloed (_reduce_kernel), the 27-offset shift-reduce of the
+//   unfused P2G: acc[g, c] = sum_o d[o, g, c - off_o] over the offsets in
+//   order from 0, sources outside the box adding 0 (as the plain version's
+//   zero-padded shifts do).  d is (27, 4, n, n, n), acc (4, n, n, n); here
+//   d and acc are dense, not the TPU's haloed lane layout, so no lane wrap
+//   reaches a wall cell.
+//   Bound on the H100: memory.  Each d value is read by exactly one (cell,
+//   channel), so 108 reads + 4 writes of 4 B per cell (962 MB at 129^3,
+//   ~0.29 ms at 3.35 TB/s).
+//   Design: one thread per (cell, channel), consecutive threads on
+//   consecutive z, so each of the 27 loads of a warp is one contiguous row
+//   segment; the TPU kernel's x-block windows, lane rolls and double
+//   buffering are work the cache and the coalesced loads do here.
+//
 // Built with --fmad=false: with the same operation order as the plain
 // PyTorch versions every result is rounded identically (bitwise equal).
 
@@ -107,6 +122,28 @@ __global__ void cheb_step_kernel(const float* __restrict__ zv,
   zn[c] = mid + dnew;
 }
 
+__global__ void shift_reduce_kernel(const float* __restrict__ d,
+                                    float* __restrict__ out, int n) {
+  const long long ncell = (long long)n * n * n;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncell) return;
+  const int g = blockIdx.y;
+  const int x = (int)(c / ((long long)n * n));
+  const int y = (int)((c / n) % n);
+  const int z = (int)(c % n);
+  float a = 0.f;
+  for (int o = 0; o < 27; ++o) {
+    const int bx = x - (o / 9 - 1);
+    const int by = y - ((o / 3) % 3 - 1);
+    const int bz = z - (o % 3 - 1);
+    const bool inb = bx >= 0 && bx < n && by >= 0 && by < n && bz >= 0 && bz < n;
+    const float v =
+        inb ? d[(4LL * o + g) * ncell + ((long long)bx * n + by) * n + bz] : 0.f;
+    a = a + v;
+  }
+  out[g * ncell + c] = a;
+}
+
 }  // namespace
 
 extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
@@ -127,5 +164,13 @@ extern "C" int fs_cheb_step(const float* z, const float* adiag,
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
   cheb_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       z, adiag, r, d, dn, zn, scale, c1, c2, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_shift_reduce(const float* d, float* out, int n,
+                               void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const dim3 blocks((unsigned)((ncell + kThreads - 1) / kThreads), 4);
+  shift_reduce_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(d, out, n);
   return (int)cudaGetLastError();
 }

@@ -78,6 +78,28 @@
 //   particles.  Design: K2's thread per sorted particle with 9 register
 //   accumulators over the 27 neighbours.
 //
+// K6a fs_p2g_scatter_base replaces fluidsim_tpu/ops/pallas_transfer.py:
+//   scatter_wv_cm (_scatter_wv_kernel, rows of pack_wv_rows, _wv_mats), the
+//   base-cell scatter of the unfused P2G:
+//   out[o, c, cell] = sum_{p : flat(p) = cell} w27t[o, p] * [1, v_p][c]
+//   with v_p + C_p off_o (C row-major, summed as in K1 aff) when aff is given.
+//   Output (27, 4, n, n, n) f32, every cell written (zeros where empty).
+//   The particles need only be grouped by 512-cell window of their flat id
+//   (the bucket sort's order); wstart[b] is the first particle of window b.
+//   Bound on the H100: memory.  Writing the 108 channels of every cell is
+//   most of the compulsory traffic (927 MB at 129^3; with w27t, v and the
+//   ids ~1.17 GB, ~0.35 ms at 3.35 TB/s).
+//   Design: deterministic, no float atomics.  One thread block per window,
+//   one thread per cell of the window.  The block counts its span's
+//   particles per cell (integer shared-memory atomics), scans the counts,
+//   and each thread then walks the span in order, through shared-memory
+//   tiles of ids, listing its cell's particles in a scratch array: a
+//   stable counting sort, so each cell's particles keep the order of the
+//   array (the full stable sort's order).  Each thread then sums its cell's
+//   particles, offset by offset, in that order; a warp's 32 cells are
+//   consecutive, so every channel's writes are coalesced.  The TPU kernel's
+//   one-hot matmuls, split3 passes and window-local f32 ids are not needed.
+//
 // All are built with --fmad=false so every product and sum is rounded as
 // in the plain PyTorch versions they are checked against.
 
@@ -285,6 +307,97 @@ __global__ void g2p_gather_gw_kernel(const float* __restrict__ fm,
   for (int r = 0; r < 9; ++r) out[r * np + p] = acc[r];
 }
 
+constexpr int kWin = 512;      // cells per window (the bucket sort's grouping)
+constexpr int kIdTile = 2048;  // span ids staged in shared memory at a time
+
+template <bool kAffine>
+__global__ void __launch_bounds__(kWin)
+    p2g_scatter_base_kernel(const float* __restrict__ w27t,
+                            const float* __restrict__ vel,
+                            const float* __restrict__ aff,
+                            const int* __restrict__ flat,
+                            const int* __restrict__ wstart,
+                            int* __restrict__ order, float* __restrict__ out,
+                            int n, long long np) {
+  __shared__ int count[kWin];
+  __shared__ int warp_total[kWin / 32];
+  __shared__ int ids[kIdTile];
+  const long long ncell = (long long)n * n * n;
+  const int j = threadIdx.x;
+  const long long cell0 = (long long)blockIdx.x * kWin;
+  const int s = wstart[blockIdx.x];
+  const int e = wstart[blockIdx.x + 1];
+
+  // 1. particles per cell of the window (ids outside it are skipped)
+  count[j] = 0;
+  __syncthreads();
+  for (int p = s + j; p < e; p += kWin) {
+    const long long id = flat[p] - cell0;
+    if (id >= 0 && id < kWin) atomicAdd(&count[id], 1);
+  }
+  __syncthreads();
+
+  // 2. exclusive scan of the counts: the first slot of each cell
+  const int mine = count[j];
+  const int lane = j & 31, warp = j >> 5;
+  int incl = mine;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  for (int k = 0; k < warp; ++k) before += warp_total[k];
+  const int first = s + before + incl - mine;
+
+  // 3. stable counting sort: each thread lists its cell's particles in
+  // span order
+  int last = first;
+  for (int t0 = s; t0 < e; t0 += kIdTile) {
+    const int m = min(kIdTile, e - t0);
+    __syncthreads();
+    for (int k = j; k < m; k += kWin) ids[k] = (int)(flat[t0 + k] - cell0);
+    __syncthreads();
+    if (mine > 0)
+      for (int k = 0; k < m; ++k)
+        if (ids[k] == j) order[last++] = t0 + k;
+  }
+
+  // 4. the 108 sums of this thread's cell, offset by offset
+  const long long cell = cell0 + j;
+  if (cell >= ncell) return;
+  for (int o = 0; o < 27; ++o) {
+    const float fx = (float)(o / 9 - 1);
+    const float fy = (float)((o / 3) % 3 - 1);
+    const float fz = (float)(o % 3 - 1);
+    const float* wo = w27t + (long long)o * np;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int q = first; q < last; ++q) {
+      const long long p = order[q];
+      const float w = wo[p];
+      float v0 = vel[3 * p];
+      float v1 = vel[3 * p + 1];
+      float v2 = vel[3 * p + 2];
+      if (kAffine) {
+        const float* cp = aff + 9 * p;
+        v0 = v0 + cp[0] * fx + cp[1] * fy + cp[2] * fz;
+        v1 = v1 + cp[3] * fx + cp[4] * fy + cp[5] * fz;
+        v2 = v2 + cp[6] * fx + cp[7] * fy + cp[8] * fz;
+      }
+      a0 += w;
+      a1 += w * v0;
+      a2 += w * v1;
+      a3 += w * v2;
+    }
+    float* oc = out + 4LL * o * ncell + cell;
+    oc[0] = a0;
+    oc[ncell] = a1;
+    oc[2 * ncell] = a2;
+    oc[3 * ncell] = a3;
+  }
+}
+
 }  // namespace
 
 extern "C" int fs_p2g_scatter(const float* w27t, const float* vel,
@@ -345,5 +458,20 @@ extern "C" int fs_g2p_gather_gw(const float* fm, const float* gradw,
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   g2p_gather_gw_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       fm, gradw, flat, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_p2g_scatter_base(const float* w27t, const float* vel,
+                                   const float* aff, const int* flat,
+                                   const int* wstart, int* order, float* out,
+                                   int n, long long np, void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const unsigned blocks = (unsigned)((ncell + kWin - 1) / kWin);
+  if (aff == nullptr)
+    p2g_scatter_base_kernel<false><<<blocks, kWin, 0, (cudaStream_t)stream>>>(
+        w27t, vel, nullptr, flat, wstart, order, out, n, np);
+  else
+    p2g_scatter_base_kernel<true><<<blocks, kWin, 0, (cudaStream_t)stream>>>(
+        w27t, vel, aff, flat, wstart, order, out, n, np);
   return (int)cudaGetLastError();
 }

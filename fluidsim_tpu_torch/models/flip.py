@@ -10,7 +10,12 @@ One ``flip_step`` is
   offset moments through K2 moments and the affine fit) -> CFL dt ->
   advection with solid bounce (restitution 0 in FLIP, 0.5 in PIC and APIC)
 
-with every field a dense f32 tensor on one device.  The projection keeps
+with every field a dense f32 tensor on one device.  With
+``sort_method="bucket"`` the sort groups particles by 512-cell window only
+(the bucket sort, K5; the full sort when its caps trip), and P2G is the
+unfused pair K6a (base-cell scatter) and K6b (shift-reduce), which need no
+more than that grouping; G2P reads each particle alone and takes either
+order.  The projection keeps
 the reference's outer divergence-correction loop (relative error <= 0.1)
 and its quirks (gradient at dt/10 strength, gravity re-applied per pass).
 The JAX package's other schedules (chunked and sharded transfers,
@@ -57,6 +62,9 @@ class FlipParams:
     pcg_rtol: float = 0.0            # 0 = auto by grid size (auto_pcg_rtol)
     pcg_maxiter: int = 400
     mode: str = "flip"               # "flip" (e=0), "pic" or "apic" (e=0.5)
+    sort_method: str = "full"        # "full": stable sort by cell, K1 P2G;
+                                     # "bucket": window-grouped bucket sort
+                                     # (K5), unfused P2G (K6a, K6b)
     walls_only_solid: bool = False   # solid == box walls exactly: analytic
                                      # bounce probe (auto-detected by FlipSim)
 
@@ -64,6 +72,9 @@ class FlipParams:
         if self.mode not in ("flip", "pic", "apic"):
             raise ValueError(f"mode {self.mode!r}: expected 'flip', 'pic' "
                              "or 'apic'")
+        if self.sort_method not in ("full", "bucket"):
+            raise ValueError(f"sort_method {self.sort_method!r}: expected "
+                             "'full' or 'bucket'")
 
 
 @dataclasses.dataclass
@@ -186,22 +197,24 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
 def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
     """One frame in ``params.mode``; returns (new_state, metrics)."""
     B, wall = params.bound, params.wall
-    n = 2 * B + 1
     dt = state.dt
     aff = state.aff
 
+    sort = params.sort_method
+    fused = sort == "full"       # the bucket order feeds the unfused P2G
     if params.mode == "apic":
         pos, vel, flat, aff_flat = tk.sort_by_cell(
-            state.pos, state.vel, B, extra=aff.reshape(-1, 9))
+            state.pos, state.vel, B, extra=aff.reshape(-1, 9), method=sort)
         aff = aff_flat.reshape(-1, 3, 3)
         w27t = tk.masked_weights_cm(pos, B)   # shared by P2G and G2P
-        weights, mom, occ = apic.p2g_apic(w27t, pos, vel, aff,
-                                          tk.cell_starts(flat, n), solid, B)
+        weights, mom, occ = apic.p2g_apic(w27t, pos, vel, aff, flat, solid,
+                                          B, fused_scatter=fused)
     else:
-        pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B)
+        pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B,
+                                         method=sort)
         w27t = tk.masked_weights_cm(pos, B)
-        weights, mom, occ = tk.p2g(w27t, vel, tk.cell_starts(flat, n),
-                                   solid, B)
+        weights, mom, occ = tk.p2g(w27t, vel, flat, solid, B,
+                                   fused_scatter=fused)
     velg = normalize_velocity_cm(weights, mom)
     fluid = (occ > 0) & ~solid
     velb = velg

@@ -3,7 +3,8 @@
 
 P2G scatters ``w_o * (v + C (x_o - x_p))``: the per-particle part of
 ``x_o - x_p = (base - pos) + off_o`` folds into an effective velocity here,
-and the offset part is added inside the K1 aff kernel.  G2P gathers the 22
+and the offset part is added inside the K1 aff kernel (or, on the bucket
+path's window-grouped order, inside K6a).  G2P gathers the 22
 offset moments (K2 moments) and fits ``C = B D^{-1}`` from them with the
 reference's centred fit, a ``1e-3 I`` ridge and the adjugate inverse, in
 (P, 3, 3) elementwise arithmetic.
@@ -19,15 +20,23 @@ from fluidsim_tpu_torch.ops.svd3 import cofactor3, det3, mm3, mv3
 
 
 def p2g_apic(w27t: torch.Tensor, pos_s: torch.Tensor, vel_s: torch.Tensor,
-             aff_s: torch.Tensor, cell_start: torch.Tensor,
-             solid: torch.Tensor, bound: int):
+             aff_s: torch.Tensor, flat_s: torch.Tensor, solid: torch.Tensor,
+             bound: int, fused_scatter: bool = True):
     """APIC P2G of sorted particles with (P, 3, 3) affine matrices
-    ``aff_s``: K1 aff on ``veff = v + C (base - pos)``, then the masks of
+    ``aff_s``: on ``veff = v + C (base - pos)``, K1 aff over the cell ranges
+    of a full sort, or (``fused_scatter=False``, a window-grouped order) K6a
+    with the APIC term and K6b; then the masks of
     ``transfer_kernels.p2g``.  Returns (weights, mom (3,N,N,N), occ)."""
+    n = 2 * bound + 1
     e = cround(pos_s) - pos_s
     veff = vel_s + mv3(aff_s, e)
-    accn = tk.p2g_scatter_affine(w27t, veff, aff_s.reshape(-1, 9),
-                                 cell_start, 2 * bound + 1)
+    aff9 = aff_s.reshape(-1, 9)
+    if fused_scatter:
+        accn = tk.p2g_scatter_affine(w27t, veff, aff9,
+                                     tk.cell_starts(flat_s, n), n)
+    else:
+        accn = tk.shift_reduce(tk.p2g_scatter_base(
+            w27t, veff, flat_s, tk.window_starts(flat_s, n), n, aff_s=aff9))
     return tk.p2g_masks(accn, solid, bound)
 
 

@@ -7,7 +7,12 @@ scatter, ``aff=``, and the 24-moment gather, ``nout=24``) are
 ``p2g_scatter_affine`` and ``g2p_moments``; ``ops.apic`` wraps them.  The
 MPM modes (the force scatter, ``expand='fg'``, and the gradW gather,
 ``contract='gw'``) are ``p2g_scatter_force`` and ``g2p_gather_gw``;
-``ops.mpm_kernels`` wraps them.
+``ops.mpm_kernels`` wraps them.  The unfused P2G of
+``p2g_pallas(fused_scatter=False)`` — the 108-channel base-cell scatter
+(K6a, ``scatter_wv_cm``) and the 27-offset shift-reduce (K6b,
+``pallas_shift.reduce_haloed``) — is ``p2g_scatter_base`` and
+``shift_reduce``; it serves the window-grouped order of
+``sort_by_cell(method="bucket")``.
 
 Particles are sorted by the plain flat id ``(x*n + y)*n + z`` of their
 clipped base cell; ``cell_start`` (n^3 + 1 offsets into the sorted arrays)
@@ -16,10 +21,11 @@ once per frame and shared by both directions.  The TPU path's window layout
 (haloed ids, packed columns, one-hot matmuls) is not needed here.
 
 Each kernel wrapper (``p2g_scatter``, ``p2g_scatter_affine``,
-``p2g_scatter_force``, ``g2p_gather``, ``g2p_moments``, ``g2p_gather_gw``)
-launches its CUDA kernel of ``csrc/transfer.cu`` for CUDA tensors and
-uses its plain PyTorch version only for CPU tensors; anything else raises.
-Each counts its kernel launches in ``.launches``.
+``p2g_scatter_force``, ``p2g_scatter_base``, ``shift_reduce``,
+``g2p_gather``, ``g2p_moments``, ``g2p_gather_gw``) launches its CUDA
+kernel of ``csrc/transfer.cu`` (``shift_reduce``: ``csrc/stencil.cu``)
+for CUDA tensors and uses its plain PyTorch version only for CPU tensors;
+anything else raises.  Each counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -28,24 +34,48 @@ import torch
 
 from fluidsim_tpu_torch import native
 from fluidsim_tpu_torch.core.splines import cround
+from fluidsim_tpu_torch.ops import bucket_sort
 from fluidsim_tpu_torch.ops.smallmat import apply_mat27, outer_sum27
 from fluidsim_tpu_torch.ops.transfer import _KERNELS, _OFFSETS
 
+WINDOW = 512    # cells per window of the bucket order and of K6a
+# Runs of (window, chunk) that one 1024-row output block of the bucket sort
+# may meet before it falls back.  The JAX package's 8 sized its TPU kernel's
+# double-buffered block loads; K5 reads each block's runs from memory in a
+# loop, and at 129^3 / 2M particles a block meets up to ~20 runs once the
+# cube moves (``chip_smoke.py`` phase 14 prints the count), so the JAX cap
+# would send every such frame to the full sort.
+BUCKET_EMAX = 64
+
 
 def sort_by_cell(pos: torch.Tensor, vel: torch.Tensor, bound: int,
-                 extra: torch.Tensor | None = None):
-    """Stable sort of particles by the flat id of their clipped base cell.
+                 extra: torch.Tensor | None = None, method: str = "full"):
+    """Sort particles by the flat id of their clipped base cell.
 
     Returns ``(pos_s, vel_s, flat_s)`` with ``flat_s`` int32, and with
     ``extra`` (an optional (P, k) payload, e.g. the flattened APIC C) its
     sorted rows as a fourth element.  Particles outside the box clip to the
-    boundary cell; their weights vanish (``masked_weights_cm``).  The JAX
-    package's haloed ids give the same order, and its sort is stable too,
-    so both sort into the same sequence.
+    boundary cell; their weights vanish (``masked_weights_cm``).
+
+    ``method="full"``: the stable sort by id.  The JAX package's haloed ids
+    give the same order, and its sort is stable too, so both sort into the
+    same sequence.  ``method="bucket"``: the rows grouped by ``WINDOW``-cell
+    window of their id (``bucket_sort.bucket_or_sort``, the full sort when
+    its caps trip), each cell's particles in the order the full sort gives
+    them; only the unfused P2G (``p2g(fused_scatter=False)``) and the
+    order-free G2P may read that order.
     """
     n = 2 * bound + 1
     bc = torch.clamp(cround(pos).to(torch.int32) + bound, 0, n - 1)
     flat = (bc[:, 0] * n + bc[:, 1]) * n + bc[:, 2]
+    if method == "bucket":
+        cols = [pos.T, vel.T] + ([] if extra is None else [extra.T])
+        flat_s, co = bucket_sort.bucket_or_sort(flat, torch.cat(cols, 0),
+                                                w=WINDOW, emax=BUCKET_EMAX)
+        out = (co[0:3].T.contiguous(), co[3:6].T.contiguous(), flat_s)
+        return out if extra is None else out + (co[6:].T.contiguous(),)
+    if method != "full":
+        raise ValueError(f"sort method {method!r}: expected 'full' or 'bucket'")
     flat_s, perm = torch.sort(flat, stable=True)
     if extra is None:
         return pos[perm], vel[perm], flat_s
@@ -56,6 +86,18 @@ def cell_starts(flat_s: torch.Tensor, n: int) -> torch.Tensor:
     """(n^3 + 1,) int32: first sorted index of every cell id, plus P."""
     ids = torch.arange(n ** 3 + 1, dtype=torch.int32, device=flat_s.device)
     return torch.searchsorted(flat_s, ids, out_int32=True)
+
+
+def window_starts(flat_s: torch.Tensor, n: int) -> torch.Tensor:
+    """(ceil(n^3 / WINDOW) + 1,) int32: first index of every ``WINDOW``-cell
+    window of ids, plus P — the counterpart of ``build_chunks``' window
+    edges.  Exact on a window-grouped order too: every id of window b lies
+    in [b W, (b+1) W), so disorder inside a window flips no comparison with
+    an edge."""
+    nwin = -(-n ** 3 // WINDOW)
+    edges = torch.arange(nwin + 1, dtype=torch.int32,
+                         device=flat_s.device) * WINDOW
+    return torch.searchsorted(flat_s, edges, out_int32=True)
 
 
 def masked_weights_cm(pos_s: torch.Tensor, bound: int,
@@ -74,44 +116,64 @@ def masked_weights_cm(pos_s: torch.Tensor, bound: int,
 
 
 def _shift3(a: torch.Tensor, d) -> torch.Tensor:
-    """result[j] = a[j - d] over the leading three axes, zero-padded."""
+    """result[..., j] = a[..., j - d] over the last three axes, zero-padded."""
     out = torch.zeros_like(a)
     src, dst = [], []
-    for s, n_ax in zip(d, a.shape[:3]):
+    for s, n_ax in zip(d, a.shape[-3:]):
         s = int(s)
         src.append(slice(max(-s, 0), n_ax - max(s, 0)))
         dst.append(slice(max(s, 0), n_ax - max(-s, 0)))
-    out[tuple(dst)] = a[tuple(src)]
+    out[(..., *dst)] = a[(..., *src)]
     return out
 
 
-# ---- K1: P2G scatter ------------------------------------------------------
+_OFF = torch.as_tensor(_OFFSETS, dtype=torch.float32)       # (27, 3)
+
+
+def _wv_values(w27t: torch.Tensor, vel_s: torch.Tensor,
+               aff_s: torch.Tensor | None = None) -> torch.Tensor:
+    """The (P, 27, 4) per-(particle, offset) values ``w * [1, v]`` of the
+    FLIP and APIC scatters; with ``aff_s`` ((P, 9), row-major C) the
+    velocity of offset o is ``v + C off_o`` (``v_i + C[i,0] off_0 +
+    C[i,1] off_1 + C[i,2] off_2``, summed in that order)."""
+    v = vel_s[:, None, :]
+    if aff_s is not None:
+        off = _OFF.to(w27t.device)
+        c = aff_s.reshape(-1, 1, 3, 3)
+        v = (v + c[..., 0] * off[None, :, 0, None]
+             + c[..., 1] * off[None, :, 1, None]
+             + c[..., 2] * off[None, :, 2, None])             # (P, 27, 3)
+    w = w27t.T[..., None]
+    return torch.cat([w, w * v], dim=-1)
+
+
+def _base_cell_sums(u: torch.Tensor, flat_s: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """One ``index_add_`` of the (P, 27, C) values onto the particles' base
+    cells: a (27, C, n, n, n) view, each cell's sum taken over its particles
+    in array order on the CPU."""
+    p, _, c = u.shape
+    d = torch.zeros((n ** 3, 27 * c), dtype=u.dtype, device=u.device)
+    d.index_add_(0, flat_s.to(torch.int64), u.reshape(p, 27 * c))
+    return d.T.reshape(27, c, n, n, n)
+
 
 def _scatter27_plain(u: torch.Tensor, cell_start: torch.Tensor,
                      n: int) -> torch.Tensor:
     """The plain schedule of the K1 modes (``transfer_fast.p2g_fused``):
-    one ``index_add_`` of the (P, 27, C) per-(particle, offset) values onto
-    the base cells, then 27 shifted adds.  Returns (C, n, n, n)."""
-    p, _, c = u.shape
+    the base-cell sums of the (P, 27, C) values (``_base_cell_sums``), then
+    the 27 shifted adds (``shift_reduce_plain``).  Returns (C, n, n, n)."""
     counts = (cell_start[1:] - cell_start[:-1]).to(torch.int64)
     flat = torch.repeat_interleave(
         torch.arange(n ** 3, device=u.device), counts)
-    d = torch.zeros((n ** 3, 27 * c), dtype=u.dtype, device=u.device)
-    d.index_add_(0, flat, u.reshape(p, 27 * c))
-    d = d.reshape(n, n, n, 27, c)
-    acc = torch.zeros((n, n, n, c), dtype=u.dtype, device=u.device)
-    for o in range(27):
-        acc = acc + _shift3(d[..., o, :], _OFFSETS[o])
-    return acc.permute(3, 0, 1, 2).contiguous()
+    return shift_reduce_plain(_base_cell_sums(u, flat, n))
 
 
 def p2g_scatter_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
                       cell_start: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch K1: the 27x4 per-particle values ``w * [1, v]``
     through ``_scatter27_plain``.  Returns (4, n, n, n)."""
-    u = torch.cat([w27t.T[..., None], w27t.T[..., None] * vel_s[:, None, :]],
-                  dim=-1)                                      # (P, 27, 4)
-    return _scatter27_plain(u, cell_start, n)
+    return _scatter27_plain(_wv_values(w27t, vel_s), cell_start, n)
 
 
 def p2g_scatter(w27t: torch.Tensor, vel_s: torch.Tensor,
@@ -146,23 +208,13 @@ p2g_scatter.launches = 0
 
 # ---- K1 aff: APIC P2G scatter ---------------------------------------------
 
-_OFF = torch.as_tensor(_OFFSETS, dtype=torch.float32)       # (27, 3)
-
-
 def p2g_scatter_affine_plain(w27t: torch.Tensor, veff_s: torch.Tensor,
                              aff_s: torch.Tensor, cell_start: torch.Tensor,
                              n: int) -> torch.Tensor:
     """Plain PyTorch K1 aff: as ``p2g_scatter_plain`` with the velocity of
-    offset o ``veff + C off_o`` (``veff_i + C[i,0] off_0 + C[i,1] off_1 +
-    C[i,2] off_2``, summed in that order).  ``aff_s`` is (P, 9), row-major
-    C.  Returns (4, n, n, n)."""
-    off = _OFF.to(w27t.device)
-    c = aff_s.reshape(-1, 1, 3, 3)
-    v = (veff_s[:, None, :] + c[..., 0] * off[None, :, 0, None]
-         + c[..., 1] * off[None, :, 1, None]
-         + c[..., 2] * off[None, :, 2, None])                 # (P, 27, 3)
-    u = torch.cat([w27t.T[..., None], w27t.T[..., None] * v], dim=-1)
-    return _scatter27_plain(u, cell_start, n)
+    offset o ``veff + C off_o`` (``_wv_values``).  ``aff_s`` is (P, 9),
+    row-major C.  Returns (4, n, n, n)."""
+    return _scatter27_plain(_wv_values(w27t, veff_s, aff_s), cell_start, n)
 
 
 def p2g_scatter_affine(w27t: torch.Tensor, veff_s: torch.Tensor,
@@ -410,6 +462,96 @@ def g2p_gather_gw(fm: torch.Tensor, gradw: torch.Tensor,
 g2p_gather_gw.launches = 0
 
 
+# ---- K6a: the unfused P2G's base-cell scatter ------------------------------
+
+def p2g_scatter_base_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
+                           flat_s: torch.Tensor, n: int,
+                           aff_s: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch K6a: one ``index_add_`` of the (P, 108) values
+    ``w * [1, v (+ C off)]`` (``_wv_values``) onto the base cells.  Returns
+    (27, 4, n, n, n)."""
+    return _base_cell_sums(_wv_values(w27t, vel_s, aff_s), flat_s,
+                           n).contiguous()
+
+
+def p2g_scatter_base(w27t: torch.Tensor, vel_s: torch.Tensor,
+                     flat_s: torch.Tensor, wstart: torch.Tensor, n: int,
+                     aff_s: torch.Tensor | None = None) -> torch.Tensor:
+    """K6a: ``out[o, c, cell] = sum_{p: flat(p) = cell} w27t[o, p] *
+    [1, v_p (+ C_p off_o)][c]`` — the 108 per-offset channels summed on the
+    base cells, each cell's particles in array order.  The particles must
+    be grouped by ``WINDOW``-cell window (any order inside a window);
+    ``wstart`` is ``window_starts(flat_s, n)``.  ``aff_s`` (P, 9): the APIC
+    term, with ``vel_s`` then veff.  (27, 4, n, n, n) f32, every cell
+    written.  CUDA tensors launch ``fs_p2g_scatter_base``
+    (``csrc/transfer.cu``); CPU tensors take ``p2g_scatter_base_plain``."""
+    if w27t.device.type == "cpu":
+        return p2g_scatter_base_plain(w27t, vel_s, flat_s, n, aff_s)
+    native.require_cuda(w27t, "p2g_scatter_base")
+    dev = w27t.device
+    p = vel_s.shape[0]
+    nwin = -(-n ** 3 // WINDOW)
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
+    native.check_tensor("vel_s", vel_s, torch.float32, (p, 3), dev)
+    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    native.check_tensor("wstart", wstart, torch.int32, (nwin + 1,), dev)
+    if aff_s is not None:
+        native.check_tensor("aff_s", aff_s, torch.float32, (p, 9), dev)
+    if p >= 2 ** 31:
+        raise ValueError("p2g_scatter_base: more than 2^31 - 1 particles")
+    out = torch.empty((27, 4, n, n, n), dtype=torch.float32, device=dev)
+    order = torch.empty((p,), dtype=torch.int32, device=dev)   # scratch
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_p2g_scatter_base(
+            w27t.data_ptr(), vel_s.data_ptr(),
+            None if aff_s is None else aff_s.data_ptr(), flat_s.data_ptr(),
+            wstart.data_ptr(), order.data_ptr(), out.data_ptr(), n, p,
+            native.stream_ptr(dev))
+    native.check_launch("p2g_scatter_base", rc)
+    p2g_scatter_base.launches += 1
+    return out
+
+
+p2g_scatter_base.launches = 0
+
+
+# ---- K6b: the unfused P2G's shift-reduce -----------------------------------
+
+def shift_reduce_plain(d: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K6b: ``acc = sum_o shift(d[o], off_o)``, 27 shifted
+    adds in offset order from zero.  (27, C, n, n, n) -> (C, n, n, n)."""
+    acc = torch.zeros(d.shape[1:], dtype=d.dtype, device=d.device)
+    for o in range(27):
+        acc = acc + _shift3(d[o], _OFFSETS[o])
+    return acc
+
+
+def shift_reduce(d: torch.Tensor) -> torch.Tensor:
+    """K6b: ``acc[g, cell] = sum_o d[o, g, cell - off_o]`` over the 27
+    offsets in order, sources outside the box dropped; ``d`` is K6a's
+    (27, 4, n, n, n).  (4, n, n, n) f32.  CUDA tensors launch
+    ``fs_shift_reduce`` (``csrc/stencil.cu``), bitwise equal to
+    ``shift_reduce_plain``, which CPU tensors take."""
+    if d.device.type == "cpu":
+        return shift_reduce_plain(d)
+    native.require_cuda(d, "shift_reduce")
+    dev = d.device
+    n = d.shape[-1]
+    native.check_tensor("d", d, torch.float32, (27, 4, n, n, n), dev)
+    out = torch.empty((4, n, n, n), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_shift_reduce(d.data_ptr(), out.data_ptr(), n,
+                                 native.stream_ptr(dev))
+    native.check_launch("shift_reduce", rc)
+    shift_reduce.launches += 1
+    return out
+
+
+shift_reduce.launches = 0
+
+
 # ---- the transfers around the kernels -------------------------------------
 
 def _box_within(bound: int, m: int, device) -> torch.Tensor:
@@ -418,12 +560,20 @@ def _box_within(bound: int, m: int, device) -> torch.Tensor:
     return ok[:, None, None] & ok[None, :, None] & ok[None, None, :]
 
 
-def p2g(w27t: torch.Tensor, vel_s: torch.Tensor, cell_start: torch.Tensor,
-        solid: torch.Tensor, bound: int):
-    """Full P2G: K1, then the reference's target-cell masks
-    (``p2g_masks``).  Returns ``weights`` (N,N,N), channel-major ``mom``
-    (3,N,N,N) and ``occ`` (N,N,N)."""
-    accn = p2g_scatter(w27t, vel_s, cell_start, 2 * bound + 1)
+def p2g(w27t: torch.Tensor, vel_s: torch.Tensor, flat_s: torch.Tensor,
+        solid: torch.Tensor, bound: int, fused_scatter: bool = True):
+    """Full P2G of sorted particles, then the reference's target-cell masks
+    (``p2g_masks``).  ``fused_scatter``: K1 over the cell ranges of a full
+    sort; else K6a and K6b, which need only a window-grouped order (the
+    counterpart of ``p2g_pallas(fused_scatter=False)``).  Returns
+    ``weights`` (N,N,N), channel-major ``mom`` (3,N,N,N) and ``occ``
+    (N,N,N)."""
+    n = 2 * bound + 1
+    if fused_scatter:
+        accn = p2g_scatter(w27t, vel_s, cell_starts(flat_s, n), n)
+    else:
+        accn = shift_reduce(p2g_scatter_base(w27t, vel_s, flat_s,
+                                             window_starts(flat_s, n), n))
     return p2g_masks(accn, solid, bound)
 
 

@@ -3,11 +3,14 @@
 kernels it ran, the busiest kernels and the device's busy share.
 
     python -m fluidsim_tpu_torch.utils.frame_profile --mode apic
+    python -m fluidsim_tpu_torch.utils.frame_profile --mode flip-bucket
     python -m fluidsim_tpu_torch.utils.frame_profile --mode mpm
 
 The FLIP, PIC and APIC scene is ``water_cube_drop`` at 129^3 (bound 64,
-density 25, ~1.99M particles); the MPM scene ``mpm_cone`` at 127^3 (bound
-63, 473,798 particles, the "hybrid" operator); seed 0, on "cuda".  After 5
+density 25, ~1.99M particles); ``flip-bucket`` is FLIP with
+``sort_method="bucket"`` (the bucket sort and the unfused P2G); the MPM
+scene ``mpm_cone`` at 127^3 (bound 63, 473,798 particles, the "hybrid"
+operator); seed 0, on "cuda".  After 5
 warm-up frames (past FLIP's splash of frames 1-4, whose projection runs up
 to 7 outer passes) the same 3 frames run four times from the same state:
 twice unprofiled, once under ``torch.profiler``, and once more
@@ -43,6 +46,7 @@ from fluidsim_tpu_torch.models import flip, mpm
 from fluidsim_tpu_torch.ops import apic
 from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
+from fluidsim_tpu_torch.scenes import get_scene
 
 BOUND = 64          # FLIP scene half-width: a (2*64+1)^3 = 129^3 grid
 DENSITY = 25.0      # particles per seeded voxel: ~1.99M particles
@@ -56,8 +60,7 @@ PHASES = {
     "flip": (
         ("sort", tk, "sort_by_cell"),
         ("stencil weights", tk, "masked_weights_cm"),
-        ("cell ranges", tk, "cell_starts"),
-        ("P2G", tk, "p2g"),
+        ("P2G", tk, "p2g"),             # with its cell or window ranges
         ("P2G", apic, "p2g_apic"),
         ("projection", flip, "project"),
         ("G2P", tk, "g2p"),
@@ -175,8 +178,12 @@ def profile_frames(sim, frames: int = FRAMES) -> dict:
                 inside[phase] += dur
                 break
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
+    mode = "mpm"
+    if kind == "flip":
+        bucket = sim.params.sort_method == "bucket"
+        mode = sim.params.mode + ("-bucket" if bucket else "")
     return {
-        "mode": sim.params.mode if kind == "flip" else "mpm",
+        "mode": mode,
         "particles": sim.num_particles,
         "grid": 2 * sim.params.bound + 1, "frames": frames,
         "first_frame": int(start.frame) + 1,
@@ -198,7 +205,7 @@ def profile_frames(sim, frames: int = FRAMES) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="flip",
-                    choices=("flip", "pic", "apic", "mpm"))
+                    choices=("flip", "pic", "apic", "flip-bucket", "mpm"))
     args = ap.parse_args(argv)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -207,6 +214,11 @@ def main(argv=None) -> int:
     print(smi.stdout.strip())
     if args.mode == "mpm":
         sim = mpm.MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED)
+    elif args.mode == "flip-bucket":
+        scene = get_scene("water_cube_drop", bound=BOUND, density=DENSITY)
+        sim = flip.FlipSim(scene, seed=SEED, params=flip.FlipParams(
+            bound=BOUND, wall=scene.spec.wall, dx=scene.spec.dx,
+            gravity=tuple(scene.gravity), sort_method="bucket"))
     else:
         sim = flip.FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
                            seed=SEED, mode=args.mode)

@@ -97,8 +97,7 @@ def p2g_all(particles, sorted_both):
                                     BOUND, "flip")
     xla = (xw, jnp.moveaxis(xmom, -1, 0), xocc)
     w27t = tk.masked_weights_cm(tpos, BOUND)
-    port = apic.p2g_apic(w27t, tpos, tvel, tx.reshape(-1, 3, 3),
-                         tk.cell_starts(tflat, N),
+    port = apic.p2g_apic(w27t, tpos, tvel, tx.reshape(-1, 3, 3), tflat,
                          torch.as_tensor(scene.solid), BOUND)
     return {"pallas": pallas[:3], "xla": xla}, port, pallas[3], w27t
 
@@ -216,10 +215,9 @@ def _apic_round_trip(pos, vel, bound, wall):
     aff = torch.zeros((pos.shape[0], 9))
     pos_s, vel_s, flat, aff_s = tk.sort_by_cell(
         torch.as_tensor(pos), torch.as_tensor(vel), bound, extra=aff)
-    n = 2 * bound + 1
     w27t = tk.masked_weights_cm(pos_s, bound)
     w, mom, _ = apic.p2g_apic(w27t, pos_s, vel_s, aff_s.reshape(-1, 3, 3),
-                              tk.cell_starts(flat, n), solid, bound)
+                              flat, solid, bound)
     vc = cell_center_velocity_cm(normalize_velocity_cm(w, mom))
     v, c = apic.g2p_apic(w27t, flat, pos_s, vc, bound, wall)
     return pos_s.numpy(), v.numpy(), c.numpy()

@@ -45,8 +45,8 @@ def grid():
     p, v, flat = tk.sort_by_cell(torch.as_tensor(pos), torch.as_tensor(vel),
                                  BOUND)
     solid = torch.as_tensor(scene.solid)
-    w, mom, occ = tk.p2g(tk.masked_weights_cm(p, BOUND), v,
-                         tk.cell_starts(flat, 2 * BOUND + 1), solid, BOUND)
+    w, mom, occ = tk.p2g(tk.masked_weights_cm(p, BOUND), v, flat, solid,
+                         BOUND)
     velg = normalize_velocity_cm(w, mom).numpy()
     fluid = ((occ > 0) & ~solid).numpy()
     p0 = rng.normal(scale=0.5, size=fluid.shape).astype(np.float32)

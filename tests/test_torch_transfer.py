@@ -92,8 +92,8 @@ def p2g_both(sorted_both):
                                        "flip", interpret=True,
                                        channel_major=True)
     w27t = tk.masked_weights_cm(tpos, BOUND, "flip")
-    tw, tmom, tocc = tk.p2g(w27t, tvel, tk.cell_starts(tflat, N),
-                            torch.as_tensor(scene.solid), BOUND)
+    tw, tmom, tocc = tk.p2g(w27t, tvel, tflat, torch.as_tensor(scene.solid),
+                            BOUND)
     return (jw, jmom, jocc, wv), (tw, tmom, tocc, w27t)
 
 
