@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths, the
+materialised G2P and the span and unhaloed shift entry points on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
@@ -47,7 +48,20 @@ Phases, each of which raises on failure (nonzero exit):
    full sort, and ms/frame beside the full path's;
 16. determinism of the bucket frames, as phase 5;
 17. reference: FLIP, APIC and PIC on the bucket path at bound 16 (10,648
-   particles), card against CPU, as phase 9.
+   particles), card against CPU, as phase 9;
+18. the materialised G2P's kernels (K7b neighbourhood table, K7a gather in
+   its 4-row and 22-moment modes) against their plain versions on the
+   sorted state of ``FlipSim`` after its 2 warm-up frames, timed as in
+   phase 3, K7b beside ``conv3d`` and K7a beside the time of its gather
+   half (``index_select``), and K7a against K2 and K2 moments, bit for bit;
+19. ``g2p`` and ``g2p_apic`` with ``fused_table=False`` on that state, with
+   their launch counts, bit for bit against ``fused_table=True``, both
+   timed;
+20. the span entry points (K9a, K9b) against K6a and K7a and their plain
+   versions, the unhaloed shift entry points (K10a, K10b) against K6b and
+   K7b, their plain versions and ``conv3d``, the transposes (K10c, K10d) of
+   a (129^3, 108) matrix against ``.T.contiguous()``, and the launch
+   counts of one call of each entry point.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -116,13 +130,15 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None):
+def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None,
+             extra_bytes=0):
     """Run a kernel and its plain version on the same inputs; require
     ``max|kernel - plain| <= rel_tol * max|plain|``.  Returns the kernel's
     line fields: the error, both times (and ``library``'s, one PyTorch call
     of the same function, where there is one), and the bound — the larger
-    of the compulsory bytes (``inputs`` read once, the outputs written once)
-    over the HBM rate and ``ops`` f32 operations over the f32 rate."""
+    of the compulsory bytes (``inputs`` read once, the outputs written once,
+    plus ``extra_bytes`` that depend on the data) over the HBM rate and
+    ``ops`` f32 operations over the f32 rate."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
@@ -138,7 +154,7 @@ def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None):
     ms = _cuda_ms(kernel, torch)
     plain_ms = _cuda_ms(plain, torch)
     library_ms = None if library is None else _cuda_ms(library, torch)
-    nbytes = _nbytes(inputs) + _nbytes(out_k)
+    nbytes = _nbytes(inputs) + _nbytes(out_k) + extra_bytes
     bytes_ms, ops_ms = 1e3 * nbytes / _HBM_BYTES_PER_S, 1e3 * ops / _F32_OPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -366,6 +382,205 @@ def _mpm_small_scene(hessian, dev):
           f"cpu {pos_err:.3e}, max FE diff {fe_err:.3e}")
 
 
+def _shift_onehots(dev, torch):
+    """The one-hot conv3d weights of the 27-offset stencils (conv3d is a
+    cross-correlation): expand (108, 4, 3, 3, 3), ``out[4o + g, cell] =
+    in[g, cell + off_o]``, and reduce (4, 108, 3, 3, 3), ``out[g, cell] =
+    sum_o in[4o + g, cell - off_o]``."""
+    from fluidsim_tpu_torch.ops.transfer import _OFFSETS
+
+    expand = torch.zeros((108, 4, 3, 3, 3), device=dev)
+    for o, off in enumerate(_OFFSETS):
+        for g in range(4):
+            expand[4 * o + g, g, 1 + off[0], 1 + off[1], 1 + off[2]] = 1.0
+    return expand, expand.transpose(0, 1).flip(2, 3, 4).contiguous()
+
+
+def _materialised_phases(dev, counted, torch):
+    """Phases 18-20 on the sorted state of ``FlipSim`` after its 2 warm-up
+    frames: the materialised G2P's kernels (K7b, K7a), the materialised G2P
+    against the fused one, and the span and unhaloed shift entry points
+    (K9, K10).  Returns (results, launches of the materialised G2P,
+    launches of the entry points)."""
+    from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
+    from fluidsim_tpu_torch.ops import apic, shift
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
+
+    F = torch.nn.functional
+    torch.backends.cudnn.allow_tf32 = False
+    sim = _flip_sim(dev)
+    for _ in range(2):
+        sim.step()
+    st = sim.state
+    B, wall, P = sim.params.bound, sim.params.wall, sim.num_particles
+    n = 2 * B + 1
+    n3 = n ** 3
+    del sim
+    pos_s, vel_s, flat = tk.sort_by_cell(st.pos, st.vel, B)
+    w27t = tk.masked_weights_cm(pos_s, B)
+    acc = tk.p2g_scatter(w27t, vel_s, tk.cell_starts(flat, n), n)
+    vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
+    fm = tk.gather_fields(vc, B, wall)
+    cells = int(torch.unique_consecutive(flat).numel())
+    print(f"materialised G2P state: frame-2 FLIP state, {P} particles in "
+          f"{cells} distinct base cells of {n}^3")
+    results = {}
+
+    # ---- 18. K7b and K7a against their plain versions ---------------------
+    onehot, onehot_r = _shift_onehots(dev, torch)
+    conv = lambda: F.conv3d(fm.view(1, 4, n, n, n), onehot, padding=1)
+    results["shift_expand"] = _compare(
+        "K7b shift_expand", lambda: tk.shift_expand(fm),
+        lambda: tk.shift_expand_plain(fm), 0.0, (fm,), 0, torch,
+        library=conv)
+    table = tk.shift_expand(fm)
+    print(f"K7b library conv3d: max |conv3d - kernel| "
+          f"{_max_err(conv()[0], table.view(108, n, n, n)):.3e}")
+    # the sorted particles of one cell read its 108 table values once
+    per_cell = 432 * cells
+    results["g2p_gather_table"] = _compare(
+        "K7a g2p_gather_table", lambda: tk.g2p_gather_table(table, w27t, flat),
+        lambda: tk.g2p_gather_table_plain(table, w27t, flat), 1e-5,
+        (w27t, flat), 27 * 8 * P, torch, extra_bytes=per_cell)
+    results["g2p_moments_table"] = _compare(
+        "K7a moments g2p_moments_table",
+        lambda: tk.g2p_moments_table(table, w27t, flat),
+        lambda: tk.g2p_moments_table_plain(table, w27t, flat), 1e-5,
+        (w27t, flat), 27 * 44 * P, torch, extra_bytes=per_cell)
+    flat64 = flat.to(torch.int64)
+    gather_half = _cuda_ms(
+        lambda: table.view(108, n3).index_select(1, flat64), torch)
+    print(f"K7a gather half: index_select of the 108 table rows at the "
+          f"particles' base cells {gather_half:.4f} ms (median of {_REPS})")
+    for name, k2, k7 in (
+            ("K2", tk.g2p_gather(fm, w27t, flat),
+             tk.g2p_gather_table(table, w27t, flat)),
+            ("K2 moments", tk.g2p_moments(fm, w27t, flat),
+             tk.g2p_moments_table(table, w27t, flat))):
+        if not torch.equal(k2, k7):
+            raise AssertionError(f"K7a differs from {name}: "
+                                 f"{_max_err(k2, k7):.3e}")
+    print("K7a: equal to K2 and K2 moments on the same state, bit for bit")
+    del table, flat64
+
+    # ---- 19. the materialised G2P against the fused one -------------------
+    for fn in counted:
+        fn.launches = 0
+    mat = (tk.g2p(w27t, flat, vc, B, wall, fused_table=False),
+           *apic.g2p_apic(w27t, flat, pos_s, vc, B, wall, fused_table=False))
+    torch.cuda.synchronize()
+    table_launches = {fn.__name__: fn.launches for fn in counted}
+    print("g2p_materialised: launches:", json.dumps(table_launches))
+    want = {name: 0 for name in table_launches}
+    want.update({"shift_expand": 2, "g2p_gather_table": 1,
+                 "g2p_moments_table": 1})
+    if table_launches != want:
+        raise AssertionError(f"g2p_materialised: launches {table_launches}, "
+                             f"expected {want}")
+    fused = (tk.g2p(w27t, flat, vc, B, wall),
+             *apic.g2p_apic(w27t, flat, pos_s, vc, B, wall))
+    for name, a, b in zip(("g2p velocity", "g2p_apic velocity",
+                           "g2p_apic C"), mat, fused):
+        if not (torch.equal(a, b) and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{name}: fused_table=False differs from "
+                                 f"fused_table=True by {_max_err(a, b):.3e}")
+    print(f"g2p_materialised: g2p and g2p_apic with fused_table=False equal "
+          f"fused_table=True bit for bit on {P} particles at {n}^3")
+    for mode, fn in (
+            ("g2p", lambda t: tk.g2p(w27t, flat, vc, B, wall, fused_table=t)),
+            ("g2p_apic", lambda t: apic.g2p_apic(w27t, flat, pos_s, vc, B,
+                                                 wall, fused_table=t))):
+        ms = {t: _cuda_ms(lambda: fn(t), torch) for t in (True, False)}
+        print(f"time {mode}: fused_table=True {ms[True]:.4f} ms, "
+              f"fused_table=False {ms[False]:.4f} ms (median of {_REPS})")
+    del mat, fused, acc, vc
+
+    # ---- 20. the span and unhaloed shift entry points ---------------------
+    ws = tk.window_starts(flat, n)
+    results["p2g_scatter_spans"] = _compare(
+        "K9a p2g_scatter_spans",
+        lambda: tk.p2g_scatter_spans(w27t, vel_s, flat, n),
+        lambda: tk.p2g_scatter_base_plain(w27t, vel_s, flat, n), 1e-5,
+        (w27t, vel_s, flat), 27 * 7 * P, torch)
+    d = tk.p2g_scatter_base(w27t, vel_s, flat, ws, n)
+    table = tk.shift_expand(fm)
+    results["g2p_gather_spans"] = _compare(
+        "K9b g2p_gather_spans", lambda: tk.g2p_gather_spans(table, w27t, flat),
+        lambda: tk.g2p_gather_table_plain(table, w27t, flat), 1e-5,
+        (w27t, flat), 27 * 8 * P, torch, extra_bytes=per_cell)
+    checks = (("K9a", tk.p2g_scatter_spans(w27t, vel_s, flat, n), d),
+              ("K9b", tk.g2p_gather_spans(table, w27t, flat),
+               tk.g2p_gather_table(table, w27t, flat)),
+              ("K9b moments", tk.g2p_gather_spans(table, w27t, flat, True),
+               tk.g2p_moments_table(table, w27t, flat)))
+    for name, a, b in checks:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} differs from K6a/K7a")
+    print("K9a, K9b: equal to K6a and K7a on the fully sorted state")
+    del checks
+
+    d_rows = d.view(108, n3).T.contiguous()                     # (n^3, 108)
+    conv_in = d_rows.view(1, n, n, n, 108).permute(0, 4, 1, 2, 3)
+    results["p2g_shift_reduce"] = _compare(
+        "K10a p2g_shift_reduce", lambda: shift.p2g_shift_reduce(d_rows, n),
+        lambda: shift.p2g_shift_reduce_plain(d_rows, n), 0.0, (d_rows,),
+        27 * 4 * n3, torch,
+        library=lambda: F.conv3d(conv_in, onehot_r, padding=1))
+    red = shift.p2g_shift_reduce(d_rows, n)
+    if not torch.equal(red, tk.shift_reduce(d).permute(1, 2, 3, 0)):
+        raise AssertionError("K10a differs from K6b")
+    fm_rows = fm.permute(1, 2, 3, 0).contiguous()               # (n, n, n, 4)
+    fm_in = fm_rows.view(1, n, n, n, 4).permute(0, 4, 1, 2, 3)
+    results["g2p_table_expand"] = _compare(
+        "K10b g2p_table_expand", lambda: shift.g2p_table_expand(fm_rows, n),
+        lambda: shift.g2p_table_expand_plain(fm_rows, n), 0.0, (fm_rows,), 0,
+        torch, library=lambda: F.conv3d(fm_in, onehot, padding=1))
+    if not torch.equal(shift.g2p_table_expand(fm_rows, n),
+                       table.view(108, n3).T):
+        raise AssertionError("K10b differs from K7b")
+    print("K10a, K10b: equal to K6b and K7b in the row layout, bit for bit")
+    del red, table, d, conv_in, fm_in
+
+    results["to_channel_major"] = _compare(
+        "K10c to_channel_major", lambda: shift.to_channel_major(d_rows),
+        lambda: shift.to_channel_major_plain(d_rows), 0.0, (d_rows,), 0,
+        torch, library=lambda: d_rows.T.contiguous())
+    y = shift.to_channel_major(d_rows)
+    if not (torch.equal(y[:, :n3], d_rows.T) and not y[:, n3:].any()):
+        raise AssertionError("K10c differs from .T.contiguous()")
+    results["from_channel_major"] = _compare(
+        "K10d from_channel_major", lambda: shift.from_channel_major(y, n3),
+        lambda: shift.from_channel_major_plain(y, n3), 0.0, (y,), 0, torch,
+        library=lambda: y.T.contiguous())
+    if not torch.equal(shift.from_channel_major(y, n3), d_rows):
+        raise AssertionError("K10d differs from .T.contiguous()")
+    print(f"K10c, K10d: a ({n3}, 108) matrix to ({y.shape[0]}, {y.shape[1]}) "
+          "and back, equal to .T.contiguous() bit for bit")
+    table = tk.shift_expand(fm)
+
+    for fn in counted:
+        fn.launches = 0
+    tk.p2g_scatter_spans(w27t, vel_s, flat, n)
+    tk.g2p_gather_spans(table, w27t, flat)
+    shift.p2g_shift_reduce(d_rows, n)
+    shift.g2p_table_expand(fm_rows, n)
+    shift.from_channel_major(shift.to_channel_major(d_rows), n3)
+    torch.cuda.synchronize()
+    entry_launches = {fn.__name__: fn.launches for fn in counted}
+    print("shift_entry_points: launches:", json.dumps(entry_launches))
+    want = {name: 0 for name in entry_launches}
+    want.update({"p2g_scatter_spans": 1, "p2g_scatter_base": 1,
+                 "g2p_gather_spans": 1, "g2p_gather_table": 1,
+                 "p2g_shift_reduce": 1, "shift_reduce": 1,
+                 "g2p_table_expand": 1, "shift_expand": 1,
+                 "to_channel_major": 3, "from_channel_major": 3})
+    if entry_launches != want:
+        raise AssertionError(f"shift_entry_points: launches {entry_launches}, "
+                             f"expected {want}")
+    return results, table_launches, entry_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -382,9 +597,10 @@ def main() -> int:
     from fluidsim_tpu_torch.ops import bucket_sort as bs
     from fluidsim_tpu_torch.ops import mpm_kernels as mk
     from fluidsim_tpu_torch.ops import pressure as pr
+    from fluidsim_tpu_torch.ops import shift
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
-    from fluidsim_tpu_torch.ops.transfer import _OFFSETS, normalize_velocity_cm
+    from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.core.splines import cround
     from fluidsim_tpu_torch.ops.svd3 import (det3, hardening, mm3, mv3,
@@ -462,7 +678,11 @@ def main() -> int:
     counted = (tk.p2g_scatter, tk.g2p_gather, tk.p2g_scatter_affine,
                tk.g2p_moments, tk.p2g_scatter_force, tk.g2p_gather_gw,
                sk.apply_laplacian, sk.cheb_step, bs.bucket_move,
-               tk.p2g_scatter_base, tk.shift_reduce)
+               tk.p2g_scatter_base, tk.shift_reduce, tk.shift_expand,
+               tk.g2p_gather_table, tk.g2p_moments_table,
+               tk.p2g_scatter_spans, tk.g2p_gather_spans,
+               shift.to_channel_major, shift.from_channel_major,
+               shift.p2g_shift_reduce, shift.g2p_table_expand)
     ke, flip_launches, flip_ms = _run_frames(sim, counted, torch)
     kes += ke
     del sim
@@ -620,10 +840,7 @@ def main() -> int:
         library=lambda: torch.zeros((n ** 3, 108), device=dev).index_add_(
             0, flat64, u108))
     d = tk.p2g_scatter_base(w27t, vel_s, flat_o, ws, n)
-    onehot = torch.zeros((4, 108, 3, 3, 3), device=dev)
-    for o, off in enumerate(_OFFSETS):
-        for g in range(4):
-            onehot[g, 4 * o + g, 1 - off[0], 1 - off[1], 1 - off[2]] = 1.0
+    _, onehot = _shift_onehots(dev, torch)
     torch.backends.cudnn.allow_tf32 = False
     conv = lambda: torch.nn.functional.conv3d(d.view(1, 108, n, n, n),
                                               onehot, padding=1)
@@ -650,6 +867,11 @@ def main() -> int:
     for mode in ("flip", "apic", "pic"):
         _small_scene(mode, dev, "bucket", **BUCKET_SMALL)
 
+    # ---- 18-20. the materialised G2P and the K9, K10 entry points -------
+    more, table_launches, entry_launches = _materialised_phases(dev, counted,
+                                                                torch)
+    results.update(more)
+
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
         "p2g_scatter": ("transfer.cu", "pallas_transfer.py:1064", flip_launches),
@@ -667,9 +889,28 @@ def main() -> int:
         "bucket_move": ("bucket.cu", "bucket_sort.py:168", bucket_launches),
         "p2g_scatter_base": ("transfer.cu", "pallas_transfer.py:728",
                              bucket_launches),
-        "shift_reduce": ("stencil.cu", "pallas_shift.py:252", bucket_launches)}
+        "shift_reduce": ("stencil.cu", "pallas_shift.py:252", bucket_launches),
+        "shift_expand": ("stencil.cu", "pallas_shift.py:316", table_launches),
+        "g2p_gather_table": ("transfer.cu", "pallas_transfer.py:845",
+                             table_launches),
+        "g2p_moments_table": ("transfer.cu", "pallas_transfer.py:845",
+                              table_launches),
+        "p2g_scatter_spans": ("transfer.cu", "pallas_transfer.py:1500",
+                              entry_launches),
+        "g2p_gather_spans": ("transfer.cu", "pallas_transfer.py:1603",
+                             entry_launches),
+        "p2g_shift_reduce": ("stencil.cu", "pallas_shift.py:150",
+                             entry_launches),
+        "g2p_table_expand": ("stencil.cu", "pallas_shift.py:179",
+                             entry_launches),
+        "to_channel_major": ("layout.cu", "pallas_shift.py:212",
+                             entry_launches),
+        "from_channel_major": ("layout.cu", "pallas_shift.py:230",
+                               entry_launches)}
     paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches,
-             "flip_bucket": bucket_launches}
+             "flip_bucket": bucket_launches,
+             "g2p_materialised": table_launches,
+             "shift_entry_points": entry_launches}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
                 "launches": launches[name], **results[name],

@@ -1,6 +1,7 @@
-// Pressure-solve stencil kernels of the FLIP frame (K3, K4), for Hopper
+// Pressure-solve stencil kernels of the FLIP frame (K3, K4) and the
+// 27-offset shift stencils of the unfused transfers (K6b, K7b), for Hopper
 // (sm_90a), with a plain C interface bound through ctypes
-// (fluidsim_tpu_torch/ops/stencil_kernels.py).
+// (fluidsim_tpu_torch/ops/stencil_kernels.py, ops/transfer_kernels.py).
 //
 // All arrays are dense (n, n, n) f32, z fastest.  A cell is fluid exactly
 // where adiag > 0; every operand is read through that mask (q = adiag > 0 ?
@@ -43,6 +44,21 @@
 //   consecutive z, so each of the 27 loads of a warp is one contiguous row
 //   segment; the TPU kernel's x-block windows, lane rolls and double
 //   buffering are work the cache and the coalesced loads do here.
+//
+// K7b fs_shift_expand replaces fluidsim_tpu/ops/pallas_shift.py:
+//   expand_haloed (_expand_kernel_haloed), the 27-offset neighbourhood table
+//   of the unfused G2P and the exact transpose of K6b:
+//   table[o, g, c] = fm[g, c + off_o], 0 where c + off_o is outside the box.
+//   fm is (4, n, n, n), table (27, 4, n, n, n) (K6a's layout); the TPU's
+//   haloed lanes, whose rolls wrap y/z edge shifts into the next row, are
+//   not needed, so every out-of-box neighbour reads 0.
+//   Bound on the H100: memory.  4 reads + 108 writes of 4 B per cell, the
+//   writes most of it (962 MB at 129^3, ~0.29 ms at 3.35 TB/s).
+//   Design: K6b's thread per (cell, channel), consecutive threads on
+//   consecutive z, looping over the 27 offsets: each offset's store of a
+//   warp is one contiguous row segment of the table, and the 27 loads of a
+//   cell's neighbours come from L1/L2 (the x neighbours are one plane,
+//   66 KB, away).
 //
 // Built with --fmad=false: with the same operation order as the plain
 // PyTorch versions every result is rounded identically (bitwise equal).
@@ -144,6 +160,26 @@ __global__ void shift_reduce_kernel(const float* __restrict__ d,
   out[g * ncell + c] = a;
 }
 
+__global__ void shift_expand_kernel(const float* __restrict__ fm,
+                                    float* __restrict__ table, int n) {
+  const long long ncell = (long long)n * n * n;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncell) return;
+  const int g = blockIdx.y;
+  const int x = (int)(c / ((long long)n * n));
+  const int y = (int)((c / n) % n);
+  const int z = (int)(c % n);
+  const float* src = fm + g * ncell;
+  for (int o = 0; o < 27; ++o) {
+    const int cx = x + (o / 9 - 1);
+    const int cy = y + ((o / 3) % 3 - 1);
+    const int cz = z + (o % 3 - 1);
+    const bool inb = cx >= 0 && cx < n && cy >= 0 && cy < n && cz >= 0 && cz < n;
+    table[(4LL * o + g) * ncell + c] =
+        inb ? src[((long long)cx * n + cy) * n + cz] : 0.f;
+  }
+}
+
 }  // namespace
 
 extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
@@ -172,5 +208,14 @@ extern "C" int fs_shift_reduce(const float* d, float* out, int n,
   const long long ncell = (long long)n * n * n;
   const dim3 blocks((unsigned)((ncell + kThreads - 1) / kThreads), 4);
   shift_reduce_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(d, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_shift_expand(const float* fm, float* table, int n,
+                               void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const dim3 blocks((unsigned)((ncell + kThreads - 1) / kThreads), 4);
+  shift_expand_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(fm, table,
+                                                                     n);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Particle <-> grid transfer kernels of the FLIP, PIC, APIC and MPM frames
-// (K1, K2 and their APIC and MPM modes), for Hopper (sm_90a), with a plain
+// (K1, K2 and their APIC and MPM modes) and of the unfused transfers (K6a,
+// K7a), for Hopper (sm_90a), with a plain
 // C interface bound through ctypes (fluidsim_tpu_torch/ops/transfer_kernels.py).
 //
 // All take particles sorted by the flat id (x*n + y)*n + z of their
@@ -100,6 +101,20 @@
 //   consecutive, so every channel's writes are coalesced.  The TPU kernel's
 //   one-hot matmuls, split3 passes and window-local f32 ids are not needed.
 //
+// K7a fs_g2p_gather_table and fs_g2p_moments_table replace
+//   fluidsim_tpu/ops/pallas_transfer.py: gather_wv_cm (_gather_wv_kernel,
+//   contracted by _contract_mat(nout)), the gather of the unfused G2P: the
+//   4 rows of K2 (nout=8) or the 22 of K2 moments (nout=24), each reading
+//   table[o, :, base(p)] of K7b's (27, 4, n, n, n) neighbourhood table in
+//   place of fm at base(p) + off_o.  Output (4, P) or (22, P) f32.
+//   Bound on the H100: memory.  Per particle 108 B of weights, 4 B of id and
+//   16 or 88 B of output, plus 432 B of table per distinct base cell: the
+//   sorted particles of one cell read the same 108 values (L1 broadcast).
+//   Design: K2's and K2 moments' kernels, templated on where a particle's
+//   grid values come from (NeighbourFields or TableColumn), so the
+//   accumulators are one code and the offsets are summed in K2's order:
+//   the materialised G2P equals the fused one bit for bit.
+//
 // All are built with --fmad=false so every product and sum is rounded as
 // in the plain PyTorch versions they are checked against.
 
@@ -159,8 +174,45 @@ __global__ void p2g_scatter_kernel(const float* __restrict__ w27t,
 
 constexpr int kMoments = 22;
 
-__global__ void g2p_moments_kernel(const float* __restrict__ fm,
-                                   const float* __restrict__ w27t,
+// The 4 grid values that offset o of a particle with base cell f = (x, y, z)
+// reads.  K2 reads the (4, n, n, n) fields at f + off_o and skips a
+// neighbour outside the box; K7a reads column f of the (27, 4, n, n, n)
+// table, which holds 0 for such a neighbour.  Adding w * 0 leaves a sum that
+// started at +0 unchanged to the bit, so K2 and K7a agree bit for bit.
+struct NeighbourFields {
+  const float* fm;
+  __device__ __forceinline__ bool load(int o, int f, int x, int y, int z,
+                                       int n, long long ncell,
+                                       float v[4]) const {
+    const int cx = x + (o / 9 - 1);
+    const int cy = y + ((o / 3) % 3 - 1);
+    const int cz = z + (o % 3 - 1);
+    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n)
+      return false;
+    const long long c = ((long long)cx * n + cy) * n + cz;
+    v[0] = __ldg(fm + c);
+    v[1] = __ldg(fm + ncell + c);
+    v[2] = __ldg(fm + 2 * ncell + c);
+    v[3] = __ldg(fm + 3 * ncell + c);
+    return true;
+  }
+};
+
+struct TableColumn {
+  const float* table;
+  __device__ __forceinline__ bool load(int o, int f, int, int, int, int,
+                                       long long ncell, float v[4]) const {
+    const float* t = table + 4LL * o * ncell + f;
+    v[0] = __ldg(t);
+    v[1] = __ldg(t + ncell);
+    v[2] = __ldg(t + 2 * ncell);
+    v[3] = __ldg(t + 3 * ncell);
+    return true;
+  }
+};
+
+template <class Src>
+__global__ void g2p_moments_kernel(Src src, const float* __restrict__ w27t,
                                    const int* __restrict__ flat,
                                    float* __restrict__ out, int n,
                                    long long np) {
@@ -179,14 +231,10 @@ __global__ void g2p_moments_kernel(const float* __restrict__ fm,
 #pragma unroll
   for (int o = 0; o < 27; ++o) {
     const int off[3] = {o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1};
-    const int cx = x + off[0];
-    const int cy = y + off[1];
-    const int cz = z + off[2];
-    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n) continue;
-    const long long c = ((long long)cx * n + cy) * n + cz;
+    float v[4];
+    if (!src.load(o, f, x, y, z, n, ncell, v)) continue;
     const float w = w27t[(long long)o * np + p];
-    const float wf[4] = {w * fm[c], w * fm[ncell + c], w * fm[2 * ncell + c],
-                         w * fm[3 * ncell + c]};
+    const float wf[4] = {w * v[0], w * v[1], w * v[2], w * v[3]};
     acc[0] += wf[3];
     acc[1] += wf[0];
     acc[2] += wf[1];
@@ -206,8 +254,8 @@ __global__ void g2p_moments_kernel(const float* __restrict__ fm,
   for (int r = 0; r < kMoments; ++r) out[r * np + p] = acc[r];
 }
 
-__global__ void g2p_gather_kernel(const float* __restrict__ fm,
-                                  const float* __restrict__ w27t,
+template <class Src>
+__global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
                                   const int* __restrict__ flat,
                                   float* __restrict__ out, int n,
                                   long long np) {
@@ -220,16 +268,13 @@ __global__ void g2p_gather_kernel(const float* __restrict__ fm,
   const int z = f % n;
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   for (int o = 0; o < 27; ++o) {
-    const int cx = x + (o / 9 - 1);
-    const int cy = y + ((o / 3) % 3 - 1);
-    const int cz = z + (o % 3 - 1);
-    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n) continue;
-    const long long c = ((long long)cx * n + cy) * n + cz;
+    float v[4];
+    if (!src.load(o, f, x, y, z, n, ncell, v)) continue;
     const float w = w27t[(long long)o * np + p];
-    s0 += w * fm[c];
-    s1 += w * fm[ncell + c];
-    s2 += w * fm[2 * ncell + c];
-    s3 += w * fm[3 * ncell + c];
+    s0 += w * v[0];
+    s1 += w * v[1];
+    s2 += w * v[2];
+    s3 += w * v[3];
   }
   out[p] = s0;
   out[np + p] = s1;
@@ -427,7 +472,7 @@ extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
   if (np == 0) return 0;
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   g2p_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      fm, w27t, flat, out, n, np);
+      NeighbourFields{fm}, w27t, flat, out, n, np);
   return (int)cudaGetLastError();
 }
 
@@ -437,7 +482,27 @@ extern "C" int fs_g2p_moments(const float* fm, const float* w27t,
   if (np == 0) return 0;
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      fm, w27t, flat, out, n, np);
+      NeighbourFields{fm}, w27t, flat, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_g2p_gather_table(const float* table, const float* w27t,
+                                   const int* flat, float* out, int n,
+                                   long long np, void* stream) {
+  if (np == 0) return 0;
+  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
+  g2p_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      TableColumn{table}, w27t, flat, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_g2p_moments_table(const float* table, const float* w27t,
+                                    const int* flat, float* out, int n,
+                                    long long np, void* stream) {
+  if (np == 0) return 0;
+  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
+  g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      TableColumn{table}, w27t, flat, out, n, np);
   return (int)cudaGetLastError();
 }
 

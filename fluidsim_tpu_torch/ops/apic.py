@@ -5,7 +5,8 @@ P2G scatters ``w_o * (v + C (x_o - x_p))``: the per-particle part of
 ``x_o - x_p = (base - pos) + off_o`` folds into an effective velocity here,
 and the offset part is added inside the K1 aff kernel (or, on the bucket
 path's window-grouped order, inside K6a).  G2P gathers the 22
-offset moments (K2 moments) and fits ``C = B D^{-1}`` from them with the
+offset moments (K2 moments, or K7b then K7a from the materialised table)
+and fits ``C = B D^{-1}`` from them with the
 reference's centred fit, a ``1e-3 I`` ridge and the adjugate inverse, in
 (P, 3, 3) elementwise arithmetic.
 """
@@ -41,11 +42,18 @@ def p2g_apic(w27t: torch.Tensor, pos_s: torch.Tensor, vel_s: torch.Tensor,
 
 
 def g2p_apic(w27t: torch.Tensor, flat_s: torch.Tensor, pos_s: torch.Tensor,
-             vc: torch.Tensor, bound: int, wall: int):
+             vc: torch.Tensor, bound: int, wall: int, fused_table: bool = True):
     """APIC G2P: (velocity (P, 3), C (P, 3, 3)) per sorted particle from
     channel-major cell-centred ``vc`` (3,N,N,N), over the cells within
-    ``|c| <= wall``.  Both are 0 for a particle with no weight there."""
-    mo = tk.g2p_moments(tk.gather_fields(vc, bound, wall), w27t, flat_s)
+    ``|c| <= wall``.  Both are 0 for a particle with no weight there.
+    ``fused_table=False``: the moments from K7b's neighbourhood table and
+    K7a (the counterpart of ``g2p_apic_pallas(fused_table=False)``), equal
+    to K2 moments' to the bit."""
+    fm = tk.gather_fields(vc, bound, wall)
+    if fused_table:
+        mo = tk.g2p_moments(fm, w27t, flat_s)
+    else:
+        mo = tk.g2p_moments_table(tk.shift_expand(fm), w27t, flat_s)
     return affine_fit(mo, pos_s)
 
 

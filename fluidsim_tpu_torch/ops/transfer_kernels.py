@@ -12,7 +12,14 @@ MPM modes (the force scatter, ``expand='fg'``, and the gradW gather,
 (K6a, ``scatter_wv_cm``) and the 27-offset shift-reduce (K6b,
 ``pallas_shift.reduce_haloed``) — is ``p2g_scatter_base`` and
 ``shift_reduce``; it serves the window-grouped order of
-``sort_by_cell(method="bucket")``.
+``sort_by_cell(method="bucket")``.  The unfused G2P of
+``g2p_pallas(fused_table=False)`` — the 27-offset neighbourhood table (K7b,
+``pallas_shift.expand_haloed``) and the gather from it (K7a,
+``gather_wv_cm``, 4 rows or the 22 moments) — is ``shift_expand``,
+``g2p_gather_table`` and ``g2p_moments_table``, reached by
+``g2p(fused_table=False)`` and ``apic.g2p_apic(fused_table=False)``.  The
+span-chunked entry points of ``scatter_wv_spans`` and ``gather_wv_spans``
+(K9a, K9b) are ``p2g_scatter_spans`` and ``g2p_gather_spans``.
 
 Particles are sorted by the plain flat id ``(x*n + y)*n + z`` of their
 clipped base cell; ``cell_start`` (n^3 + 1 offsets into the sorted arrays)
@@ -22,10 +29,12 @@ once per frame and shared by both directions.  The TPU path's window layout
 
 Each kernel wrapper (``p2g_scatter``, ``p2g_scatter_affine``,
 ``p2g_scatter_force``, ``p2g_scatter_base``, ``shift_reduce``,
-``g2p_gather``, ``g2p_moments``, ``g2p_gather_gw``) launches its CUDA
-kernel of ``csrc/transfer.cu`` (``shift_reduce``: ``csrc/stencil.cu``)
-for CUDA tensors and uses its plain PyTorch version only for CPU tensors;
-anything else raises.  Each counts its kernel launches in ``.launches``.
+``shift_expand``, ``g2p_gather``, ``g2p_moments``, ``g2p_gather_gw``,
+``g2p_gather_table``, ``g2p_moments_table``, ``p2g_scatter_spans``,
+``g2p_gather_spans``) launches its CUDA kernel of ``csrc/transfer.cu``
+(``shift_reduce``, ``shift_expand``: ``csrc/stencil.cu``) for CUDA tensors
+and uses its plain PyTorch version only for CPU tensors; anything else
+raises.  Each counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -250,7 +259,7 @@ def p2g_scatter_affine(w27t: torch.Tensor, veff_s: torch.Tensor,
 p2g_scatter_affine.launches = 0
 
 
-# ---- K2: G2P gather -------------------------------------------------------
+# ---- K2 and K7a: G2P gathers, fused and from the table ---------------------
 
 def _neighbour_fields(fm: torch.Tensor, flat_s: torch.Tensor):
     """Yield ``(o, vals)`` for the 27 offsets in order: the (C, P) values of
@@ -266,12 +275,58 @@ def _neighbour_fields(fm: torch.Tensor, flat_s: torch.Tensor):
         yield o, torch.where(inb[None], fm_flat[:, ids], 0.0)
 
 
+def _table_columns(table: torch.Tensor, flat_s: torch.Tensor):
+    """Yield ``(o, vals)`` for the 27 offsets in order: the (C, P) columns
+    of the (27, C, n, n, n) ``table`` at the particles' base cells — the
+    values ``_neighbour_fields`` gives of the fields the table was built
+    from (``shift_expand``)."""
+    t = table.reshape(27, table.shape[1], -1)
+    for o in range(27):
+        yield o, t[o][:, flat_s]
+
+
+def _gather_sums(neighbours, w27t: torch.Tensor) -> torch.Tensor:
+    """The 4 rows ``sum_o w27t[o] * vals_o``, added in offset order from 0."""
+    out = torch.zeros((4, w27t.shape[1]), dtype=w27t.dtype, device=w27t.device)
+    for o, vals in neighbours:
+        out = out + w27t[o][None] * vals
+    return out
+
+
 def g2p_gather_plain(fm: torch.Tensor, w27t: torch.Tensor,
                      flat_s: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K2: 27 masked gathers of the 4 channels.  (4, P)."""
-    out = torch.zeros((4, flat_s.shape[0]), dtype=fm.dtype, device=fm.device)
-    for o, vals in _neighbour_fields(fm, flat_s):
-        out = out + w27t[o][None] * vals
+    return _gather_sums(_neighbour_fields(fm, flat_s), w27t)
+
+
+def g2p_gather_table_plain(table: torch.Tensor, w27t: torch.Tensor,
+                           flat_s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K7a (4 rows): ``g2p_gather_plain`` reading the table's
+    base-cell columns, in the same order.  (4, P)."""
+    return _gather_sums(_table_columns(table, flat_s), w27t)
+
+
+def _launch_gather(name: str, entry: str, src: torch.Tensor, lead: tuple,
+                   w27t: torch.Tensor, flat_s: torch.Tensor,
+                   rows: int) -> torch.Tensor:
+    """Launch a gather of ``csrc/transfer.cu`` that reads ``src`` of shape
+    ``lead + (4, n, n, n)`` (the fields, or with ``lead = (27,)`` the
+    table), (27, P) weights and (P,) sorted ids, and writes ``rows`` rows
+    of P."""
+    native.require_cuda(src, name)
+    dev = src.device
+    n = src.shape[-1]
+    p = flat_s.shape[0]
+    native.check_tensor("src", src, torch.float32, lead + (4, n, n, n), dev)
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
+    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    out = torch.empty((rows, p), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(src.data_ptr(), w27t.data_ptr(),
+                                 flat_s.data_ptr(), out.data_ptr(), n, p,
+                                 native.stream_ptr(dev))
+    native.check_launch(name, rc)
     return out
 
 
@@ -283,20 +338,8 @@ def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor,
     tensors take ``g2p_gather_plain``."""
     if fm.device.type == "cpu":
         return g2p_gather_plain(fm, w27t, flat_s)
-    native.require_cuda(fm, "g2p_gather")
-    dev = fm.device
-    n = fm.shape[1]
-    p = flat_s.shape[0]
-    native.check_tensor("fm", fm, torch.float32, (4, n, n, n), dev)
-    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
-    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
-    out = torch.empty((4, p), dtype=torch.float32, device=dev)
-    lib = native.library()
-    with torch.cuda.device(dev):
-        rc = lib.fs_g2p_gather(fm.data_ptr(), w27t.data_ptr(),
-                               flat_s.data_ptr(), out.data_ptr(), n, p,
-                               native.stream_ptr(dev))
-    native.check_launch("g2p_gather", rc)
+    out = _launch_gather("g2p_gather", "fs_g2p_gather", fm, (), w27t,
+                         flat_s, 4)
     g2p_gather.launches += 1
     return out
 
@@ -304,28 +347,44 @@ def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor,
 g2p_gather.launches = 0
 
 
-# ---- K2 moments: APIC G2P offset moments -----------------------------------
+def g2p_gather_table(table: torch.Tensor, w27t: torch.Tensor,
+                     flat_s: torch.Tensor) -> torch.Tensor:
+    """K7a (4 rows): ``out[c, p] = sum_o w27t[o, p] * table[o, c,
+    base(p)]`` for the (27, 4, n, n, n) table of ``shift_expand`` — K2's
+    function and summation order on the materialised neighbourhood, so the
+    result equals ``g2p_gather`` of the fields to the bit.  (4, P) f32.
+    CUDA tensors launch ``fs_g2p_gather_table`` (``csrc/transfer.cu``); CPU
+    tensors take ``g2p_gather_table_plain``."""
+    if table.device.type == "cpu":
+        return g2p_gather_table_plain(table, w27t, flat_s)
+    out = _launch_gather("g2p_gather_table", "fs_g2p_gather_table", table,
+                         (27,), w27t, flat_s, 4)
+    g2p_gather_table.launches += 1
+    return out
+
+
+g2p_gather_table.launches = 0
+
+
+# ---- K2 moments and K7a moments: APIC G2P offset moments -------------------
 
 MOMENT_ROWS = 22
 _SYM_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
-def g2p_moments_plain(fm: torch.Tensor, w27t: torch.Tensor,
-                      flat_s: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K2 moments: the 22 live rows of the JAX package's
-    ``_contract_mat(24)``, each summed over the 27 offsets in order, from
-    ``wf = w27t[o] * fm(base + off_o)``:
+def _moment_sums(neighbours, w27t: torch.Tensor) -> torch.Tensor:
+    """The 22 live rows of the JAX package's ``_contract_mat(24)``, each
+    summed over the 27 offsets in order, from ``wf = w27t[o] * vals_o``:
 
       row 0       den     = sum wf[3]                 (wf[3] = w * mask)
       rows 1-3    vnum_c  = sum wf[c]
       rows 4-6    mbar_k  = sum wf[3] off_k
       rows 7-15   F_{c,k} = sum wf[c] off_k           (row 7 + 3c + k)
       rows 16-21  M_{kl}  = sum wf[3] off_k off_l     (``_SYM_PAIRS``)
-
-    Returns (22, P)."""
-    out = torch.zeros((MOMENT_ROWS, flat_s.shape[0]), dtype=fm.dtype,
-                      device=fm.device)
-    for o, vals in _neighbour_fields(fm, flat_s):
+    """
+    out = torch.zeros((MOMENT_ROWS, w27t.shape[1]), dtype=w27t.dtype,
+                      device=w27t.device)
+    for o, vals in neighbours:
         wf = w27t[o][None] * vals
         off = [int(v) for v in _OFFSETS[o]]
         terms = [wf[3], wf[0], wf[1], wf[2]]
@@ -336,6 +395,20 @@ def g2p_moments_plain(fm: torch.Tensor, w27t: torch.Tensor,
     return out
 
 
+def g2p_moments_plain(fm: torch.Tensor, w27t: torch.Tensor,
+                      flat_s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K2 moments (``_moment_sums`` of the fields at the 27
+    neighbours).  Returns (22, P)."""
+    return _moment_sums(_neighbour_fields(fm, flat_s), w27t)
+
+
+def g2p_moments_table_plain(table: torch.Tensor, w27t: torch.Tensor,
+                            flat_s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K7a moments: ``g2p_moments_plain`` reading the table's
+    base-cell columns, in the same order.  Returns (22, P)."""
+    return _moment_sums(_table_columns(table, flat_s), w27t)
+
+
 def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor,
                 flat_s: torch.Tensor) -> torch.Tensor:
     """K2 moments: the (22, P) f32 offset moments of ``g2p_moments_plain``
@@ -344,25 +417,30 @@ def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor,
     ``g2p_moments_plain``."""
     if fm.device.type == "cpu":
         return g2p_moments_plain(fm, w27t, flat_s)
-    native.require_cuda(fm, "g2p_moments")
-    dev = fm.device
-    n = fm.shape[1]
-    p = flat_s.shape[0]
-    native.check_tensor("fm", fm, torch.float32, (4, n, n, n), dev)
-    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
-    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
-    out = torch.empty((MOMENT_ROWS, p), dtype=torch.float32, device=dev)
-    lib = native.library()
-    with torch.cuda.device(dev):
-        rc = lib.fs_g2p_moments(fm.data_ptr(), w27t.data_ptr(),
-                                flat_s.data_ptr(), out.data_ptr(), n, p,
-                                native.stream_ptr(dev))
-    native.check_launch("g2p_moments", rc)
+    out = _launch_gather("g2p_moments", "fs_g2p_moments", fm, (), w27t,
+                         flat_s, MOMENT_ROWS)
     g2p_moments.launches += 1
     return out
 
 
 g2p_moments.launches = 0
+
+
+def g2p_moments_table(table: torch.Tensor, w27t: torch.Tensor,
+                      flat_s: torch.Tensor) -> torch.Tensor:
+    """K7a moments: the (22, P) f32 offset moments of the (27, 4, n, n, n)
+    table of ``shift_expand``, equal to ``g2p_moments`` of the fields to the
+    bit.  CUDA tensors launch ``fs_g2p_moments_table``
+    (``csrc/transfer.cu``); CPU tensors take ``g2p_moments_table_plain``."""
+    if table.device.type == "cpu":
+        return g2p_moments_table_plain(table, w27t, flat_s)
+    out = _launch_gather("g2p_moments_table", "fs_g2p_moments_table", table,
+                         (27,), w27t, flat_s, MOMENT_ROWS)
+    g2p_moments_table.launches += 1
+    return out
+
+
+g2p_moments_table.launches = 0
 
 
 # ---- K1 fg: MPM force scatter ----------------------------------------------
@@ -552,6 +630,93 @@ def shift_reduce(d: torch.Tensor) -> torch.Tensor:
 shift_reduce.launches = 0
 
 
+# ---- K7b: the unfused G2P's neighbourhood table ----------------------------
+
+def shift_expand_plain(fm: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K7b: ``table[o] = shift(fm, -off_o)``, 27 zero-padded
+    shifted copies in offset order.  (C, n, n, n) -> (27, C, n, n, n)."""
+    return torch.stack([_shift3(fm, -_OFFSETS[o]) for o in range(27)])
+
+
+def shift_expand(fm: torch.Tensor) -> torch.Tensor:
+    """K7b: ``table[o, g, cell] = fm[g, cell + off_o]``, 0 where that
+    neighbour is outside the box; ``fm`` is (4, n, n, n) (``gather_fields``).
+    (27, 4, n, n, n) f32, K6a's layout.  CUDA tensors launch
+    ``fs_shift_expand`` (``csrc/stencil.cu``), bitwise equal to
+    ``shift_expand_plain``, which CPU tensors take."""
+    if fm.device.type == "cpu":
+        return shift_expand_plain(fm)
+    native.require_cuda(fm, "shift_expand")
+    dev = fm.device
+    n = fm.shape[-1]
+    native.check_tensor("fm", fm, torch.float32, (4, n, n, n), dev)
+    out = torch.empty((27, 4, n, n, n), dtype=torch.float32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_shift_expand(fm.data_ptr(), out.data_ptr(), n,
+                                 native.stream_ptr(dev))
+    native.check_launch("shift_expand", rc)
+    shift_expand.launches += 1
+    return out
+
+
+shift_expand.launches = 0
+
+
+# ---- K9a, K9b: the span-chunked entry points -------------------------------
+#
+# The JAX package's span kernels are another TPU schedule of K6a's and K7a's
+# sums (fixed-stride particle chunks looping over the windows each touches),
+# for particles sorted by cell.  Here they check that order and run the K6a
+# and K7a kernels.
+
+def _require_sorted(flat_s: torch.Tensor, name: str):
+    if flat_s.numel() > 1 and not bool((flat_s[1:] >= flat_s[:-1]).all()):
+        raise ValueError(f"{name}: the particles must be sorted by cell id")
+
+
+def p2g_scatter_spans(w27t: torch.Tensor, vel_s: torch.Tensor,
+                      flat_s: torch.Tensor, n: int,
+                      aff_s: torch.Tensor | None = None) -> torch.Tensor:
+    """K9a, the counterpart of ``scatter_wv_spans``: ``p2g_scatter_base``'s
+    function on particles fully sorted by cell (raises otherwise).
+    (27, 4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_base``;
+    CPU tensors take ``p2g_scatter_base_plain``."""
+    if w27t.device.type == "cpu":
+        _require_sorted(flat_s, "p2g_scatter_spans")
+        return p2g_scatter_base_plain(w27t, vel_s, flat_s, n, aff_s)
+    native.require_cuda(w27t, "p2g_scatter_spans")
+    _require_sorted(flat_s, "p2g_scatter_spans")
+    out = p2g_scatter_base(w27t, vel_s, flat_s, window_starts(flat_s, n), n,
+                           aff_s)
+    p2g_scatter_spans.launches += 1
+    return out
+
+
+p2g_scatter_spans.launches = 0
+
+
+def g2p_gather_spans(table: torch.Tensor, w27t: torch.Tensor,
+                     flat_s: torch.Tensor, moments: bool = False) -> torch.Tensor:
+    """K9b, the counterpart of ``gather_wv_spans``: ``g2p_gather_table``
+    (``nout=8``) or, with ``moments``, ``g2p_moments_table`` (``nout=24``)
+    on particles fully sorted by cell (raises otherwise).  (4, P) or (22, P)
+    f32.  CUDA tensors launch ``fs_g2p_gather_table`` or
+    ``fs_g2p_moments_table``; CPU tensors take their plain versions."""
+    gather = g2p_moments_table if moments else g2p_gather_table
+    if table.device.type == "cpu":
+        _require_sorted(flat_s, "g2p_gather_spans")
+        return gather(table, w27t, flat_s)
+    native.require_cuda(table, "g2p_gather_spans")
+    _require_sorted(flat_s, "g2p_gather_spans")
+    out = gather(table, w27t, flat_s)
+    g2p_gather_spans.launches += 1
+    return out
+
+
+g2p_gather_spans.launches = 0
+
+
 # ---- the transfers around the kernels -------------------------------------
 
 def _box_within(bound: int, m: int, device) -> torch.Tensor:
@@ -601,13 +766,19 @@ def gather_fields(fields: torch.Tensor, bound: int, wall: int) -> torch.Tensor:
 
 
 def g2p(w27t: torch.Tensor, flat_s: torch.Tensor, fields: torch.Tensor,
-        bound: int, wall: int) -> torch.Tensor:
+        bound: int, wall: int, fused_table: bool = True) -> torch.Tensor:
     """Weighted 27-point gather of channel-major cell fields (C<=3, N,N,N),
     normalised over the cells within ``|c| <= wall``: K2 on the masked
     fields plus the mask, then ``sum w*f / sum w`` (0 where the sum is 0).
-    Returns (P, C)."""
+    ``fused_table=False``: K7b's neighbourhood table, then K7a (the
+    counterpart of ``g2p_pallas(fused_table=False)``); the same result to
+    the bit.  Returns (P, C)."""
     c = fields.shape[0]
-    out = g2p_gather(gather_fields(fields, bound, wall), w27t, flat_s)
+    fm = gather_fields(fields, bound, wall)
+    if fused_table:
+        out = g2p_gather(fm, w27t, flat_s)
+    else:
+        out = g2p_gather_table(shift_expand(fm), w27t, flat_s)
     num = out[:c].T
     den = out[3]
     nz = den != 0

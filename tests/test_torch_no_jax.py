@@ -1,7 +1,9 @@
 """The port runs where JAX is not installed: in a fresh interpreter that
 can import neither ``jax`` nor ``fluidsim_tpu``, import
 ``fluidsim_tpu_torch`` and step one frame on CPU, in FLIP and APIC mode
-and of the MPM cone, and two FLIP frames on the bucket path."""
+and of the MPM cone, two FLIP frames on the bucket path, and the
+materialised G2P (``fused_table=False``) and ``ops/shift.py`` after a
+FLIP frame."""
 
 import subprocess
 import sys
@@ -29,6 +31,23 @@ elif sys.argv[1] == "flip-bucket":
     sim.step()
     m = sim.step()                 # the second frame takes the bucket order
     assert bucket_sort.bucket_or_sort.fallbacks == 1
+elif sys.argv[1] == "flip-table":
+    from fluidsim_tpu_torch.ops import apic, shift, transfer_kernels as tk
+    sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu")
+    m = sim.step()
+    b, wall = sim.params.bound, sim.params.wall
+    pos_s, vel_s, flat = tk.sort_by_cell(sim.state.pos, sim.state.vel, b)
+    w27t = tk.masked_weights_cm(pos_s, b)
+    vc = torch.sin(torch.arange(3 * (2 * b + 1) ** 3,
+                                dtype=torch.float32)).reshape(3, *(2 * b + 1,) * 3)
+    assert torch.equal(tk.g2p(w27t, flat, vc, b, wall),
+                       tk.g2p(w27t, flat, vc, b, wall, fused_table=False))
+    va, ca = apic.g2p_apic(w27t, flat, pos_s, vc, b, wall)
+    vb, cb = apic.g2p_apic(w27t, flat, pos_s, vc, b, wall, fused_table=False)
+    assert torch.equal(va, vb) and torch.equal(ca, cb)
+    rows = shift.g2p_table_expand(vc[0, :, :, :, None].expand(-1, -1, -1, 4).contiguous(),
+                                  2 * b + 1)
+    assert shift.p2g_shift_reduce(rows, 2 * b + 1).shape == (2 * b + 1,) * 3 + (4,)
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -40,7 +59,8 @@ print("ke", float(m["kinetic_energy"]))
 """
 
 
-@pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket"])
+@pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
+                                  "flip-table"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
