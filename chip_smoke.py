@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths, the
-materialised G2P and the span and unhaloed shift entry points on one NVIDIA
-GPU and check them.
+materialised G2P, the span and unhaloed shift entry points and the
+row-layout transfers on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
@@ -61,7 +61,16 @@ Phases, each of which raises on failure (nonzero exit):
    versions, the unhaloed shift entry points (K10a, K10b) against K6b and
    K7b, their plain versions and ``conv3d``, the transposes (K10c, K10d) of
    a (129^3, 108) matrix against ``.T.contiguous()``, and the launch
-   counts of one call of each entry point.
+   counts of one call of each entry point;
+21. the row-layout transfer kernels (K8a row gather, K8b row scatter-add)
+   against their plain versions and one PyTorch call (``index_select``,
+   ``index_add_``) on that state, timed as in phase 3; the row P2G (K8b,
+   then K6b) against K6a and K6b and the row G2P (K7b, K8a, the
+   contraction) against K7a and K2, bit for bit; both kernels again on
+   sweep_transfer's 127-lane rows and table of ones;
+22. ``utils/transfer_parts`` at 129^3 on the 3-frame state: one pass of the
+   row P2G and G2P with the launch counts of every kernel, the row P2G
+   against K1 and the row G2P against K2, then each part's time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -133,22 +142,26 @@ def _nbytes(tensors) -> int:
 def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None,
              extra_bytes=0):
     """Run a kernel and its plain version on the same inputs; require
-    ``max|kernel - plain| <= rel_tol * max|plain|``.  Returns the kernel's
-    line fields: the error, both times (and ``library``'s, one PyTorch call
-    of the same function, where there is one), and the bound — the larger
-    of the compulsory bytes (``inputs`` read once, the outputs written once,
-    plus ``extra_bytes`` that depend on the data) over the HBM rate and
-    ``ops`` f32 operations over the f32 rate."""
+    ``max|kernel - plain| <= rel_tol * max|plain|`` of each output (a
+    kernel may return a tuple of outputs to hold each to its own scale).
+    Returns the kernel's line fields: the error, both times (and
+    ``library``'s, one PyTorch call of the same function, where there is
+    one), and the bound — the larger of the compulsory bytes (``inputs``
+    read once, the outputs written once, plus ``extra_bytes`` that depend on
+    the data) over the HBM rate and ``ops`` f32 operations over the f32
+    rate."""
     out_k, out_p = kernel(), plain()
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
         out_k, out_p = (out_k,), (out_p,)
-    err = max(_max_err(k, p) for k, p in zip(out_k, out_p))
-    scale = max(float(p.abs().max()) for p in out_p)
-    bound = rel_tol * scale
-    ok = err <= bound and all(bool(torch.isfinite(k).all()) for k in out_k)
-    print(f"compare {name}: max_abs_err {err:.3e} (bound {bound:.3e} = "
-          f"{rel_tol:g} x max|plain| {scale:.4g}) {'ok' if ok else 'FAIL'}")
+    errs = [_max_err(k, p) for k, p in zip(out_k, out_p)]
+    scales = [float(p.abs().max()) for p in out_p]
+    err = max(errs)
+    ok = (all(e <= rel_tol * sc for e, sc in zip(errs, scales))
+          and all(bool(torch.isfinite(k).all()) for k in out_k))
+    for e, sc in zip(errs, scales):
+        print(f"compare {name}: max_abs_err {e:.3e} (bound {rel_tol * sc:.3e} "
+              f"= {rel_tol:g} x max|plain| {sc:.4g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     ms = _cuda_ms(kernel, torch)
@@ -498,11 +511,16 @@ def _materialised_phases(dev, counted, torch):
 
     # ---- 20. the span and unhaloed shift entry points ---------------------
     ws = tk.window_starts(flat, n)
+    u108 = tk._wv_values(w27t, vel_s).reshape(P, 108)
+    flat64 = flat.to(torch.int64)
     results["p2g_scatter_spans"] = _compare(
         "K9a p2g_scatter_spans",
         lambda: tk.p2g_scatter_spans(w27t, vel_s, flat, n),
         lambda: tk.p2g_scatter_base_plain(w27t, vel_s, flat, n), 1e-5,
-        (w27t, vel_s, flat), 27 * 7 * P, torch)
+        (w27t, vel_s, flat), 27 * 7 * P, torch,
+        library=lambda: torch.zeros((n3, 108), device=dev).index_add_(
+            0, flat64, u108))
+    del u108, flat64
     d = tk.p2g_scatter_base(w27t, vel_s, flat, ws, n)
     table = tk.shift_expand(fm)
     results["g2p_gather_spans"] = _compare(
@@ -578,7 +596,124 @@ def _materialised_phases(dev, counted, torch):
     if entry_launches != want:
         raise AssertionError(f"shift_entry_points: launches {entry_launches}, "
                              f"expected {want}")
-    return results, table_launches, entry_launches
+    state = dict(pos_s=pos_s, vel_s=vel_s, flat=flat, w27t=w27t, fm=fm,
+                 bound=B, wall=wall, cells=cells)
+    return results, table_launches, entry_launches, state
+
+
+def _row_phases(dev, torch, state):
+    """Phase 21 on the frame-2 FLIP state of phases 18-20: K8a and K8b
+    against their plain versions and one PyTorch call, the row transfers
+    against K6a, K6b, K7a and K2 bit for bit, and both kernels on
+    sweep_transfer's inputs.  Returns the kernels' results."""
+    from fluidsim_tpu_torch.ops import rows as rw
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import transfer_parts as tparts
+
+    st = tparts.RowState(state["pos_s"], state["vel_s"], state["flat"],
+                         state["w27t"], state["bound"], state["wall"])
+    flat, fm = st.flat, state["fm"]
+    n, P = st.n, st.flat.shape[0]
+    n3 = n ** 3
+    flat64 = flat.to(torch.int64)
+    u_rows = tparts.row_build(st)
+    # K8a reads one 512 B table column per distinct cell and the tail rows
+    gather_extra = 512 * state["cells"] + 512 * (u_rows.shape[0] - P)
+    print(f"row transfers: ({u_rows.shape[0]}, 128) rows, {P} particles, "
+          f"(128, {n3}) table")
+    results = {}
+
+    def lanes(d):      # the payload, and the id sums of lane 127
+        return d[:127], d[127]
+
+    def compare_pair(tag, rows, table_cm):
+        res_s = _compare(
+            f"K8b scatter_rows_cm{tag}",
+            lambda: lanes(rw.scatter_rows_cm(rows, flat, n3)),
+            lambda: lanes(rw.scatter_rows_cm_plain(rows, flat, n3)), 1e-5,
+            (rows[:P], flat), 128 * P, torch,
+            library=lambda: torch.zeros((128, n3), device=dev).t().index_add_(
+                0, flat64, rows[:P]))
+        res_g = _compare(
+            f"K8a gather_rows_cm{tag}",
+            lambda: rw.gather_rows_cm(table_cm, rows, flat),
+            lambda: rw.gather_rows_cm_plain(table_cm, rows, flat), 0.0,
+            (flat,), 0, torch, extra_bytes=gather_extra,
+            library=lambda: table_cm.t().index_select(0, flat64))
+        return res_s, res_g
+
+    # ---- 21. K8a, K8b against their plain versions and the library --------
+    table_cm = tparts.row_table(fm)
+    results["scatter_rows_cm"], results["gather_rows_cm"] = compare_pair(
+        "", u_rows, table_cm)
+
+    d, acc = tparts.row_p2g(st, u_rows)
+    base = tk.p2g_scatter_base(st.w27t, st.vel_s, flat,
+                               tk.window_starts(flat, n), n)
+    if not torch.equal(d[:108].view(27, 4, n, n, n), base):
+        raise AssertionError(f"K8b differs from K6a: "
+                             f"{_max_err(d[:108], base.view(108, n3)):.3e}")
+    if not torch.equal(acc, tk.shift_reduce(base)):
+        raise AssertionError("K6b of K8b differs from K6b of K6a")
+    del d, acc, base
+    rows, out = tparts.row_g2p(st, table_cm, u_rows)
+    k7a = tk.g2p_gather_table(tk.shift_expand(fm), st.w27t, flat)
+    k2 = tk.g2p_gather(fm, st.w27t, flat)
+    if not (torch.equal(out, k7a) and torch.equal(out, k2)):
+        raise AssertionError(f"row G2P differs from K7a/K2: "
+                             f"{_max_err(out, k7a):.3e}, {_max_err(out, k2):.3e}")
+    if not torch.equal(rows[P:], u_rows[P:]):
+        raise AssertionError("K8a changed the tail rows")
+    print(f"row transfers: K8b == K6a, K6b(K8b) == K6b(K6a), row G2P == K7a "
+          f"== K2, bit for bit on {P} particles at {n}^3")
+    del rows, out, k7a, k2, table_cm, u_rows
+
+    s_rows, ones = tparts.sweep_inputs(st)
+    compare_pair(" (sweep: 127-lane rows, ones table)", s_rows, ones)
+    return results
+
+
+def _row_transfers(dev, counted, torch):
+    """Phase 22: ``utils/transfer_parts`` at the main paths' size; returns
+    the launches of one pass of the row P2G and G2P."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import transfer_parts as tparts
+
+    st = tparts.frame_state(BOUND, DENSITY, dev)
+    n, P = st.n, st.flat.shape[0]
+    print(f"transfer_parts: water_cube_drop bound {BOUND} frame "
+          f"{tparts.FRAMES}: {P} particles, {n}^3 cells")
+    ones = torch.ones((3, n, n, n), device=dev)
+    for fn in counted:
+        fn.launches = 0
+    u_rows = tparts.row_build(st)
+    _, acc = tparts.row_p2g(st, u_rows)
+    fm = tparts.field_build(st, ones)
+    _, out = tparts.row_g2p(st, tparts.row_table(fm), u_rows)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print("row_transfers: launches:", json.dumps(launches))
+    want = {name: 0 for name in launches}
+    want.update({"scatter_rows_cm": 1, "shift_reduce": 1, "shift_expand": 1,
+                 "gather_rows_cm": 1})
+    if launches != want:
+        raise AssertionError(f"row_transfers: launches {launches}, "
+                             f"expected {want}")
+    # what came out: the row P2G is K1's sums in another f32 order, the
+    # row G2P K2's sums bit for bit
+    k1 = tk.p2g_scatter(st.w27t, st.vel_s, tk.cell_starts(st.flat, n), n)
+    err, scale = _max_err(acc, k1), float(k1.abs().max())
+    if err > 1e-5 * scale:
+        raise AssertionError(f"row_transfers: row P2G differs from K1 by {err}")
+    if not torch.equal(out, tk.g2p_gather(fm, st.w27t, st.flat)):
+        raise AssertionError("row_transfers: row G2P differs from K2")
+    print(f"row_transfers: row P2G within {err:.3e} of K1 (max {scale:.4g}), "
+          "row G2P equal to K2 bit for bit")
+    del u_rows, acc, out, k1, fm
+    for name, ms in tparts.time_parts(st).items():
+        print(f"time transfer_parts {name}: {ms:.4f} ms (median of "
+              f"{tparts.REPS})")
+    return launches
 
 
 def main() -> int:
@@ -597,6 +732,7 @@ def main() -> int:
     from fluidsim_tpu_torch.ops import bucket_sort as bs
     from fluidsim_tpu_torch.ops import mpm_kernels as mk
     from fluidsim_tpu_torch.ops import pressure as pr
+    from fluidsim_tpu_torch.ops import rows as rw
     from fluidsim_tpu_torch.ops import shift
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
@@ -682,7 +818,8 @@ def main() -> int:
                tk.g2p_gather_table, tk.g2p_moments_table,
                tk.p2g_scatter_spans, tk.g2p_gather_spans,
                shift.to_channel_major, shift.from_channel_major,
-               shift.p2g_shift_reduce, shift.g2p_table_expand)
+               shift.p2g_shift_reduce, shift.g2p_table_expand,
+               rw.gather_rows_cm, rw.scatter_rows_cm)
     ke, flip_launches, flip_ms = _run_frames(sim, counted, torch)
     kes += ke
     del sim
@@ -868,9 +1005,16 @@ def main() -> int:
         _small_scene(mode, dev, "bucket", **BUCKET_SMALL)
 
     # ---- 18-20. the materialised G2P and the K9, K10 entry points -------
-    more, table_launches, entry_launches = _materialised_phases(dev, counted,
-                                                                torch)
+    more, table_launches, entry_launches, state = _materialised_phases(
+        dev, counted, torch)
     results.update(more)
+
+    # ---- 21. the row-layout transfer kernels on that state --------------
+    results.update(_row_phases(dev, torch, state))
+    del state
+
+    # ---- 22. the row-layout transfers at 129^3 --------------------------
+    row_launches = _row_transfers(dev, counted, torch)
 
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
@@ -906,11 +1050,14 @@ def main() -> int:
         "to_channel_major": ("layout.cu", "pallas_shift.py:212",
                              entry_launches),
         "from_channel_major": ("layout.cu", "pallas_shift.py:230",
-                               entry_launches)}
+                               entry_launches),
+        "gather_rows_cm": ("rows.cu", "pallas_transfer.py:225", row_launches),
+        "scatter_rows_cm": ("rows.cu", "pallas_transfer.py:332", row_launches)}
     paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches,
              "flip_bucket": bucket_launches,
              "g2p_materialised": table_launches,
-             "shift_entry_points": entry_launches}
+             "shift_entry_points": entry_launches,
+             "row_transfers": row_launches}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
                 "launches": launches[name], **results[name],

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("transfer.cu", "stencil.cu", "bucket.cu", "layout.cu")
+SOURCES = ("transfer.cu", "stencil.cu", "bucket.cu", "layout.cu", "rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
@@ -50,6 +50,10 @@ _SIGNATURES = {
     "fs_shift_expand": (_P, _P, ctypes.c_int, _P),
     "fs_transpose_pad": (_P, _P, ctypes.c_longlong, ctypes.c_longlong,
                          ctypes.c_longlong, ctypes.c_longlong, _P),
+    "fs_gather_rows_cm": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.c_longlong, _P),
+    "fs_scatter_rows_cm": (_P, _P, _P, _P, ctypes.c_longlong,
+                           ctypes.c_longlong, _P),
     "fs_bucket_move": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, _P),

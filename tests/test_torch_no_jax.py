@@ -3,7 +3,7 @@ can import neither ``jax`` nor ``fluidsim_tpu``, import
 ``fluidsim_tpu_torch`` and step one frame on CPU, in FLIP and APIC mode
 and of the MPM cone, two FLIP frames on the bucket path, and the
 materialised G2P (``fused_table=False``) and ``ops/shift.py`` after a
-FLIP frame."""
+FLIP frame, and the row-layout transfers of ``utils/transfer_parts.py``."""
 
 import subprocess
 import sys
@@ -48,6 +48,17 @@ elif sys.argv[1] == "flip-table":
     rows = shift.g2p_table_expand(vc[0, :, :, :, None].expand(-1, -1, -1, 4).contiguous(),
                                   2 * b + 1)
     assert shift.p2g_shift_reduce(rows, 2 * b + 1).shape == (2 * b + 1,) * 3 + (4,)
+elif sys.argv[1] == "rows":
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import transfer_parts as tparts
+    st = tparts.frame_state(6, 2.0, "cpu")
+    u_rows = tparts.row_build(st)
+    d, acc = tparts.row_p2g(st, u_rows)
+    fm = tparts.field_build(st, torch.ones((3, st.n, st.n, st.n)))
+    rows, out = tparts.row_g2p(st, tparts.row_table(fm), u_rows)
+    assert torch.equal(out, tk.g2p_gather(fm, st.w27t, st.flat))
+    tparts.sweep_inputs(st)
+    m = {"kinetic_energy": acc[0].sum()}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -60,7 +71,7 @@ print("ke", float(m["kinetic_energy"]))
 
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
-                                  "flip-table"])
+                                  "flip-table", "rows"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
