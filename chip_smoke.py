@@ -29,7 +29,11 @@ Phases, each of which raises on failure (nonzero exit):
    runs its plain version (APIC: the affine matrices too);
 10. the MPM kernels (K1 fg, K2 gw) against their plain versions on the
    sorted state, stress and grid velocity of ``MpmSim("mpm_cone")`` after
-   its 2 warm-up frames, timed as in phase 3;
+   its 2 warm-up frames, timed as in phase 3; K1 fg also on a skewed
+   synthetic state (``utils/synthetic.skewed_force_state``: 20,000
+   particles in one cell), and on both states bit for bit against its
+   summation order in PyTorch (``p2g_scatter_force_chunked``) and a rerun,
+   with its chunk plan's counts and build time;
 11. the MPM main path: 10 timed frames with finite energy and deformation
    gradients, particles in the box, det(FP) > 0, every implicit solve
    converged, and the launch counts of all eight kernels; ms/frame and CG
@@ -41,7 +45,8 @@ Phases, each of which raises on failure (nonzero exit):
    shift-reduce) against their plain versions on the window-grouped state
    of ``FlipSim(sort_method="bucket")`` after its 2 warm-up frames, timed
    as in phase 3, each beside one PyTorch call that computes the same
-   function (``index_select``, ``index_add_``, ``conv3d``);
+   function (``index_select``, ``index_add_``, ``conv3d``); K5 also bit
+   for bit on synthetic run tables (``utils/synthetic.bucket_tables``);
 15. the bucket path at 129^3: 10 timed frames with the checks of phase 4,
    the launch counts (K5 once per frame that kept the bucket order, K6a
    and K6b once per frame, K1 never), how many frames fell back to the
@@ -177,6 +182,50 @@ def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None,
           f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _require_bitwise(name, a, b, torch):
+    """Raise unless the tensors (or tuples of tensors) ``a`` and ``b`` hold
+    the same bits."""
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    same = all(x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+        for x, y in zip(a, b))
+    if not same:
+        raise AssertionError(f"{name}: not bit for bit equal")
+    print(f"bitwise {name}: equal")
+
+
+def _force_order_checks(name, gradw, m9, cs, n, torch):
+    """K1 fg on one state: its chunk plan, the kernel against its order in
+    PyTorch (``p2g_scatter_force_chunked``) bit for bit, and a rerun bit
+    for bit."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    p = m9.shape[0]
+    plan = tk.force_plan(cs, p)
+    plan_ms = _cuda_ms(lambda: tk.force_plan(cs, p), torch)
+    per_cell = cs[1:] - cs[:-1]
+    chunks = plan.chunk_start[1:] - plan.chunk_start[:-1]
+    nch = plan.chunk_first.shape[0] - 1
+    print(f"K1 fg plan, {name}: {p} particles in {int((per_cell > 0).sum())} "
+          f"occupied cells (at most {int(per_cell.max())} in one), {nch} "
+          f"chunks of at most {tk.FORCE_CHUNK} ({int((chunks > 1).sum())} "
+          f"cells of several, at most {int(chunks.max())} in one; scratch "
+          f"{81 * 4 * nch / 1e6:.1f} MB); plan build "
+          f"{plan_ms:.4f} ms (once per frame)")
+    out = tk.p2g_scatter_force(gradw, m9, cs, n, plan)
+    _require_bitwise(f"K1 fg == p2g_scatter_force_chunked, {name}", out,
+                     tk.p2g_scatter_force_chunked(gradw, m9, plan, n), torch)
+    _require_bitwise(f"K1 fg rerun, {name}", out,
+                     tk.p2g_scatter_force(gradw, m9, cs, n, plan), torch)
+    try:
+        tk.p2g_scatter_force(gradw, m9, cs.clone(), n, plan)
+    except ValueError:
+        print(f"K1 fg, {name}: a plan of another cell_start refused")
+    else:
+        raise AssertionError(f"K1 fg, {name}: took a plan of another "
+                             "cell_start")
 
 
 def _flip_sim(dev, mode="flip", sort_method="full", bound=BOUND,
@@ -741,6 +790,7 @@ def main() -> int:
     from fluidsim_tpu_torch.core.splines import cround
     from fluidsim_tpu_torch.ops.svd3 import (det3, hardening, mm3, mv3,
                                              piola_linearized)
+    from fluidsim_tpu_torch.utils import synthetic
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -882,16 +932,6 @@ def main() -> int:
                                                   st.FP, st.volume, B)
     w27t, gradw = mk.mpm_stencil(pos_s, B)
     cs = tk.cell_starts(flat, n)
-    # the pull's serial work: a target cell's thread walks the particles of
-    # its 27 source cells one after another
-    per_cell = (cs[1:] - cs[:-1]).reshape(n, n, n)
-    padded = torch.nn.functional.pad(per_cell, (1, 1) * 3)
-    chain = sum(padded[i:i + n, j:j + n, k:k + n]
-                for i in range(3) for j in range(3) for k in range(3))
-    print(f"K1 fg pull: {int((per_cell > 0).sum())} occupied cells, at most "
-          f"{int(per_cell.max())} particles each; {int((chain > 0).sum())} "
-          f"target cells with work, the longest walks {int(chain.max())} "
-          "particles")
     mass, mom = mk.p2g_mpm(w27t, vel_s, cs, sim.solid, B)
     heavy = mass > prm.mass_threshold
     velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
@@ -905,18 +945,33 @@ def main() -> int:
     print(f"mpm frame 2 state: {int(heavy.sum())} cells above the mass "
           f"threshold, max|M| {float(m9.abs().max()):.4g}, "
           f"max|velg| {float(velg.abs().max()):.4g}")
+    # K1 fg is timed with its chunk plan given, as the frame's force
+    # functions call it; the plan's build (once per frame) is timed apart
+    plan = tk.force_plan(cs, P)
     results["p2g_scatter_force"] = _compare(
         "K1 fg p2g_scatter_force",
-        lambda: tk.p2g_scatter_force(gradw, m9, cs, n),
+        lambda: tk.p2g_scatter_force(gradw, m9, cs, n, plan),
         lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
         (gradw, m9, cs), 27 * 18 * P, torch)
+    _force_order_checks("the frame-2 state", gradw, m9, cs, n, torch)
+    # a skewed state past the cone's: 20,000 particles in one cell, cells of
+    # exactly one chunk and one more, occupied faces, empty neighbourhoods
+    gs, ms, css, _ = synthetic.skewed_force_state(
+        SEED, n, 20_000, band=0.15, device=dev)
+    plan_s = tk.force_plan(css, ms.shape[0])
+    _compare("K1 fg p2g_scatter_force (skewed state)",
+             lambda: tk.p2g_scatter_force(gs, ms, css, n, plan_s),
+             lambda: tk.p2g_scatter_force_plain(gs, ms, css, n), 1e-5,
+             (gs, ms, css), 27 * 18 * ms.shape[0], torch)
+    _force_order_checks("the skewed state", gs, ms, css, n, torch)
+    del gs, ms, css, plan_s
     fm = torch.where(~sim.solid[None], velg, 0.0)
     results["g2p_gather_gw"] = _compare(
         "K2 gw g2p_gather_gw", lambda: tk.g2p_gather_gw(fm, gradw, flat),
         lambda: tk.g2p_gather_gw_plain(fm, gradw, flat), 1e-5,
         (fm, gradw, flat), 27 * 18 * P, torch)
-    del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, per_cell, padded
-    del chain, mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
+    del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, plan
+    del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
     ke, mpm_launches = _run_mpm_frames(sim, counted, torch)
@@ -962,6 +1017,19 @@ def main() -> int:
         lambda: bs.bucket_move_plain(key_s, pay_s, tbl, P, to), 0.0,
         (key_s, pay_s, tbl), 0, torch,
         library=lambda: rows.index_select(1, perm))
+    # synthetic tables: a run across three output blocks, a block met by
+    # exactly emax runs, runs of one row, dead entries, P not a multiple of to
+    for seed, p_y, nc_y, to_y, emax_y in ((0, 2_000_000, 6, 1024, 64),
+                                          (1, 1_000_003, 15, 1024, 64),
+                                          (2, 99_999, 1, 512, 32)):
+        key_y, pay_y, tbl_y, _ = synthetic.bucket_tables(
+            seed, p_y, nc_y, to_y, emax_y, device=dev)
+        name = f"K5 bucket_move (synthetic {p_y} x {nc_y}, to {to_y})"
+        move = lambda: bs.bucket_move(key_y, pay_y, tbl_y, p_y, to_y)
+        plain = lambda: bs.bucket_move_plain(key_y, pay_y, tbl_y, p_y, to_y)
+        _compare(name, move, plain, 0.0, (key_y, pay_y, tbl_y), 0, torch)
+        _require_bitwise(name, move(), plain(), torch)
+        del key_y, pay_y, tbl_y
     flat_o, cols_o = bs.bucket_move(key_s, pay_s, tbl, P, to)
     pos_s, vel_s = cols_o[0:3].T.contiguous(), cols_o[3:6].T.contiguous()
     w27t = tk.masked_weights_cm(pos_s, B)

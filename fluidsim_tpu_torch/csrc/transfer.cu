@@ -64,10 +64,32 @@
 //   outside the box are dropped.  Output (3, n, n, n) f32.
 //   Bound on the H100: memory.  Compulsory traffic is gradW (324 B), M
 //   (36 B) per particle, cell_start and 12 B/cell out; at 127^3 / 473,798
-//   particles ~203 MB.  Design: K1's deterministic pull, one thread per
-//   target cell, no atomics, so the MPM frame stays bit-reproducible.
-//   Each visit reads the particle's 3 gradW values of offset o (coalesced
-//   rows of the (81, P) layout) and its 9 M values (from cache).
+//   particles ~203 MB.  What holds a pull over the source cells back is
+//   load imbalance, not bytes: the snow cone piles ~11,000 particles into
+//   one cell, and a thread per target cell would walk them one by one for
+//   each of that cell's 27 neighbours.
+//   Design: a deterministic chunked pull, no float atomics, so the MPM
+//   frame stays bit-reproducible.  A plan built once per frame
+//   (transfer_kernels.force_plan) cuts every occupied cell's particle
+//   range into chunks of at most FORCE_CHUNK particles, listed in (cell,
+//   chunk) order: chunk_first[k] is chunk k's first particle, chunk_cell[k]
+//   its cell, chunk_start[b] cell b's first chunk (chunk_start[n^3] the
+//   number of chunks).
+//   Stage A (force_chunk_sums_kernel): one warp per chunk stages kTile
+//   particles at a time in shared memory (the 81 gradW rows read coalesced
+//   along p, M once) and lane o < 27 sums the chunk's 3 values of offset o
+//   in particle order: sums[k, 3o + c] = sum_p (M[p,c,0] gW[p,o,0] +
+//   M[p,c,1] gW[p,o,1]) + M[p,c,2] gW[p,o,2].  A crowded cell becomes many
+//   chunks on many warps.  force_combine_kernel then adds the chunks of
+//   each cell of several chunks in chunk order into its first chunk's row:
+//   one 81-float record per occupied cell.
+//   Stage B (force_pull_kernel): one thread per target cell adds, for each
+//   offset o in order 0..26, the record of source cell cell - off_o
+//   (sources outside the box or without particles dropped).  Its reads do
+//   not depend on one another, and a target with an empty neighbourhood
+//   stops after 18 reads of chunk_start.
+//   transfer_kernels.p2g_scatter_force_chunked is this order written in
+//   PyTorch; the kernel equals it bit for bit.
 //
 // K2 gw fs_g2p_gather_gw replaces the same TPU gather with contract='gw',
 //   nout=16: out[3c+k, p] = sum_o gW[p,o,k] * fm[c, base(p) + off_o] for
@@ -282,35 +304,123 @@ __global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
   out[3 * np + p] = s3;
 }
 
-__global__ void p2g_scatter_force_kernel(const float* __restrict__ gradw,
-                                         const float* __restrict__ m9,
-                                         const int* __restrict__ cell_start,
-                                         float* __restrict__ out, int n,
-                                         long long np) {
-  const long long ncell = (long long)n * n * n;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int kTile = 32;           // particles a warp stages at a time
+constexpr int kPitch = kTile + 1;   // the 27 lanes' gradW rows in distinct banks
+constexpr int kChunkWarpsPerSm = 16;
+
+// Stage A: sums[k, 3o + c] over chunk k's particles, in particle order.
+__global__ void __launch_bounds__(32, kChunkWarpsPerSm)
+    force_chunk_sums_kernel(const float* __restrict__ gradw,
+                            const float* __restrict__ m9,
+                            const int* __restrict__ chunk_first,
+                            int nch, float* __restrict__ sums,
+                            long long np) {
+  __shared__ float g[81 * kPitch];
+  __shared__ float4 m[3 * kTile];   // row c of M as (M[c,0], M[c,1], M[c,2], 0)
+  const int lane = threadIdx.x;
+  for (int k = blockIdx.x; k < nch; k += gridDim.x) {
+    const int p0 = chunk_first[k], p1 = chunk_first[k + 1];
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    for (int t0 = p0; t0 < p1; t0 += kTile) {
+      const int len = min(kTile, p1 - t0);
+      __syncwarp();
+      if (lane < len) {
+        const long long p = t0 + lane;
+#pragma unroll 27
+        for (int r = 0; r < 81; ++r) g[r * kPitch + lane] = gradw[r * np + p];
+        const float* mp = m9 + 9 * p;
+        m[3 * lane] = make_float4(mp[0], mp[1], mp[2], 0.f);
+        m[3 * lane + 1] = make_float4(mp[3], mp[4], mp[5], 0.f);
+        m[3 * lane + 2] = make_float4(mp[6], mp[7], mp[8], 0.f);
+      }
+      __syncwarp();
+      if (lane < 27) {
+        const float* g0 = g + 3 * lane * kPitch;
+        const float* g1 = g0 + kPitch;
+        const float* g2 = g1 + kPitch;
+        for (int j = 0; j < len; ++j) {
+          const float gx = g0[j], gy = g1[j], gz = g2[j];
+          const float4 r0 = m[3 * j], r1 = m[3 * j + 1], r2 = m[3 * j + 2];
+          a0 += r0.x * gx + r0.y * gy + r0.z * gz;
+          a1 += r1.x * gx + r1.y * gy + r1.z * gz;
+          a2 += r2.x * gx + r2.y * gy + r2.z * gz;
+        }
+      }
+    }
+    if (lane < 27) {
+      float* s = sums + 81LL * k + 3 * lane;
+      s[0] = a0;
+      s[1] = a1;
+      s[2] = a2;
+    }
+  }
+}
+
+// Stage A's second kernel: the record of a cell of several chunks, the sum
+// of its chunks' sums in chunk order, into its first chunk's row.
+__global__ void force_combine_kernel(float* __restrict__ sums,
+                                     const int* __restrict__ chunk_cell,
+                                     const int* __restrict__ chunk_start,
+                                     int nch) {
+  const int lane = threadIdx.x;
+  for (int k = blockIdx.x; k < nch; k += gridDim.x) {
+    const int b = chunk_cell[k];
+    const int k1 = chunk_start[b + 1];
+    if (chunk_start[b] != k || k1 - k < 2 || lane >= 27) continue;
+    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll 8
+    for (int q = k; q < k1; ++q) {
+      const float* s = sums + 81LL * q + 3 * lane;
+      t0 += s[0];
+      t1 += s[1];
+      t2 += s[2];
+    }
+    float* s = sums + 81LL * k + 3 * lane;
+    s[0] = t0;
+    s[1] = t1;
+    s[2] = t2;
+  }
+}
+
+// Stage B: one thread per target cell adds the records of its source cells
+// in offset order; a target whose 27 sources hold no chunk writes zeros
+// after 18 reads of chunk_start.  n^3 < 2^31 (checked by the caller).
+__global__ void force_pull_kernel(const float* __restrict__ rec,
+                                  const int* __restrict__ chunk_start,
+                                  float* __restrict__ out, int n) {
+  const int ncell = n * n * n;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncell) return;
-  const int x = (int)(c / ((long long)n * n));
-  const int y = (int)((c / n) % n);
-  const int z = (int)(c % n);
+  const int x = c / (n * n);
+  const int y = (c - x * n * n) / n;
+  const int z = c - (x * n + y) * n;
+  const int zlo = z > 0 ? z - 1 : 0;
+  const int zend = z + 1 < n ? z + 2 : n;   // one past the last source z
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < 9; ++r) {
+    const int bx = x - (r / 3 - 1), by = y - (r % 3 - 1);
+    if (bx >= 0 && bx < n && by >= 0 && by < n) {
+      const int row = (bx * n + by) * n;
+      any |= __ldg(chunk_start + row + zend) > __ldg(chunk_start + row + zlo);
+    }
+  }
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  for (int o = 0; o < 27; ++o) {
-    const int bx = x - (o / 9 - 1);
-    const int by = y - ((o / 3) % 3 - 1);
-    const int bz = z - (o % 3 - 1);
-    if (bx < 0 || bx >= n || by < 0 || by >= n || bz < 0 || bz >= n) continue;
-    const long long b = ((long long)bx * n + by) * n + bz;
-    const int s = cell_start[b];
-    const int e = cell_start[b + 1];
-    const float* g0 = gradw + 3LL * o * np;
-    const float* g1 = g0 + np;
-    const float* g2 = g1 + np;
-    for (int p = s; p < e; ++p) {
-      const float gx = g0[p], gy = g1[p], gz = g2[p];
-      const float* m = m9 + 9LL * p;
-      a0 += m[0] * gx + m[1] * gy + m[2] * gz;
-      a1 += m[3] * gx + m[4] * gy + m[5] * gz;
-      a2 += m[6] * gx + m[7] * gy + m[8] * gz;
+  if (any) {
+#pragma unroll
+    for (int o = 0; o < 27; ++o) {
+      const int bx = x - (o / 9 - 1);
+      const int by = y - ((o / 3) % 3 - 1);
+      const int bz = z - (o % 3 - 1);
+      if (bx < 0 || bx >= n || by < 0 || by >= n || bz < 0 || bz >= n) continue;
+      const int b = (bx * n + by) * n + bz;
+      const int k0 = __ldg(chunk_start + b);
+      if (__ldg(chunk_start + b + 1) > k0) {
+        const float* s = rec + 81LL * k0 + 3 * o;
+        a0 += __ldg(s);
+        a1 += __ldg(s + 1);
+        a2 += __ldg(s + 2);
+      }
     }
   }
   out[c] = a0;
@@ -506,13 +616,32 @@ extern "C" int fs_g2p_moments_table(const float* table, const float* w27t,
   return (int)cudaGetLastError();
 }
 
+// sums: (nchunk, 81) scratch, nchunk the plan's chunk count chunk_start[n^3]
+// (force_plan reads it once per frame); the warps of stage A stride over
+// the chunks.
 extern "C" int fs_p2g_scatter_force(const float* gradw, const float* m9,
-                                    const int* cell_start, float* out, int n,
-                                    long long np, void* stream) {
+                                    const int* chunk_first,
+                                    const int* chunk_cell,
+                                    const int* chunk_start, float* sums,
+                                    float* out, int n, long long np,
+                                    int nchunk, void* stream) {
   const long long ncell = (long long)n * n * n;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (nchunk > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int warps = 2 * kChunkWarpsPerSm * sms;
+    const int grid = nchunk < warps ? nchunk : warps;
+    force_chunk_sums_kernel<<<grid, 32, 0, st>>>(gradw, m9, chunk_first,
+                                                 nchunk, sums, np);
+    force_combine_kernel<<<grid, 32, 0, st>>>(sums, chunk_cell, chunk_start,
+                                              nchunk);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  p2g_scatter_force_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      gradw, m9, cell_start, out, n, np);
+  force_pull_kernel<<<blocks, kThreads, 0, st>>>(sums, chunk_start, out, n);
   return (int)cudaGetLastError();
 }
 

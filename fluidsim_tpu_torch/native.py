@@ -35,8 +35,8 @@ _SIGNATURES = {
     "fs_p2g_scatter": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "fs_p2g_scatter_affine": (_P, _P, _P, _P, _P, ctypes.c_int,
                               ctypes.c_longlong, _P),
-    "fs_p2g_scatter_force": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                             _P),
+    "fs_p2g_scatter_force": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_int, _P),
     "fs_g2p_gather": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "fs_g2p_moments": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "fs_g2p_gather_gw": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),

@@ -40,6 +40,10 @@ from fluidsim_tpu_torch import native
 PAD_KEY = 2 ** 30 - 1     # key of the tail-padding rows of the last chunk
 DEAD_DST = 2 ** 30        # destination of the dead (zero-count) descriptors
 MAX_WINDOWS = 1 << 16     # window class of the padding; real windows below
+# K5's limits: a block's table fills at most 48 KB of shared memory, and an
+# output block at most 65,535 thread blocks of 256 rows
+MAX_EMAX = 4096
+MAX_TO = 65535 * 256
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -161,7 +165,9 @@ def bucket_move(key_s: torch.Tensor, pay_s: torch.Tensor, tbl: torch.Tensor,
     ``tbl``, block by block, for the first ``p`` output rows: the int32 key
     column and the (NC, TC) f32 payload, bit for bit.  CUDA tensors launch
     ``fs_bucket_move`` (``csrc/bucket.cu``); CPU tensors take
-    ``bucket_move_plain``.  Valid only for a table whose caps held."""
+    ``bucket_move_plain``.  Valid only for a table whose caps held, laid
+    out as ``bucket_plan`` builds it: each block's entries in ``dst``
+    order, the dead ones last."""
     if key_s.device.type == "cpu":
         return bucket_move_plain(key_s, pay_s, tbl, p, to)
     native.require_cuda(key_s, "bucket_move")
@@ -175,6 +181,9 @@ def bucket_move(key_s: torch.Tensor, pay_s: torch.Tensor, tbl: torch.Tensor,
     if not p <= tc <= nout * to:
         raise ValueError(f"bucket_move: {p} rows, {tc} padded, {nout} "
                          f"blocks of {to}")
+    if not (1 <= emax <= MAX_EMAX and 1 <= to <= MAX_TO):
+        raise ValueError(f"bucket_move: emax {emax} (1..{MAX_EMAX}) or "
+                         f"to {to} (1..{MAX_TO}) out of the kernel's range")
     key_out = torch.empty((p,), dtype=torch.int32, device=dev)
     cols_out = torch.empty((nc, p), dtype=torch.float32, device=dev)
     lib = native.library()

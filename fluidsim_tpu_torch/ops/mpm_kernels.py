@@ -120,7 +120,9 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     chain, so no automatic differentiation is involved.  ``hessian`` is
     "full" (the exact corotated differential), "spd" (its Gauss-Newton
     part) or "hybrid", which returns ``(f0, dforce_full, dforce_spd)``.
-    The polar decomposition runs once for all of them.
+    The polar decomposition runs once for all of them, and so, on the
+    card, does the force scatter's chunk plan (``transfer_kernels.
+    force_plan``; the CPU's plain scatter needs none).
     """
     n = 2 * bound + 1
     p = pos_s.shape[0]
@@ -128,10 +130,12 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     p0, dp_full, dp_spd = piola_linearized(FE, mu, lam)
     valid = torch.all(torch.abs(cround(pos_s)) <= bound, dim=-1)
     scale = torch.where(valid, -volume, 0.0)
+    plan = tk.force_plan(cell_start, p) if cell_start.is_cuda else None
 
     def scatter_sigma(sigma):
         m9 = (scale[:, None] * sigma.reshape(p, 9)).contiguous()
-        return _masked(tk.p2g_scatter_force(gradw, m9, cell_start, n), ~solid)
+        return _masked(tk.p2g_scatter_force(gradw, m9, cell_start, n, plan),
+                       ~solid)
 
     def f0():
         return scatter_sigma(mm3(p0, fe_t))

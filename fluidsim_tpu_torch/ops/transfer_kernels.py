@@ -39,6 +39,8 @@ raises.  Each counts its kernel launches in ``.launches``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from fluidsim_tpu_torch import native
@@ -445,29 +447,110 @@ g2p_moments_table.launches = 0
 
 # ---- K1 fg: MPM force scatter ----------------------------------------------
 
+# Most particles in one chunk of the force scatter's plan: a crowded cell's
+# range is cut into chunks of at most this many particles, each summed by
+# its own warp.
+FORCE_CHUNK = 128
+
+
+class ForcePlan(NamedTuple):
+    """The chunks of ``p2g_scatter_force``: every occupied cell's particle
+    range cut into chunks of at most ``FORCE_CHUNK`` particles, listed in
+    (cell, chunk) order.  ``cell_start`` is the tensor the plan was built
+    from; ``chunk_start`` (n^3 + 1,) int32 is each cell's first chunk, its
+    last entry the number of chunks ``nch``; ``chunk_first`` and
+    ``chunk_cell`` (nch + 1,) int32 are each chunk's first particle and
+    its cell, with P and n^3 in their last entry."""
+    cell_start: torch.Tensor
+    chunk_start: torch.Tensor
+    chunk_first: torch.Tensor
+    chunk_cell: torch.Tensor
+
+
+def force_plan(cell_start: torch.Tensor, p: int) -> ForcePlan:
+    """The ``ForcePlan`` of the sorted particles that ``cell_start`` (n^3 +
+    1 offsets, the last ``p``) ranges, built on ``cell_start``'s device
+    once per frame for all of its force scatters.  Its one host read is
+    the chunk count (4 bytes), which sizes the plan and the kernel's
+    scratch exactly."""
+    dev = cell_start.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    ncell = cell_start.shape[0] - 1
+    counts = cell_start[1:] - cell_start[:-1]
+    chunk_start = torch.cat([torch.zeros((1,), **i32), torch.cumsum(
+        (counts + (FORCE_CHUNK - 1)) // FORCE_CHUNK, 0, dtype=torch.int32)])
+    nch = int(chunk_start[-1])
+    idx = torch.arange(p, **i32)
+    cell = torch.searchsorted(cell_start, idx, right=True, out_int32=True) - 1
+    r = idx - cell_start[cell]
+    head = r % FORCE_CHUNK == 0
+    slot = torch.where(head, chunk_start[cell] + r // FORCE_CHUNK,
+                       nch).to(torch.int64)
+    chunk_first = torch.full((nch + 1,), p, **i32)
+    chunk_first.scatter_(0, slot, torch.where(head, idx, p))
+    chunk_cell = torch.full((nch + 1,), ncell, **i32)
+    chunk_cell.scatter_(0, slot, torch.where(head, cell, ncell))
+    return ForcePlan(cell_start, chunk_start, chunk_first, chunk_cell)
+
+
 def _gradw_p27(gradw: torch.Tensor) -> torch.Tensor:
     """(81, P) gradW rows ``3o + k`` -> (P, 27, 3)."""
     return gradw.T.reshape(-1, 27, 3)
 
 
+def _force_values(gradw: torch.Tensor, m9: torch.Tensor) -> torch.Tensor:
+    """The (P, 27, 3) per-(particle, offset) force ``M gradW(o)``
+    (``apply_mat27``, each row summed over k = 0, 1, 2 in order)."""
+    return apply_mat27(m9.reshape(-1, 3, 3), _gradw_p27(gradw))
+
+
 def p2g_scatter_force_plain(gradw: torch.Tensor, m9: torch.Tensor,
                             cell_start: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain PyTorch K1 fg: the per-(particle, offset) force ``M gradW(o)``
-    (``apply_mat27``, each row summed over k = 0, 1, 2 in order) through
-    ``_scatter27_plain``.  ``m9`` is (P, 9), row-major M.  Returns
-    (3, n, n, n)."""
-    u = apply_mat27(m9.reshape(-1, 3, 3), _gradw_p27(gradw))   # (P, 27, 3)
-    return _scatter27_plain(u, cell_start, n)
+    """Plain PyTorch K1 fg: ``_force_values`` through ``_scatter27_plain``.
+    ``m9`` is (P, 9), row-major M.  Returns (3, n, n, n)."""
+    return _scatter27_plain(_force_values(gradw, m9), cell_start, n)
+
+
+def p2g_scatter_force_chunked(gradw: torch.Tensor, m9: torch.Tensor,
+                              plan: ForcePlan, n: int) -> torch.Tensor:
+    """K1 fg in the order of its CUDA kernel, in PyTorch: each chunk's sums
+    of ``_force_values`` in particle order from +0, each cell's record the
+    sum of its chunks' in chunk order, then the 27 shifted adds of the
+    records in offset order (``shift_reduce_plain``).  The kernel equals it
+    bit for bit; it differs from ``p2g_scatter_force_plain`` only in the
+    order of the sums.  Reads the longest chunk and chunk run on the host.
+    Returns (3, n, n, n)."""
+    p = m9.shape[0]
+    u = torch.cat([_force_values(gradw, m9).reshape(p, 81),
+                   m9.new_zeros((1, 81))])                 # row p: zeros
+    nch = plan.chunk_first.shape[0] - 1
+    first = plan.chunk_first.to(torch.int64)
+    sums = m9.new_zeros((nch, 81))
+    for j in range(int((first[1:] - first[:-1]).max()) if nch else 0):
+        row = first[:-1] + j
+        sums = sums + u[torch.where(row < first[1:], row, p)]
+    sums = torch.cat([sums, m9.new_zeros((1, 81))])        # row nch: zeros
+    start = plan.chunk_start.to(torch.int64)
+    count = start[1:] - start[:-1]
+    rec = m9.new_zeros((n ** 3, 81))
+    for j in range(int(count.max()) if nch else 0):
+        rec = rec + sums[torch.where(j < count, start[:-1] + j, nch)]
+    return shift_reduce_plain(rec.T.reshape(27, 3, n, n, n))
 
 
 def p2g_scatter_force(gradw: torch.Tensor, m9: torch.Tensor,
-                      cell_start: torch.Tensor, n: int) -> torch.Tensor:
+                      cell_start: torch.Tensor, n: int,
+                      plan: ForcePlan | None = None) -> torch.Tensor:
     """K1 fg: ``out[c, cell] = sum_o sum_{p: base(p) = cell - off_o}
     sum_k M_p[c, k] gradW_k(p, o)`` over sorted particles, dropping
     contributions outside the box.  ``gradw`` is (81, P) with row
-    ``3o + k``; ``m9`` (P, 9) row-major M.  (3, n, n, n) f32.  CUDA tensors
-    launch ``fs_p2g_scatter_force`` (``csrc/transfer.cu``); CPU tensors take
-    ``p2g_scatter_force_plain``."""
+    ``3o + k``; ``m9`` (P, 9) row-major M; ``plan`` the ``force_plan`` of
+    ``cell_start``, built here when not given (it must come from the same
+    sort: the wrapper refuses a plan built from another tensor).  (3, n,
+    n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_force``
+    (``csrc/transfer.cu``: the chunk sums and the cells' records, then the
+    pull), equal to ``p2g_scatter_force_chunked`` bit for bit; CPU tensors
+    take ``p2g_scatter_force_plain`` and ignore ``plan``."""
     if gradw.device.type == "cpu":
         return p2g_scatter_force_plain(gradw, m9, cell_start, n)
     native.require_cuda(gradw, "p2g_scatter_force")
@@ -476,14 +559,31 @@ def p2g_scatter_force(gradw: torch.Tensor, m9: torch.Tensor,
     native.check_tensor("gradw", gradw, torch.float32, (81, p), dev)
     native.check_tensor("m9", m9, torch.float32, (p, 9), dev)
     native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
-    if p >= 2 ** 31:
-        raise ValueError("p2g_scatter_force: more than 2^31 - 1 particles")
+    if p >= 2 ** 31 or n ** 3 >= 2 ** 31:
+        raise ValueError("p2g_scatter_force: more than 2^31 - 1 particles "
+                         "or cells")
+    if plan is None:
+        plan = force_plan(cell_start, p)
+    elif (plan.cell_start.data_ptr() != cell_start.data_ptr()
+          or plan.cell_start.shape != cell_start.shape):
+        raise ValueError("p2g_scatter_force: plan was not built from this "
+                         "cell_start")
+    nch = plan.chunk_first.shape[0] - 1
+    native.check_tensor("plan.chunk_start", plan.chunk_start, torch.int32,
+                        (n ** 3 + 1,), dev)
+    for name in ("chunk_first", "chunk_cell"):
+        native.check_tensor(f"plan.{name}", getattr(plan, name), torch.int32,
+                            (nch + 1,), dev)
+    sums = torch.empty((nch, 81), dtype=torch.float32, device=dev)
     out = torch.empty((3, n, n, n), dtype=torch.float32, device=dev)
     lib = native.library()
     with torch.cuda.device(dev):
         rc = lib.fs_p2g_scatter_force(gradw.data_ptr(), m9.data_ptr(),
-                                      cell_start.data_ptr(), out.data_ptr(),
-                                      n, p, native.stream_ptr(dev))
+                                      plan.chunk_first.data_ptr(),
+                                      plan.chunk_cell.data_ptr(),
+                                      plan.chunk_start.data_ptr(),
+                                      sums.data_ptr(), out.data_ptr(), n, p,
+                                      nch, native.stream_ptr(dev))
     native.check_launch("p2g_scatter_force", rc)
     p2g_scatter_force.launches += 1
     return out

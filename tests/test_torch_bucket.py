@@ -35,6 +35,7 @@ from fluidsim_tpu_torch.ops import apic
 from fluidsim_tpu_torch.ops import bucket_sort as bs
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.scenes import get_scene
+from fluidsim_tpu_torch.utils import synthetic
 
 KBOUND = 12                  # K6a / K6b / unfused P2G
 KN = 2 * KBOUND + 1
@@ -136,6 +137,88 @@ def test_bucket_move_plain_on_the_plan():
     with pytest.raises(ValueError):
         bs.bucket_move(key_s.to("meta"), pay_s.to("meta"), tbl.to("meta"),
                        3000, 1024)
+
+
+def _move_loop(key_s, pay_s, runs, p):
+    """``out[dst + i] = in[src + i]`` for ``i < cnt``, one row at a time."""
+    key, pay = key_s.numpy(), pay_s.numpy()
+    kout = np.zeros(p, np.int32)
+    cout = np.zeros((pay.shape[0], p), np.float32)
+    for dst, src, cnt in runs.tolist():
+        for i in range(min(cnt, p - dst)):
+            kout[dst + i] = key[src + i]
+            cout[:, dst + i] = pay[:, src + i]
+    return kout, cout
+
+
+@pytest.mark.parametrize("seed,p,nc,to,emax", [(0, 20000, 6, 1024, 64),
+                                               (1, 9000, 15, 1024, 64),
+                                               (2, 6000, 1, 512, 32)])
+def test_bucket_move_on_adversarial_tables(seed, p, nc, to, emax):
+    """K5's plain version on ``utils/synthetic.bucket_tables`` (a run of 2.5
+    blocks, a block met by exactly ``emax`` runs, runs of one row, dead
+    entries, ``p`` not a multiple of ``to``) against a numpy loop over the
+    runs, bit for bit; the tables keep ``bucket_plan``'s layout, which the
+    CUDA kernel's search relies on."""
+    key_s, pay_s, tbl, runs = synthetic.bucket_tables(seed, p, nc, to, emax)
+    assert p % to and runs[:, 2].max() > 2 * to and (runs[:, 2] == 1).any()
+    dst = tbl[:, 0].numpy().astype(np.int64)
+    assert (np.diff(dst, axis=1) >= 0).all()
+    live = (dst != bs.DEAD_DST).sum(axis=1)
+    assert live.max() == emax and live.min() < emax
+    edges = np.arange(tbl.shape[0])[:, None] * to
+    meet = (dst < edges + to) & (dst + tbl[:, 2].numpy() > edges)
+    assert meet.sum(axis=1).max() == emax
+    kf, kc = bs.bucket_move(key_s, pay_s, tbl, p, to)
+    kn, cn = _move_loop(key_s, pay_s, runs, p)
+    np.testing.assert_array_equal(kf.numpy(), kn)
+    np.testing.assert_array_equal(_bits(kc.numpy()), _bits(cn))
+
+
+def test_bucket_by_window_matches_jax_with_a_run_past_an_output_block():
+    """A 2048-row chunk of one window (t = 2048 > to = 1024) makes a run
+    that covers two output blocks; 7000 rows are no multiple of ``to``."""
+    rng = np.random.default_rng(11)
+    keys = np.concatenate([np.sort(rng.integers(0, 512, 3000)),
+                           _coherent_keys(rng, 4000) + 512]).astype(np.int32)
+    cols = rng.standard_normal((6, keys.shape[0])).astype(np.float32)
+    kw = dict(t=2048, emax=16)
+    _, _, tbl, stats = bs.bucket_plan(torch.as_tensor(keys),
+                                      torch.as_tensor(cols), **kw)
+    assert int(tbl[:, 2].max()) > 1024 and bs.caps_hold(stats.tolist(), 8, 16)
+    jf, jc, jok = jbs.bucket_by_window(jnp.asarray(keys), jnp.asarray(cols),
+                                       interpret=True, **kw)
+    tf, tc, tok = bs.bucket_by_window(torch.as_tensor(keys),
+                                      torch.as_tensor(cols), **kw)
+    assert bool(jok) and tok is True
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(_bits(tc.numpy()), _bits(jc))
+
+
+def test_bucket_by_window_matches_jax_with_a_block_at_emax():
+    """Keys spread over ~10 windows per 512-row chunk (``rmax`` 16), with
+    ``emax`` the most runs that meet one output block: that block meets
+    exactly ``emax``, the others fewer, and the dead slots fill the rest."""
+    rng = np.random.default_rng(12)
+    keys = np.clip(np.sort(rng.integers(0, 60000, 6000))
+                   + rng.integers(-40, 40, 6000), 0, None).astype(np.int32)
+    cols = rng.standard_normal((6, keys.shape[0])).astype(np.float32)
+    _, _, tbl, stats = bs.bucket_plan(torch.as_tensor(keys),
+                                      torch.as_tensor(cols), rmax=16, emax=64)
+    stats = stats.tolist()
+    emax = stats[1]
+    assert stats[0] <= 16 and emax > 8
+    kw = dict(rmax=16, emax=emax)
+    _, _, tbl, _ = bs.bucket_plan(torch.as_tensor(keys),
+                                  torch.as_tensor(cols), **kw)
+    assert (tbl[:, 0] == bs.DEAD_DST).any()
+    jf, jc, jok = jbs.bucket_by_window(jnp.asarray(keys), jnp.asarray(cols),
+                                       interpret=True, **kw)
+    tf, tc, tok = bs.bucket_by_window(torch.as_tensor(keys),
+                                      torch.as_tensor(cols), **kw)
+    assert bool(jok) and tok is True
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(_bits(tc.numpy()), _bits(jc))
 
 
 # ---- K6a, K6b and the unfused P2G at bound 12 ------------------------------

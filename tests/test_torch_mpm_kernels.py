@@ -28,6 +28,7 @@ from fluidsim_tpu.core import splines as jsp
 from fluidsim_tpu.models import mpm as jmpm
 from fluidsim_tpu.ops import mpm_fast as mf
 from fluidsim_tpu.ops import mpm_pallas as mp
+from fluidsim_tpu.ops import pallas_transfer as pt
 from fluidsim_tpu.ops import smallmat as jsm
 from fluidsim_tpu.ops import svd3 as jsvd3
 from fluidsim_tpu.ops import transfer_pallas as tp
@@ -38,6 +39,7 @@ from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import smallmat as tsm
 from fluidsim_tpu_torch.ops import svd3 as tsvd3
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
+from fluidsim_tpu_torch.utils import synthetic
 
 B, DENSITY = 15, 40.0
 N = 2 * B + 1
@@ -376,3 +378,161 @@ def test_mpm_wrappers_take_the_plain_version_on_cpu_only(state, frame):
         tk.p2g_scatter_force(gradw.to("meta"), m9.to("meta"), cs.to("meta"), N)
     with pytest.raises(ValueError):
         tk.g2p_gather_gw(fm.to("meta"), gradw.to("meta"), tflat.to("meta"))
+
+
+# ---- K1 fg: the chunk plan, the kernel's order and a crowded cell ----------
+
+def _skewed():
+    """``utils/synthetic.skewed_force_state`` at n = 24 with 2,000 particles
+    in one cell."""
+    return synthetic.skewed_force_state(0, 24, 2000)
+
+
+@pytest.mark.parametrize("case", ["skewed", "cone", "empty"])
+def test_force_plan_against_numpy(state, frame, case):
+    """Every occupied cell's range is covered by consecutive chunks in
+    order, each of at most ``FORCE_CHUNK`` particles and all but a cell's
+    last of exactly ``FORCE_CHUNK``; no chunk crosses a cell, and
+    ``chunk_cell`` names it; empty cells have none; the plan holds exactly
+    the chunks, with P and n^3 in the last slot."""
+    chunk = tk.FORCE_CHUNK
+    if case == "skewed":
+        cs = _skewed()[2]
+    elif case == "cone":
+        cs = frame["cs"]
+    else:
+        cs = torch.zeros(N ** 3 + 1, dtype=torch.int32)
+    cs_np = cs.numpy().astype(np.int64)
+    p = int(cs_np[-1])
+    plan = tk.force_plan(cs, p)
+    assert plan.cell_start is cs
+    start = plan.chunk_start.numpy().astype(np.int64)
+    first = plan.chunk_first.numpy().astype(np.int64)
+    counts = np.diff(cs_np)
+    nch = int(start[-1])
+    assert start[0] == 0 and nch == first.size - 1
+    assert first[nch] == p
+    np.testing.assert_array_equal(np.diff(start), -(-counts // chunk))
+    if case == "empty":
+        assert nch == 0
+        return
+    if case == "skewed":
+        assert counts.max() > chunk
+    else:                     # the cone's cells each fit in one chunk
+        assert counts.max() <= chunk and nch == int((counts > 0).sum())
+    length = np.diff(first[:nch + 1])
+    assert first[0] == 0 and (length >= 1).all() and (length <= chunk).all()
+    cell_of = np.repeat(np.arange(counts.size), counts)
+    owner = np.searchsorted(start, np.arange(nch), side="right") - 1
+    np.testing.assert_array_equal(cell_of[first[:nch]], owner)
+    chunk_cell = plan.chunk_cell.numpy()
+    np.testing.assert_array_equal(chunk_cell[:nch], owner)
+    assert chunk_cell[nch] == counts.size
+    np.testing.assert_array_equal(cell_of[first[1:nch + 1] - 1], owner)
+    last = np.zeros(nch, bool)
+    last[start[1:][counts > 0] - 1] = True
+    assert (length[~last] == chunk).all()
+    occ = counts > 0
+    np.testing.assert_array_equal(first[start[:-1][occ]], cs_np[:-1][occ])
+
+
+@pytest.mark.parametrize("case", ["skewed", "cone"])
+def test_force_chunked_order_matches_plain(state, frame, case):
+    """``p2g_scatter_force_chunked``, the CUDA kernel's summation order in
+    PyTorch, against the plain version: within 1e-5 of ``max|plain|`` (f32
+    sums of up to 27 x 2,000 terms in another order)."""
+    if case == "skewed":
+        gradw, m9, cs, _ = _skewed()
+        n = 24
+    else:
+        gradw, cs, n = frame["gradw"], frame["cs"], N
+        m9 = torch.as_tensor(np.random.default_rng(8).normal(
+            size=(gradw.shape[1], 9)).astype(np.float32))
+    plan = tk.force_plan(cs, m9.shape[0])
+    ref = tk.p2g_scatter_force_plain(gradw, m9, cs, n)
+    out = tk.p2g_scatter_force_chunked(gradw, m9, plan, n)
+    scale = float(ref.abs().max())
+    assert out.shape == (3, n, n, n) and scale > 1.0
+    assert float((out - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_force_wrapper_ignores_plan_on_cpu():
+    """On CPU tensors the wrapper runs the plain version whatever plan it
+    is given: here the plan of an empty grid, whose one pull would drop
+    every particle."""
+    gradw, m9, cs, _ = _skewed()
+    wrong = tk.force_plan(torch.zeros_like(cs), 0)
+    before = tk.p2g_scatter_force.launches
+    out = tk.p2g_scatter_force(gradw, m9, cs, 24, wrong)
+    np.testing.assert_array_equal(
+        out.numpy(), tk.p2g_scatter_force_plain(gradw, m9, cs, 24).numpy())
+    assert float(out.abs().max()) > 1.0
+    assert tk.p2g_scatter_force.launches == before
+
+
+CB = 6               # the crowded-cell state: a 13^3 grid
+CN = 2 * CB + 1
+
+
+@pytest.fixture(scope="module")
+def crowded():
+    """2,400 particles in the centre cell and 1,500 over the box, sorted by
+    both packages; FE rides the sort and serves as M."""
+    rng = np.random.default_rng(9)
+    pos = np.concatenate([rng.uniform(-0.49, 0.49, (2400, 3)),
+                          rng.uniform(-CB + 1.5, CB - 1.5, (1500, 3))])
+    pos = pos[rng.permutation(pos.shape[0])].astype(np.float32)
+    p = pos.shape[0]
+    vel = rng.normal(size=(p, 3)).astype(np.float32)
+    fe = rng.normal(size=(p, 3, 3)).astype(np.float32)
+    fp = np.broadcast_to(np.eye(3, dtype=np.float32), (p, 3, 3)).copy()
+    vol = np.ones(p, np.float32)
+    t = mk.sort_mpm(*map(torch.as_tensor, (pos, vel, fe, fp, vol)), CB)
+    w27t, gradw = mk.mpm_stencil(t[0], CB)
+    cs = tk.cell_starts(t[5], CN)
+    assert int((cs[1:] - cs[:-1]).max()) >= 2000
+    return dict(pos=pos, vel=vel, fe=fe, fp=fp, vol=vol, gradw=gradw, cs=cs,
+                m9=t[2].reshape(p, 9).contiguous(), flat=t[5])
+
+
+def _force_float64(gradw, m9, flat, n):
+    """The force of every (particle, offset) in float64, added to the cell
+    ``base + off_o`` where that lies in the box.  (n, n, n, 3)."""
+    g = gradw.numpy().astype(np.float64).T.reshape(-1, 27, 3)
+    m = m9.numpy().astype(np.float64).reshape(-1, 3, 3)
+    u = np.einsum("pck,pok->poc", m, g)
+    f = flat.numpy().astype(np.int64)
+    base = np.stack([f // (n * n), (f // n) % n, f % n], axis=-1)
+    out = np.zeros((n, n, n, 3))
+    for o in range(27):
+        tgt = base + np.array([o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1])
+        ok = ((tgt >= 0) & (tgt < n)).all(axis=-1)
+        np.add.at(out, tuple(tgt[ok].T), u[ok, o])
+    return out
+
+
+@pytest.mark.parametrize("oracle", ["pallas", "float64"])
+def test_force_scatter_plain_on_a_crowded_cell(crowded, oracle):
+    """The plain K1 fg where one cell holds 2,400 particles, against the
+    JAX package's MPM Pallas force scatter in interpret mode (its own sort
+    and gradW rows, as ``mpm_pallas.make_force_fns`` scatters) and against
+    a float64 sum: within 1e-5 of ``max|ref|``."""
+    c = crowded
+    out = tk.p2g_scatter_force_plain(c["gradw"], c["m9"], c["cs"], CN)
+    out = np.moveaxis(out.numpy(), 0, -1)
+    if oracle == "float64":
+        ref = _force_float64(c["gradw"], c["m9"], c["flat"], CN)
+    else:
+        lay = tp.HaloLayout(CN)
+        js = mp.sort_mpm_h(*map(jnp.asarray, (c["pos"], c["vel"], c["fe"],
+                                              c["fp"], c["vol"])), CB, lay)
+        p = c["pos"].shape[0]
+        rows = mp.pack_mpm_rows(js[5], js[0], js[1], CB)
+        rows = rows.at[pt._M0:pt._M0 + 9, :p].set(js[2].reshape(p, 9).T)
+        d4 = pt.scatter_wv_fused(rows, js[5], lay.xr, lay.lwr, CN,
+                                 interpret=True, expand="fg",
+                                 cols=tp.cols_of(rows))
+        ref = np.moveaxis(np.asarray(mp._slice_grid(d4, CN, lay)[:3]), 0, -1)
+    scale = np.abs(ref).max()
+    assert scale > 1.0
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * scale)

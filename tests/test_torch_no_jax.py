@@ -3,7 +3,9 @@ can import neither ``jax`` nor ``fluidsim_tpu``, import
 ``fluidsim_tpu_torch`` and step one frame on CPU, in FLIP and APIC mode
 and of the MPM cone, two FLIP frames on the bucket path, and the
 materialised G2P (``fused_table=False``) and ``ops/shift.py`` after a
-FLIP frame, and the row-layout transfers of ``utils/transfer_parts.py``."""
+FLIP frame, the row-layout transfers of ``utils/transfer_parts.py``, and
+the synthetic K5 and K1 fg inputs of ``utils/synthetic.py`` with the force
+scatter's chunk plan and order."""
 
 import subprocess
 import sys
@@ -59,6 +61,15 @@ elif sys.argv[1] == "rows":
     assert torch.equal(out, tk.g2p_gather(fm, st.w27t, st.flat))
     tparts.sweep_inputs(st)
     m = {"kinetic_energy": acc[0].sum()}
+elif sys.argv[1] == "synthetic":
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import synthetic
+    key_s, pay_s, tbl, _ = synthetic.bucket_tables(0, 6000, 6)
+    kf, _ = bucket_sort.bucket_move(key_s, pay_s, tbl, 6000, 1024)
+    gradw, m9, cs, _ = synthetic.skewed_force_state(0, 12, 300)
+    plan = tk.force_plan(cs, m9.shape[0])
+    out = tk.p2g_scatter_force_chunked(gradw, m9, plan, 12)
+    m = {"kinetic_energy": out.abs().sum() + kf.shape[0]}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -71,7 +82,7 @@ print("ke", float(m["kinetic_energy"]))
 
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
-                                  "flip-table", "rows"])
+                                  "flip-table", "rows", "synthetic"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
