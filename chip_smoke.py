@@ -12,31 +12,39 @@ Phases, each of which raises on failure (nonzero exit):
 2. build the CUDA kernels from ``fluidsim_tpu_torch/csrc`` and time the build;
 3. compare each FLIP kernel (K1 P2G, K2 G2P, K3 Laplacian, K4 Chebyshev
    step) with its plain PyTorch version on the card at the main path's
-   shapes, and time both with CUDA events (median of the runs);
+   shapes, and time both with CUDA events (median of the runs); K1 with
+   its chunk plan given, the plan timed apart (its device work, and the
+   card's idle time after its host read), K1 bit for bit against its
+   summation order in PyTorch (``p2g_scatter_chunked``) and a rerun, a
+   plan of another ``cell_start`` refused, and the plan's chunk lists
+   (``chunk_fill``) against their plain version;
 4. run ``FlipSim`` (FLIP) for warm-up and timed frames: finite energy,
-   particles in the box, the projection's outer tolerance met, and every
+   particles in the box, the projection's outer tolerance met, every
    kernel launched by the timed frames the number of times the frame's CG
-   iterations call for; print ms/frame;
+   iterations call for, and one K1 chunk plan built per frame; print
+   ms/frame;
 5. determinism: the first frames rerun from the same seed give bit-identical
    kinetic energies;
 6. the APIC kernels (K1 aff, K2 moments) against their plain versions at the
-   APIC configuration's shapes, timed as in phase 3;
+   APIC configuration's shapes, timed as in phase 3, K1 aff with the
+   checks of K1 in phase 3 (``p2g_scatter_affine_chunked``);
 7. ``FlipSim(mode="apic")`` at the same size: warm-up and timed frames with
    the checks of phase 4 and the launch counts of all six kernels;
 8. determinism of the APIC frames, as phase 5;
 9. reference: a small scene stepped on the card in FLIP, APIC and PIC mode
    matches the same scene stepped on the CPU, where every kernel wrapper
    runs its plain version (APIC: the affine matrices too);
-10. the MPM kernels (K1 fg, K2 gw) against their plain versions on the
-   sorted state, stress and grid velocity of ``MpmSim("mpm_cone")`` after
-   its 2 warm-up frames, timed as in phase 3; K1 fg also on a skewed
-   synthetic state (``utils/synthetic.skewed_force_state``: 20,000
-   particles in one cell), and on both states bit for bit against its
-   summation order in PyTorch (``p2g_scatter_force_chunked``) and a rerun,
-   with its chunk plan's counts and build time;
+10. the MPM kernels (K1, K1 fg, K2 gw) against their plain versions on
+   the sorted state, stress and grid velocity of ``MpmSim("mpm_cone")``
+   after its 2 warm-up frames, timed as in phase 3, K1 and K1 fg with the
+   checks of K1 in phase 3 (``p2g_scatter_force_chunked``); all three K1
+   modes again on skewed synthetic states
+   (``utils/synthetic.skewed_force_state``, ``skewed_wv_state``: 20,000
+   particles in one cell);
 11. the MPM main path: 10 timed frames with finite energy and deformation
    gradients, particles in the box, det(FP) > 0, every implicit solve
-   converged, and the launch counts of all eight kernels; ms/frame and CG
+   converged, the launch counts of all nine kernels and one K1 chunk plan
+   per frame, shared by the frame's K1 and K1 fg launches; ms/frame and CG
    iterations per frame;
 12. determinism of the MPM frames, as phase 5;
 13. reference: ``mpm_cone`` at bound 15 with the "full" operator and with
@@ -196,36 +204,45 @@ def _require_bitwise(name, a, b, torch):
     print(f"bitwise {name}: equal")
 
 
-def _force_order_checks(name, gradw, m9, cs, n, torch):
-    """K1 fg on one state: its chunk plan, the kernel against its order in
-    PyTorch (``p2g_scatter_force_chunked``) bit for bit, and a rerun bit
-    for bit."""
+def _k1_order_checks(name, launch, chunked, cs, n, p, torch):
+    """A K1 mode on one state: its chunk plan's counts; the plan's device
+    time (the work queued before its host read), and how much longer a
+    launch that builds its own plan takes than one given the plan, less
+    that device time: the card's idle time after the read; the kernels
+    against their order in PyTorch (``chunked(plan)``) and a rerun, bit for
+    bit; a plan of another ``cell_start`` refused.  ``launch(cs, plan)``
+    runs the wrapper.  Returns the plan's times."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
-    p = m9.shape[0]
-    plan = tk.force_plan(cs, p)
-    plan_ms = _cuda_ms(lambda: tk.force_plan(cs, p), torch)
+    plan = tk.chunk_plan(cs, p)
     per_cell = cs[1:] - cs[:-1]
     chunks = plan.chunk_start[1:] - plan.chunk_start[:-1]
     nch = plan.chunk_first.shape[0] - 1
-    print(f"K1 fg plan, {name}: {p} particles in {int((per_cell > 0).sum())} "
-          f"occupied cells (at most {int(per_cell.max())} in one), {nch} "
-          f"chunks of at most {tk.FORCE_CHUNK} ({int((chunks > 1).sum())} "
-          f"cells of several, at most {int(chunks.max())} in one; scratch "
-          f"{81 * 4 * nch / 1e6:.1f} MB); plan build "
-          f"{plan_ms:.4f} ms (once per frame)")
-    out = tk.p2g_scatter_force(gradw, m9, cs, n, plan)
-    _require_bitwise(f"K1 fg == p2g_scatter_force_chunked, {name}", out,
-                     tk.p2g_scatter_force_chunked(gradw, m9, plan, n), torch)
-    _require_bitwise(f"K1 fg rerun, {name}", out,
-                     tk.p2g_scatter_force(gradw, m9, cs, n, plan), torch)
+    nc = launch(cs, plan).shape[0]
+    lists_ms = _cuda_ms(lambda: tk._chunk_lists(cs, p), torch)
+    given_ms = _cuda_ms(lambda: launch(cs, plan), torch)
+    built_ms = _cuda_ms(lambda: launch(cs, None), torch)
+    idle_ms = built_ms - given_ms - lists_ms
+    print(f"{name}: {p} particles in {int((per_cell > 0).sum())} occupied "
+          f"cells (at most {int(per_cell.max())} in one), {nch} chunks of at "
+          f"most {tk.CHUNK} ({int((chunks > 1).sum())} cells of several, at "
+          f"most {int(chunks.max())} in one; scratch "
+          f"{27 * nc * 4 * nch / 1e6:.1f} MB); plan: {lists_ms:.4f} ms of "
+          f"device work before its read; a launch building its plan "
+          f"{built_ms:.4f} ms against {given_ms:.4f} given it, so the card "
+          f"idles {idle_ms:.4f} ms after the read (medians of {_REPS})")
+    out = launch(cs, plan)
+    _require_bitwise(f"{name}: kernels == their order in PyTorch", out,
+                     chunked(plan), torch)
+    _require_bitwise(f"{name}: rerun", out, launch(cs, plan), torch)
     try:
-        tk.p2g_scatter_force(gradw, m9, cs.clone(), n, plan)
+        launch(cs.clone(), plan)
     except ValueError:
-        print(f"K1 fg, {name}: a plan of another cell_start refused")
+        print(f"{name}: a plan of another cell_start refused")
     else:
-        raise AssertionError(f"K1 fg, {name}: took a plan of another "
-                             "cell_start")
+        raise AssertionError(f"{name}: took a plan of another cell_start")
+    return {"plan_ms": lists_ms, "plan_idle_ms": idle_ms,
+            "with_plan_build_ms": built_ms}
 
 
 def _flip_sim(dev, mode="flip", sort_method="full", bound=BOUND,
@@ -248,11 +265,13 @@ def _run_frames(sim, counted, torch):
     ms/frame)."""
     from fluidsim_tpu_torch.ops import bucket_sort as bs
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
     bucket = sim.params.sort_method == "bucket"
     mode = sim.params.mode + ("-bucket" if bucket else "")
     for fn in counted:
         fn.launches = 0
+    tk.chunk_plan.builds = 0
     fallbacks = bs.bucket_or_sort.fallbacks
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -261,7 +280,8 @@ def _run_frames(sim, counted, torch):
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
     fallbacks = bs.bucket_or_sort.fallbacks - fallbacks
-    print(f"{mode}: launches in the timed frames:", json.dumps(launches))
+    print(f"{mode}: launches in the timed frames:", json.dumps(launches),
+          f"K1 chunk plans built: {tk.chunk_plan.builds}")
     if bucket:
         print(f"{mode}: {fallbacks} of {FRAMES} timed frames fell back to "
               "the full sort")
@@ -292,14 +312,18 @@ def _run_frames(sim, counted, torch):
         scatters = {"p2g_scatter_base": FRAMES, "shift_reduce": FRAMES,
                     "bucket_move": FRAMES - fallbacks}
     elif sim.params.mode == "apic":
-        scatters = {"p2g_scatter_affine": FRAMES}
+        scatters = {"p2g_scatter_affine": FRAMES, "chunk_fill": FRAMES}
     else:
-        scatters = {"p2g_scatter": FRAMES}
+        scatters = {"p2g_scatter": FRAMES, "chunk_fill": FRAMES}
     want = {name: 0 for name in launches}
     want.update({gather: FRAMES, **scatters, "apply_laplacian": solves,
                  "cheb_step": (sk.CHEB_DEGREE - 1) * solves})
     if launches != want:
         raise AssertionError(f"{mode}: kernel launches {launches}, expected {want}")
+    # one chunk plan per frame, shared by the frame's K1 launch
+    if tk.chunk_plan.builds != (0 if bucket else FRAMES):
+        raise AssertionError(f"{mode}: {tk.chunk_plan.builds} K1 chunk plans "
+                             f"built in {FRAMES} frames")
     ms = 1e3 * wall_s / FRAMES
     print(f"{mode}: ms/frame {ms:.3f}  steps/s {FRAMES / wall_s:.3f}  "
           f"({FRAMES} frames, host clock, synchronised)")
@@ -364,15 +388,19 @@ def _run_mpm_frames(sim, counted, torch):
     """Step ``FRAMES`` MPM frames with every launch count set to 0 just
     before; check them and their launch counts; return (energies,
     launches)."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
     for fn in counted:
         fn.launches = 0
+    tk.chunk_plan.builds = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames = [sim.step() for _ in range(FRAMES)]
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    print("mpm: launches in the timed frames:", json.dumps(launches))
+    print("mpm: launches in the timed frames:", json.dumps(launches),
+          f"K1 chunk plans built: {tk.chunk_plan.builds}")
 
     ke = [float(f["kinetic_energy"]) for f in frames]
     cg = [f["cg_iters"] for f in frames]
@@ -400,9 +428,13 @@ def _run_mpm_frames(sim, counted, torch):
     want = {name: 0 for name in launches}
     want.update({"p2g_scatter": FRAMES, "g2p_gather": 2 * FRAMES,
                  "p2g_scatter_force": FRAMES + applies,
-                 "g2p_gather_gw": applies + FRAMES})
+                 "g2p_gather_gw": applies + FRAMES, "chunk_fill": FRAMES})
     if launches != want:
         raise AssertionError(f"mpm: kernel launches {launches}, expected {want}")
+    # K1 and every K1 fg launch of a frame share the frame's one plan
+    if tk.chunk_plan.builds != FRAMES:
+        raise AssertionError(f"mpm: {tk.chunk_plan.builds} K1 chunk plans "
+                             f"built in {FRAMES} frames")
     print(f"mpm: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
           f"{FRAMES / wall_s:.3f}  CG iterations/frame {sum(cg) / FRAMES:.1f} "
           f"({FRAMES} frames, host clock, synchronised)")
@@ -821,11 +853,26 @@ def main() -> int:
     w27t = tk.masked_weights_cm(pos_s, B)
     cs = tk.cell_starts(flat, n)
     results = {}
+    # every K1 mode is timed with its chunk plan given, as a frame's launches
+    # share one; the plan's build (once per frame) is timed apart
+    plan = tk.chunk_plan(cs, P)
     results["p2g_scatter"] = _compare(
-        "K1 p2g_scatter", lambda: tk.p2g_scatter(w27t, vel_s, cs, n),
+        "K1 p2g_scatter", lambda: tk.p2g_scatter(w27t, vel_s, cs, n, plan),
         lambda: tk.p2g_scatter_plain(w27t, vel_s, cs, n), 1e-5,
         (w27t, vel_s, cs), 27 * 7 * P, torch)
-    acc = tk.p2g_scatter(w27t, vel_s, cs, n)
+    results["p2g_scatter"].update(_k1_order_checks(
+        "K1, the FLIP state",
+        lambda c, pl: tk.p2g_scatter(w27t, vel_s, c, n, pl),
+        lambda pl: tk.p2g_scatter_chunked(w27t, vel_s, pl, n), cs, n, P,
+        torch))
+    nch = plan.chunk_first.shape[0] - 1
+    results["chunk_fill"] = _compare(
+        "K1 plan chunk_fill",
+        lambda: tuple(t[:nch + 1] for t in tk.chunk_fill(cs, plan.chunk_start,
+                                                         P)),
+        lambda: tuple(t[:nch + 1] for t in tk.chunk_fill_plain(
+            cs, plan.chunk_start, P)), 0.0, (cs, plan.chunk_start), 0, torch)
+    acc = tk.p2g_scatter(w27t, vel_s, cs, n, plan)
     vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
     fm = tk.gather_fields(vc, B, wall)
     results["g2p_gather"] = _compare(
@@ -858,11 +905,12 @@ def main() -> int:
         "K4 cheb_step", lambda: sk.cheb_step(z, adiag, r, d, scale, c1, c2),
         lambda: sk.cheb_step_plain(z, adiag, r, d, scale, c1, c2), 1e-6,
         (z, adiag, r, d), 15 * n ** 3, torch)
-    del acc, vc, fm, vel0, pos_s, vel_s, flat, w27t, cs, z, r, d, adiag
+    del acc, vc, fm, vel0, pos_s, vel_s, flat, w27t, cs, z, r, d, adiag, plan
 
     # ---- 4. the FLIP main path: the two frames above were its warm-up ----
     counted = (tk.p2g_scatter, tk.g2p_gather, tk.p2g_scatter_affine,
                tk.g2p_moments, tk.p2g_scatter_force, tk.g2p_gather_gw,
+               tk.chunk_fill,
                sk.apply_laplacian, sk.cheb_step, bs.bucket_move,
                tk.p2g_scatter_base, tk.shift_reduce, tk.shift_expand,
                tk.g2p_gather_table, tk.g2p_moments_table,
@@ -889,12 +937,18 @@ def main() -> int:
     veff = vel_s + mv3(aff_s.reshape(-1, 3, 3), cround(pos_s) - pos_s)
     w27t = tk.masked_weights_cm(pos_s, B)
     cs = tk.cell_starts(flat, n)
+    plan = tk.chunk_plan(cs, P)
     results["p2g_scatter_affine"] = _compare(
         "K1 aff p2g_scatter_affine",
-        lambda: tk.p2g_scatter_affine(w27t, veff, aff_s, cs, n),
+        lambda: tk.p2g_scatter_affine(w27t, veff, aff_s, cs, n, plan),
         lambda: tk.p2g_scatter_affine_plain(w27t, veff, aff_s, cs, n), 1e-5,
         (w27t, veff, aff_s, cs), 27 * 25 * P, torch)
-    acc = tk.p2g_scatter_affine(w27t, veff, aff_s, cs, n)
+    results["p2g_scatter_affine"].update(_k1_order_checks(
+        "K1 aff, the APIC state",
+        lambda c, pl: tk.p2g_scatter_affine(w27t, veff, aff_s, c, n, pl),
+        lambda pl: tk.p2g_scatter_affine_chunked(w27t, veff, aff_s, pl, n),
+        cs, n, P, torch))
+    acc = tk.p2g_scatter_affine(w27t, veff, aff_s, cs, n, plan)
     vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
     fm = tk.gather_fields(vc, B, wall)
     results["g2p_moments"] = _compare(
@@ -905,7 +959,7 @@ def main() -> int:
     if not (bool(torch.isfinite(vel_a).all()) and bool(torch.isfinite(c_a).all())):
         raise AssertionError("g2p_apic: non-finite velocity or C")
     del acc, vc, fm, vel0, aff0, pos_s, vel_s, flat, aff_s, veff, w27t, cs
-    del vel_a, c_a
+    del vel_a, c_a, plan
 
     # ---- 7. the APIC main path --------------------------------------------
     kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
@@ -945,32 +999,60 @@ def main() -> int:
     print(f"mpm frame 2 state: {int(heavy.sum())} cells above the mass "
           f"threshold, max|M| {float(m9.abs().max()):.4g}, "
           f"max|velg| {float(velg.abs().max()):.4g}")
-    # K1 fg is timed with its chunk plan given, as the frame's force
-    # functions call it; the plan's build (once per frame) is timed apart
-    plan = tk.force_plan(cs, P)
+    plan = tk.chunk_plan(cs, P)
+    cone = _compare(
+        "K1 p2g_scatter (cone state)",
+        lambda: tk.p2g_scatter(w27t, vel_s, cs, n, plan),
+        lambda: tk.p2g_scatter_plain(w27t, vel_s, cs, n), 1e-5,
+        (w27t, vel_s, cs), 27 * 7 * P, torch)
+    cone.update(_k1_order_checks(
+        "K1, the cone state",
+        lambda c, pl: tk.p2g_scatter(w27t, vel_s, c, n, pl),
+        lambda pl: tk.p2g_scatter_chunked(w27t, vel_s, pl, n), cs, n, P,
+        torch))
+    results["p2g_scatter"]["mpm_cone"] = cone
     results["p2g_scatter_force"] = _compare(
         "K1 fg p2g_scatter_force",
         lambda: tk.p2g_scatter_force(gradw, m9, cs, n, plan),
         lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
         (gradw, m9, cs), 27 * 18 * P, torch)
-    _force_order_checks("the frame-2 state", gradw, m9, cs, n, torch)
-    # a skewed state past the cone's: 20,000 particles in one cell, cells of
+    results["p2g_scatter_force"].update(_k1_order_checks(
+        "K1 fg, the cone state",
+        lambda c, pl: tk.p2g_scatter_force(gradw, m9, c, n, pl),
+        lambda pl: tk.p2g_scatter_force_chunked(gradw, m9, pl, n), cs, n, P,
+        torch))
+    # skewed states past the cone's: 20,000 particles in one cell, cells of
     # exactly one chunk and one more, occupied faces, empty neighbourhoods
     gs, ms, css, _ = synthetic.skewed_force_state(
         SEED, n, 20_000, band=0.15, device=dev)
-    plan_s = tk.force_plan(css, ms.shape[0])
-    _compare("K1 fg p2g_scatter_force (skewed state)",
-             lambda: tk.p2g_scatter_force(gs, ms, css, n, plan_s),
-             lambda: tk.p2g_scatter_force_plain(gs, ms, css, n), 1e-5,
-             (gs, ms, css), 27 * 18 * ms.shape[0], torch)
-    _force_order_checks("the skewed state", gs, ms, css, n, torch)
-    del gs, ms, css, plan_s
+    ws, vs, afs, csw, _ = synthetic.skewed_wv_state(
+        SEED, n, 20_000, band=0.15, device=dev)
+    ps = ms.shape[0]
+    modes = (
+        ("K1 p2g_scatter", csw, (ws, vs), 27 * 7,
+         tk.p2g_scatter, tk.p2g_scatter_plain, tk.p2g_scatter_chunked),
+        ("K1 aff p2g_scatter_affine", csw, (ws, vs, afs), 27 * 25,
+         tk.p2g_scatter_affine, tk.p2g_scatter_affine_plain,
+         tk.p2g_scatter_affine_chunked),
+        ("K1 fg p2g_scatter_force", css, (gs, ms), 27 * 18,
+         tk.p2g_scatter_force, tk.p2g_scatter_force_plain,
+         tk.p2g_scatter_force_chunked))
+    for name, c0, args, ops, fn, plain, chunked in modes:
+        pl0 = tk.chunk_plan(c0, ps)
+        _compare(f"{name} (skewed state)", lambda: fn(*args, c0, n, pl0),
+                 lambda: plain(*args, c0, n), 1e-5, args + (c0,), ops * ps,
+                 torch)
+        _k1_order_checks(
+            f"{name.split(' p2g')[0]}, the skewed state",
+            lambda c, pl: fn(*args, c, n, pl),
+            lambda pl: chunked(*args, pl, n), c0, n, ps, torch)
+    del gs, ms, css, ws, vs, afs, csw, pl0, modes
     fm = torch.where(~sim.solid[None], velg, 0.0)
     results["g2p_gather_gw"] = _compare(
         "K2 gw g2p_gather_gw", lambda: tk.g2p_gather_gw(fm, gradw, flat),
         lambda: tk.g2p_gather_gw_plain(fm, gradw, flat), 1e-5,
         (fm, gradw, flat), 27 * 18 * P, torch)
-    del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, plan
+    del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, plan, cone
     del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
@@ -1096,6 +1178,9 @@ def main() -> int:
                         apic_launches),
         "p2g_scatter_force": ("transfer.cu", "pallas_transfer.py:1064",
                               mpm_launches),
+        # K1's chunk plan (one per FLIP, PIC, APIC and MPM frame)
+        "chunk_fill": ("transfer.cu", "pallas_transfer.py:1064",
+                       flip_launches),
         "g2p_gather_gw": ("transfer.cu", "pallas_transfer.py:1339",
                           mpm_launches),
         "bucket_move": ("bucket.cu", "bucket_sort.py:168", bucket_launches),

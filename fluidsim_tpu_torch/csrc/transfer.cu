@@ -1,6 +1,6 @@
 // Particle <-> grid transfer kernels of the FLIP, PIC, APIC and MPM frames
-// (K1, K2 and their APIC and MPM modes) and of the unfused transfers (K6a,
-// K7a), for Hopper (sm_90a), with a plain
+// (K1, K2 and their APIC and MPM modes: K1 aff, K1 fg, K2 moments, K2 gw)
+// and of the unfused transfers (K6a, K7a), for Hopper (sm_90a), with a plain
 // C interface bound through ctypes (fluidsim_tpu_torch/ops/transfer_kernels.py).
 //
 // All take particles sorted by the flat id (x*n + y)*n + z of their
@@ -8,21 +8,57 @@
 // w27t (27, P) f32, zero for particles whose base cell is outside the box.
 // Offset o is (o/9 - 1, (o/3)%3 - 1, o%3 - 1).
 //
-// K1 fs_p2g_scatter replaces fluidsim_tpu/ops/pallas_transfer.py:
-//   scatter_wv_fused (_scatter_wv_fused_kernel), expand='wv'.
-//   out[g, c] = sum_o sum_{p : base(p) = c - off_o} w27t[o, p] * [1, v_p][g]
-//   for g = weight, mx, my, mz; contributions to cells outside the box are
-//   dropped.  Output (4, n, n, n) f32.
-//   Bound on the H100: memory.  It reads w27t once (27*4 = 108 B/particle),
-//   the velocities 27 times (mostly from L1/L2: the 27 neighbour cells of a
-//   thread block's cells share their particle ranges) and writes 16 B/cell;
-//   at 129^3 / 2M particles that is ~0.25 GB of compulsory traffic.
-//   Design: a deterministic PULL with no atomics.  One thread per target
-//   cell walks its 27 source cells in offset order and each source cell's
-//   particle range [cell_start[b], cell_start[b+1]) in sorted order, so the
-//   sum order is fixed and frames are bit-reproducible run to run.  Threads
-//   of a block are consecutive z-cells, whose source ranges are adjacent in
-//   the sorted arrays, so the loads of a warp fall on neighbouring lines.
+// K1 fs_p2g_scatter, fs_p2g_scatter_affine and fs_p2g_scatter_force replace
+//   fluidsim_tpu/ops/pallas_transfer.py:1064 scatter_wv_fused
+//   (_scatter_wv_fused_kernel) in its three modes, the 27-offset scatter
+//     out[c, cell] = sum_o sum_{p : base(p) = cell - off_o} u(p, o)[c]
+//   of nc channels per offset, contributions to cells outside the box
+//   dropped.  Output (nc, n, n, n) f32.  The modes differ in u:
+//     wv  (expand='wv', FLIP, PIC and the MPM mass and momentum), nc = 4:
+//         u(p, o) = w27t[o, p] * [1, v_p];
+//     aff (the APIC affine block, pack_cols(aff=...), _wv_mats_cm), nc = 4:
+//         u(p, o) = w27t[o, p] * [1, veff_p + C_p off_o], the velocity
+//         veff_i + C[i,0]*off_0 + C[i,1]*off_1 + C[i,2]*off_2 summed in that
+//         order, with veff = v + C (base - pos) formed by ops/apic.py and C
+//         (P, 9) row-major;
+//     fg  (expand='fg', _fg_expand_cm, the MPM grid force), nc = 3:
+//         u(p, o)[c] = M[p,c,0]*gW[p,o,0] + M[p,c,1]*gW[p,o,1]
+//                      + M[p,c,2]*gW[p,o,2], the k-sum in that order, with
+//         M = -V sigma (P, 9) row-major and gradW (81, P), row 3o + k.
+//   Bound on the H100: memory.  Compulsory traffic, each input read once
+//   and the output written once: per particle w27t 108 B and v 12 B (wv),
+//   + C 36 B (aff), or gradW 324 B and M 36 B (fg); per cell cell_start
+//   4 B and 4 nc B of output.  wv: 281.5 MB at 129^3 / 1,987,675 particles
+//   (0.084 ms at 3.35 TB/s), 97.8 MB on the 127^3 MPM cone (473,798
+//   particles, 0.029 ms); aff: 353.0 MB at 129^3 (0.105 ms); fg: 203.3 MB
+//   on the cone (0.061 ms).  What holds a pull over the source cells back
+//   is not bytes: a thread per target cell walking its 27 source ranges one
+//   particle at a time is unbalanced (the snow cone piles hundreds of
+//   particles into a cell), its warp reads 32 scattered runs at once, and
+//   the affine mode would read each particle's C on each of its 27 visits.
+//   Design: a deterministic chunked pull, no float atomics, so frames are
+//   bit-reproducible run to run.  A plan built once per frame
+//   (transfer_kernels.chunk_plan; chunk_fill_kernel writes its lists) cuts
+//   every occupied cell's particle range into chunks of at most CHUNK
+//   particles, listed in (cell, chunk) order: chunk_first[k] is chunk k's
+//   first particle, chunk_cell[k] its cell, chunk_start[b] cell b's first
+//   chunk (chunk_start[n^3] the number of chunks).
+//   Stage A (chunk_sums_kernel<Values>): one warp per chunk stages kTile
+//   particles at a time in shared memory (the 27 w27t or 81 gradW rows read
+//   coalesced along p; v, veff and C, or M once per particle) and lane
+//   o < 27 sums the chunk's nc values of offset o in particle order:
+//   sums[k, nc*o + c].  A crowded cell becomes many chunks on many warps.
+//   chunk_combine_kernel<nc> then adds the chunks of each cell of several
+//   chunks in chunk order into its first chunk's row (a thread per chunk
+//   and offset): one 27*nc-float record per occupied cell.
+//   Stage B (chunk_pull_kernel<nc>): one thread per target cell adds, for
+//   each offset o in order 0..26, the record of source cell cell - off_o
+//   (sources outside the box or without particles dropped).  Its reads do
+//   not depend on one another, and a target with an empty neighbourhood
+//   stops after 18 reads of chunk_start.
+//   transfer_kernels.p2g_scatter_chunked, p2g_scatter_affine_chunked and
+//   p2g_scatter_force_chunked are this order written in PyTorch; the
+//   kernels equal them bit for bit.
 //
 // K2 fs_g2p_gather replaces fluidsim_tpu/ops/pallas_transfer.py:
 //   gather_wv_fused (_gather_wv_fused_kernel), nout=8 (rows 0-3 live).
@@ -35,15 +71,6 @@
 //   Design: one thread per particle; consecutive threads are consecutive
 //   sorted particles, so the weight reads and output writes are coalesced.
 //
-// K1 aff fs_p2g_scatter_affine replaces the same TPU kernel with the APIC
-//   affine block live (pack_cols(aff=...), _wv_mats_cm):
-//   the velocity of offset o is veff_p + C_p off_o, i.e.
-//   veff_i + C[i,0]*off_0 + C[i,1]*off_1 + C[i,2]*off_2 summed in that order,
-//   with veff = v + C (base - pos) formed by the caller (ops/apic.py).
-//   Bound on the H100: memory.  Compulsory traffic adds C (36 B/particle)
-//   to K1's; at 129^3 / 2M particles ~353 MB.  Design: K1's pull with a
-//   template flag, so the FLIP instantiation is the same code as before.
-//
 // K2 moments fs_g2p_moments replaces the same TPU gather with nout=24
 //   (_contract_mat): the 22 live rows, from wf = w27t[o,p] * fm[:, base+off_o]
 //     row 0 den = sum wf3, rows 1-3 sum wf_c, rows 4-6 sum wf3 off_k,
@@ -54,42 +81,6 @@
 //   at 129^3 / 2M particles.  Design: K2's thread per particle with 22
 //   register accumulators; the offsets are compile-time constants in
 //   {-1, 0, 1}, so every product by an offset is exact.
-//
-// K1 fg fs_p2g_scatter_force replaces the same TPU scatter with
-//   expand='fg' (_fg_expand_cm): the MPM grid force
-//   out[c, cell] = sum_o sum_{p : base(p) = cell - off_o}
-//                  (M[p,c,0]*gW[p,o,0] + M[p,c,1]*gW[p,o,1] + M[p,c,2]*gW[p,o,2])
-//   for c = 0..2, the k-sum in that order, with M = -V sigma (P, 9)
-//   row-major and gradW (81, P) with row 3o+k; contributions to cells
-//   outside the box are dropped.  Output (3, n, n, n) f32.
-//   Bound on the H100: memory.  Compulsory traffic is gradW (324 B), M
-//   (36 B) per particle, cell_start and 12 B/cell out; at 127^3 / 473,798
-//   particles ~203 MB.  What holds a pull over the source cells back is
-//   load imbalance, not bytes: the snow cone piles ~11,000 particles into
-//   one cell, and a thread per target cell would walk them one by one for
-//   each of that cell's 27 neighbours.
-//   Design: a deterministic chunked pull, no float atomics, so the MPM
-//   frame stays bit-reproducible.  A plan built once per frame
-//   (transfer_kernels.force_plan) cuts every occupied cell's particle
-//   range into chunks of at most FORCE_CHUNK particles, listed in (cell,
-//   chunk) order: chunk_first[k] is chunk k's first particle, chunk_cell[k]
-//   its cell, chunk_start[b] cell b's first chunk (chunk_start[n^3] the
-//   number of chunks).
-//   Stage A (force_chunk_sums_kernel): one warp per chunk stages kTile
-//   particles at a time in shared memory (the 81 gradW rows read coalesced
-//   along p, M once) and lane o < 27 sums the chunk's 3 values of offset o
-//   in particle order: sums[k, 3o + c] = sum_p (M[p,c,0] gW[p,o,0] +
-//   M[p,c,1] gW[p,o,1]) + M[p,c,2] gW[p,o,2].  A crowded cell becomes many
-//   chunks on many warps.  force_combine_kernel then adds the chunks of
-//   each cell of several chunks in chunk order into its first chunk's row:
-//   one 81-float record per occupied cell.
-//   Stage B (force_pull_kernel): one thread per target cell adds, for each
-//   offset o in order 0..26, the record of source cell cell - off_o
-//   (sources outside the box or without particles dropped).  Its reads do
-//   not depend on one another, and a target with an empty neighbourhood
-//   stops after 18 reads of chunk_start.
-//   transfer_kernels.p2g_scatter_force_chunked is this order written in
-//   PyTorch; the kernel equals it bit for bit.
 //
 // K2 gw fs_g2p_gather_gw replaces the same TPU gather with contract='gw',
 //   nout=16: out[3c+k, p] = sum_o gW[p,o,k] * fm[c, base(p) + off_o] for
@@ -145,54 +136,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-template <bool kAffine>
-__global__ void p2g_scatter_kernel(const float* __restrict__ w27t,
-                                   const float* __restrict__ vel,
-                                   const float* __restrict__ aff,
-                                   const int* __restrict__ cell_start,
-                                   float* __restrict__ out, int n,
-                                   long long np) {
-  const long long ncell = (long long)n * n * n;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncell) return;
-  const int x = (int)(c / ((long long)n * n));
-  const int y = (int)((c / n) % n);
-  const int z = (int)(c % n);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  for (int o = 0; o < 27; ++o) {
-    const int ox = o / 9 - 1, oy = (o / 3) % 3 - 1, oz = o % 3 - 1;
-    const int bx = x - ox;
-    const int by = y - oy;
-    const int bz = z - oz;
-    if (bx < 0 || bx >= n || by < 0 || by >= n || bz < 0 || bz >= n) continue;
-    const long long b = ((long long)bx * n + by) * n + bz;
-    const int s = cell_start[b];
-    const int e = cell_start[b + 1];
-    const float* wo = w27t + (long long)o * np;
-    const float fx = (float)ox, fy = (float)oy, fz = (float)oz;
-    for (int p = s; p < e; ++p) {
-      const float w = wo[p];
-      float v0 = vel[3LL * p];
-      float v1 = vel[3LL * p + 1];
-      float v2 = vel[3LL * p + 2];
-      if (kAffine) {
-        const float* cp = aff + 9LL * p;
-        v0 = v0 + cp[0] * fx + cp[1] * fy + cp[2] * fz;
-        v1 = v1 + cp[3] * fx + cp[4] * fy + cp[5] * fz;
-        v2 = v2 + cp[6] * fx + cp[7] * fy + cp[8] * fz;
-      }
-      a0 += w;
-      a1 += w * v0;
-      a2 += w * v1;
-      a3 += w * v2;
-    }
-  }
-  out[c] = a0;
-  out[ncell + c] = a1;
-  out[2 * ncell + c] = a2;
-  out[3 * ncell + c] = a3;
-}
 
 constexpr int kMoments = 22;
 
@@ -304,88 +247,191 @@ __global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
   out[3 * np + p] = s3;
 }
 
-constexpr int kTile = 32;           // particles a warp stages at a time
-constexpr int kPitch = kTile + 1;   // the 27 lanes' gradW rows in distinct banks
-constexpr int kChunkWarpsPerSm = 16;
+// ---- K1: the chunked pull of every mode --------------------------------
 
-// Stage A: sums[k, 3o + c] over chunk k's particles, in particle order.
-__global__ void __launch_bounds__(32, kChunkWarpsPerSm)
-    force_chunk_sums_kernel(const float* __restrict__ gradw,
-                            const float* __restrict__ m9,
-                            const int* __restrict__ chunk_first,
-                            int nch, float* __restrict__ sums,
-                            long long np) {
-  __shared__ float g[81 * kPitch];
-  __shared__ float4 m[3 * kTile];   // row c of M as (M[c,0], M[c,1], M[c,2], 0)
+constexpr int kTile = 32;           // particles a warp stages at a time
+constexpr int kPitch = kTile + 1;   // the 27 lanes' rows in distinct banks
+
+// The per-(particle, offset) values u(p, o) of the K1 modes.  stage() copies
+// particle p into slot `slot` of the warp's shared tile (the row-major rows
+// read along p, the per-particle vectors once); add() adds offset o's nc
+// values of the tile's particle j into a[].
+struct WvValues {
+  static constexpr int kNc = 4;
+  static constexpr int kWarpsPerSm = 32;
+  struct Tile {
+    float w[27 * kPitch];
+    float4 v[kTile];              // (v0, v1, v2, 0)
+  };
+  const float* w27t;
+  const float* vel;
+  __device__ __forceinline__ void stage(Tile& t, long long p, int slot,
+                                        long long np) const {
+#pragma unroll 27
+    for (int r = 0; r < 27; ++r) t.w[r * kPitch + slot] = w27t[r * np + p];
+    const float* vp = vel + 3 * p;
+    t.v[slot] = make_float4(vp[0], vp[1], vp[2], 0.f);
+  }
+  __device__ __forceinline__ void add(const Tile& t, int o, int j,
+                                      float a[4]) const {
+    const float w = t.w[o * kPitch + j];
+    const float4 v = t.v[j];
+    a[0] += w;
+    a[1] += w * v.x;
+    a[2] += w * v.y;
+    a[3] += w * v.z;
+  }
+};
+
+struct AffValues {
+  static constexpr int kNc = 4;
+  static constexpr int kWarpsPerSm = 32;
+  struct Tile {
+    float w[27 * kPitch];
+    float4 v[kTile];              // veff
+    float4 c[3 * kTile];          // row i of C as (C[i,0], C[i,1], C[i,2], 0)
+  };
+  const float* w27t;
+  const float* veff;
+  const float* aff;
+  __device__ __forceinline__ void stage(Tile& t, long long p, int slot,
+                                        long long np) const {
+#pragma unroll 27
+    for (int r = 0; r < 27; ++r) t.w[r * kPitch + slot] = w27t[r * np + p];
+    const float* vp = veff + 3 * p;
+    t.v[slot] = make_float4(vp[0], vp[1], vp[2], 0.f);
+    const float* cp = aff + 9 * p;
+    t.c[3 * slot] = make_float4(cp[0], cp[1], cp[2], 0.f);
+    t.c[3 * slot + 1] = make_float4(cp[3], cp[4], cp[5], 0.f);
+    t.c[3 * slot + 2] = make_float4(cp[6], cp[7], cp[8], 0.f);
+  }
+  __device__ __forceinline__ void add(const Tile& t, int o, int j,
+                                      float a[4]) const {
+    const float fx = (float)(o / 9 - 1);
+    const float fy = (float)((o / 3) % 3 - 1);
+    const float fz = (float)(o % 3 - 1);
+    const float w = t.w[o * kPitch + j];
+    const float4 v = t.v[j];
+    const float4 c0 = t.c[3 * j], c1 = t.c[3 * j + 1], c2 = t.c[3 * j + 2];
+    a[0] += w;
+    a[1] += w * (v.x + c0.x * fx + c0.y * fy + c0.z * fz);
+    a[2] += w * (v.y + c1.x * fx + c1.y * fy + c1.z * fz);
+    a[3] += w * (v.z + c2.x * fx + c2.y * fy + c2.z * fz);
+  }
+};
+
+struct ForceValues {
+  static constexpr int kNc = 3;
+  static constexpr int kWarpsPerSm = 16;
+  struct Tile {
+    float g[81 * kPitch];
+    float4 m[3 * kTile];          // row c of M as (M[c,0], M[c,1], M[c,2], 0)
+  };
+  const float* gradw;
+  const float* m9;
+  __device__ __forceinline__ void stage(Tile& t, long long p, int slot,
+                                        long long np) const {
+#pragma unroll 27
+    for (int r = 0; r < 81; ++r) t.g[r * kPitch + slot] = gradw[r * np + p];
+    const float* mp = m9 + 9 * p;
+    t.m[3 * slot] = make_float4(mp[0], mp[1], mp[2], 0.f);
+    t.m[3 * slot + 1] = make_float4(mp[3], mp[4], mp[5], 0.f);
+    t.m[3 * slot + 2] = make_float4(mp[6], mp[7], mp[8], 0.f);
+  }
+  __device__ __forceinline__ void add(const Tile& t, int o, int j,
+                                      float a[3]) const {
+    const float* g0 = t.g + 3 * o * kPitch;
+    const float gx = g0[j], gy = g0[kPitch + j], gz = g0[2 * kPitch + j];
+    const float4 r0 = t.m[3 * j], r1 = t.m[3 * j + 1], r2 = t.m[3 * j + 2];
+    a[0] += r0.x * gx + r0.y * gy + r0.z * gz;
+    a[1] += r1.x * gx + r1.y * gy + r1.z * gz;
+    a[2] += r2.x * gx + r2.y * gy + r2.z * gz;
+  }
+};
+
+// The nc floats of one offset in a row of chunk sums or records (27 * nc
+// floats a row; for nc = 4 every offset's group is 16-byte aligned).
+template <int kNc>
+__device__ __forceinline__ void load_group(const float* s, float a[kNc]) {
+  if constexpr (kNc == 4) {
+    const float4 r = *reinterpret_cast<const float4*>(s);
+    a[0] = r.x;
+    a[1] = r.y;
+    a[2] = r.z;
+    a[3] = r.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kNc; ++c) a[c] = s[c];
+  }
+}
+
+template <int kNc>
+__device__ __forceinline__ void store_group(float* s, const float a[kNc]) {
+  if constexpr (kNc == 4) {
+    *reinterpret_cast<float4*>(s) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kNc; ++c) s[c] = a[c];
+  }
+}
+
+// Stage A: sums[k, nc*o + c] over chunk k's particles, in particle order.
+template <class V>
+__global__ void __launch_bounds__(32, V::kWarpsPerSm)
+    chunk_sums_kernel(V vals, const int* __restrict__ chunk_first, int nch,
+                      float* __restrict__ sums, long long np) {
+  constexpr int kNc = V::kNc;
+  __shared__ typename V::Tile tile;
   const int lane = threadIdx.x;
   for (int k = blockIdx.x; k < nch; k += gridDim.x) {
     const int p0 = chunk_first[k], p1 = chunk_first[k + 1];
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+    float a[kNc];
+#pragma unroll
+    for (int c = 0; c < kNc; ++c) a[c] = 0.f;
     for (int t0 = p0; t0 < p1; t0 += kTile) {
       const int len = min(kTile, p1 - t0);
       __syncwarp();
-      if (lane < len) {
-        const long long p = t0 + lane;
-#pragma unroll 27
-        for (int r = 0; r < 81; ++r) g[r * kPitch + lane] = gradw[r * np + p];
-        const float* mp = m9 + 9 * p;
-        m[3 * lane] = make_float4(mp[0], mp[1], mp[2], 0.f);
-        m[3 * lane + 1] = make_float4(mp[3], mp[4], mp[5], 0.f);
-        m[3 * lane + 2] = make_float4(mp[6], mp[7], mp[8], 0.f);
-      }
+      if (lane < len) vals.stage(tile, t0 + lane, lane, np);
       __syncwarp();
-      if (lane < 27) {
-        const float* g0 = g + 3 * lane * kPitch;
-        const float* g1 = g0 + kPitch;
-        const float* g2 = g1 + kPitch;
-        for (int j = 0; j < len; ++j) {
-          const float gx = g0[j], gy = g1[j], gz = g2[j];
-          const float4 r0 = m[3 * j], r1 = m[3 * j + 1], r2 = m[3 * j + 2];
-          a0 += r0.x * gx + r0.y * gy + r0.z * gz;
-          a1 += r1.x * gx + r1.y * gy + r1.z * gz;
-          a2 += r2.x * gx + r2.y * gy + r2.z * gz;
-        }
-      }
+      if (lane < 27)
+        for (int j = 0; j < len; ++j) vals.add(tile, lane, j, a);
     }
-    if (lane < 27) {
-      float* s = sums + 81LL * k + 3 * lane;
-      s[0] = a0;
-      s[1] = a1;
-      s[2] = a2;
-    }
+    if (lane < 27) store_group<kNc>(sums + 27LL * kNc * k + kNc * lane, a);
   }
 }
 
 // Stage A's second kernel: the record of a cell of several chunks, the sum
-// of its chunks' sums in chunk order, into its first chunk's row.
-__global__ void force_combine_kernel(float* __restrict__ sums,
+// of its chunks' sums in chunk order, into its first chunk's row.  One
+// thread per (chunk, offset): those of a cell's first chunk sum their
+// offset's group, the rest only test their chunk.
+template <int kNc>
+__global__ void chunk_combine_kernel(float* __restrict__ sums,
                                      const int* __restrict__ chunk_cell,
                                      const int* __restrict__ chunk_start,
                                      int nch) {
-  const int lane = threadIdx.x;
-  for (int k = blockIdx.x; k < nch; k += gridDim.x) {
-    const int b = chunk_cell[k];
-    const int k1 = chunk_start[b + 1];
-    if (chunk_start[b] != k || k1 - k < 2 || lane >= 27) continue;
-    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
-#pragma unroll 8
-    for (int q = k; q < k1; ++q) {
-      const float* s = sums + 81LL * q + 3 * lane;
-      t0 += s[0];
-      t1 += s[1];
-      t2 += s[2];
-    }
-    float* s = sums + 81LL * k + 3 * lane;
-    s[0] = t0;
-    s[1] = t1;
-    s[2] = t2;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 27LL * nch) return;
+  const int k = (int)(i / 27), o = (int)(i - 27LL * k);
+  const int b = chunk_cell[k];
+  const int k1 = chunk_start[b + 1];
+  if (chunk_start[b] != k || k1 - k < 2) return;
+  float t[kNc], g[kNc];
+#pragma unroll
+  for (int c = 0; c < kNc; ++c) t[c] = 0.f;
+#pragma unroll 4
+  for (int q = k; q < k1; ++q) {
+    load_group<kNc>(sums + 27LL * kNc * q + kNc * o, g);
+#pragma unroll
+    for (int c = 0; c < kNc; ++c) t[c] += g[c];
   }
+  store_group<kNc>(sums + 27LL * kNc * k + kNc * o, t);
 }
 
 // Stage B: one thread per target cell adds the records of its source cells
 // in offset order; a target whose 27 sources hold no chunk writes zeros
 // after 18 reads of chunk_start.  n^3 < 2^31 (checked by the caller).
-__global__ void force_pull_kernel(const float* __restrict__ rec,
+template <int kNc>
+__global__ void chunk_pull_kernel(const float* __restrict__ rec,
                                   const int* __restrict__ chunk_start,
                                   float* __restrict__ out, int n) {
   const int ncell = n * n * n;
@@ -405,7 +451,9 @@ __global__ void force_pull_kernel(const float* __restrict__ rec,
       any |= __ldg(chunk_start + row + zend) > __ldg(chunk_start + row + zlo);
     }
   }
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  float a[kNc], g[kNc];
+#pragma unroll
+  for (int ch = 0; ch < kNc; ++ch) a[ch] = 0.f;
   if (any) {
 #pragma unroll
     for (int o = 0; o < 27; ++o) {
@@ -416,16 +464,63 @@ __global__ void force_pull_kernel(const float* __restrict__ rec,
       const int b = (bx * n + by) * n + bz;
       const int k0 = __ldg(chunk_start + b);
       if (__ldg(chunk_start + b + 1) > k0) {
-        const float* s = rec + 81LL * k0 + 3 * o;
-        a0 += __ldg(s);
-        a1 += __ldg(s + 1);
-        a2 += __ldg(s + 2);
+        load_group<kNc>(rec + 27LL * kNc * k0 + kNc * o, g);
+#pragma unroll
+        for (int ch = 0; ch < kNc; ++ch) a[ch] += g[ch];
       }
     }
   }
-  out[c] = a0;
-  out[ncell + c] = a1;
-  out[2 * ncell + c] = a2;
+#pragma unroll
+  for (int ch = 0; ch < kNc; ++ch) out[(long long)ch * ncell + c] = a[ch];
+}
+
+// The plan's chunk lists: thread b writes the chunks of cell b, and the
+// last cell's thread the closing entry (P, n^3) at chunk_start[n^3].
+__global__ void chunk_fill_kernel(const int* __restrict__ cell_start,
+                                  const int* __restrict__ chunk_start,
+                                  int* __restrict__ chunk_first,
+                                  int* __restrict__ chunk_cell, int ncell,
+                                  int chunk) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= ncell) return;
+  const int e = cell_start[b + 1];
+  int k = chunk_start[b];
+  for (int q = cell_start[b]; q < e; q += chunk, ++k) {
+    chunk_first[k] = q;
+    chunk_cell[k] = b;
+  }
+  if (b == ncell - 1) {
+    chunk_first[k] = e;
+    chunk_cell[k] = ncell;
+  }
+}
+
+// The three kernels of a K1 launch.  sums: (nch, 27 * nc) scratch, nch the
+// plan's chunk count chunk_start[n^3] (chunk_plan reads it once per frame);
+// the warps of stage A stride over the chunks.
+template <class V>
+int chunked_scatter(V vals, const int* chunk_first, const int* chunk_cell,
+                    const int* chunk_start, float* sums, float* out, int n,
+                    long long np, int nch, cudaStream_t st) {
+  const long long ncell = (long long)n * n * n;
+  if (nch > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int warps = 2 * V::kWarpsPerSm * sms;
+    const int grid = nch < warps ? nch : warps;
+    chunk_sums_kernel<V><<<grid, 32, 0, st>>>(vals, chunk_first, nch, sums,
+                                              np);
+    const unsigned pairs = (unsigned)((27LL * nch + kThreads - 1) / kThreads);
+    chunk_combine_kernel<V::kNc><<<pairs, kThreads, 0, st>>>(
+        sums, chunk_cell, chunk_start, nch);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
+  chunk_pull_kernel<V::kNc><<<blocks, kThreads, 0, st>>>(sums, chunk_start,
+                                                         out, n);
+  return (int)cudaGetLastError();
 }
 
 __global__ void g2p_gather_gw_kernel(const float* __restrict__ fm,
@@ -556,23 +651,42 @@ __global__ void __launch_bounds__(kWin)
 }  // namespace
 
 extern "C" int fs_p2g_scatter(const float* w27t, const float* vel,
-                              const int* cell_start, float* out, int n,
-                              long long np, void* stream) {
-  const long long ncell = (long long)n * n * n;
-  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  p2g_scatter_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      w27t, vel, nullptr, cell_start, out, n, np);
-  return (int)cudaGetLastError();
+                              const int* chunk_first, const int* chunk_cell,
+                              const int* chunk_start, float* sums, float* out,
+                              int n, long long np, int nch, void* stream) {
+  return chunked_scatter(WvValues{w27t, vel}, chunk_first, chunk_cell,
+                         chunk_start, sums, out, n, np, nch,
+                         (cudaStream_t)stream);
 }
 
 extern "C" int fs_p2g_scatter_affine(const float* w27t, const float* veff,
-                                     const float* aff, const int* cell_start,
-                                     float* out, int n, long long np,
+                                     const float* aff, const int* chunk_first,
+                                     const int* chunk_cell,
+                                     const int* chunk_start, float* sums,
+                                     float* out, int n, long long np, int nch,
                                      void* stream) {
-  const long long ncell = (long long)n * n * n;
+  return chunked_scatter(AffValues{w27t, veff, aff}, chunk_first, chunk_cell,
+                         chunk_start, sums, out, n, np, nch,
+                         (cudaStream_t)stream);
+}
+
+extern "C" int fs_p2g_scatter_force(const float* gradw, const float* m9,
+                                    const int* chunk_first,
+                                    const int* chunk_cell,
+                                    const int* chunk_start, float* sums,
+                                    float* out, int n, long long np, int nch,
+                                    void* stream) {
+  return chunked_scatter(ForceValues{gradw, m9}, chunk_first, chunk_cell,
+                         chunk_start, sums, out, n, np, nch,
+                         (cudaStream_t)stream);
+}
+
+extern "C" int fs_chunk_fill(const int* cell_start, const int* chunk_start,
+                             int* chunk_first, int* chunk_cell, int ncell,
+                             int chunk, void* stream) {
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  p2g_scatter_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      w27t, veff, aff, cell_start, out, n, np);
+  chunk_fill_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      cell_start, chunk_start, chunk_first, chunk_cell, ncell, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -613,35 +727,6 @@ extern "C" int fs_g2p_moments_table(const float* table, const float* w27t,
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       TableColumn{table}, w27t, flat, out, n, np);
-  return (int)cudaGetLastError();
-}
-
-// sums: (nchunk, 81) scratch, nchunk the plan's chunk count chunk_start[n^3]
-// (force_plan reads it once per frame); the warps of stage A stride over
-// the chunks.
-extern "C" int fs_p2g_scatter_force(const float* gradw, const float* m9,
-                                    const int* chunk_first,
-                                    const int* chunk_cell,
-                                    const int* chunk_start, float* sums,
-                                    float* out, int n, long long np,
-                                    int nchunk, void* stream) {
-  const long long ncell = (long long)n * n * n;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (nchunk > 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int warps = 2 * kChunkWarpsPerSm * sms;
-    const int grid = nchunk < warps ? nchunk : warps;
-    force_chunk_sums_kernel<<<grid, 32, 0, st>>>(gradw, m9, chunk_first,
-                                                 nchunk, sums, np);
-    force_combine_kernel<<<grid, 32, 0, st>>>(sums, chunk_cell, chunk_start,
-                                              nchunk);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-  }
-  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  force_pull_kernel<<<blocks, kThreads, 0, st>>>(sums, chunk_start, out, n);
   return (int)cudaGetLastError();
 }
 

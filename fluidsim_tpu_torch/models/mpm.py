@@ -122,7 +122,10 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
         state.pos, state.vel, state.FE, state.FP, state.volume, B)
     w27t, gradw = mk.mpm_stencil(pos, B)
     cell_start = tk.cell_starts(flat, n)
-    mass, mom = mk.p2g_mpm(w27t, vel, cell_start, solid, B)
+    # one chunk plan for the frame's K1 and K1 fg launches (the card's only)
+    plan = (tk.chunk_plan(cell_start, pos.shape[0]) if cell_start.is_cuda
+            else None)
+    mass, mom = mk.p2g_mpm(w27t, vel, cell_start, solid, B, plan)
     heavy = mass > thr
     velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
                        0.0)
@@ -139,7 +142,7 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
     mu, lam = hardening(params.mu0, params.lam0, params.hardening_eps,
                         det3(fp_in), exponent_cap=params.hardening_max)
     fns = mk.make_force_fns(pos, fe_in, volume, mu, lam, gradw, cell_start,
-                            flat, active, solid, B, hessian=hess)
+                            flat, active, solid, B, hessian=hess, plan=plan)
     f0 = fns[0]()
     mass_safe = torch.where(active, mass, 1.0)[None]
     g = torch.tensor(params.gravity, **f32)[:, None, None, None]

@@ -32,11 +32,13 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as void*, sizes as int64)
-    "fs_p2g_scatter": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
-    "fs_p2g_scatter_affine": (_P, _P, _P, _P, _P, ctypes.c_int,
-                              ctypes.c_longlong, _P),
+    "fs_p2g_scatter": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, _P),
+    "fs_p2g_scatter_affine": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_int, _P),
     "fs_p2g_scatter_force": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_int, _P),
+    "fs_chunk_fill": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P),
     "fs_g2p_gather": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "fs_g2p_moments": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
     "fs_g2p_gather_gw": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),

@@ -25,7 +25,8 @@ def p2g_apic(w27t: torch.Tensor, pos_s: torch.Tensor, vel_s: torch.Tensor,
              bound: int, fused_scatter: bool = True):
     """APIC P2G of sorted particles with (P, 3, 3) affine matrices
     ``aff_s``: on ``veff = v + C (base - pos)``, K1 aff over the cell ranges
-    of a full sort, or (``fused_scatter=False``, a window-grouped order) K6a
+    of a full sort (on the card its wrapper builds the frame's one chunk
+    plan), or (``fused_scatter=False``, a window-grouped order) K6a
     with the APIC term and K6b; then the masks of
     ``transfer_kernels.p2g``.  Returns (weights, mom (3,N,N,N), occ)."""
     n = 2 * bound + 1

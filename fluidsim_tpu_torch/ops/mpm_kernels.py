@@ -69,11 +69,13 @@ def _masked(fields: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[None], fields, 0.0)
 
 
-def p2g_mpm(w27t, vel_s, cell_start, solid, bound: int):
+def p2g_mpm(w27t, vel_s, cell_start, solid, bound: int, plan=None):
     """Mass (N,N,N) and channel-major momentum (3,N,N,N) by K1, both masked
-    to non-solid target cells (not the FLIP frame's ``bound - 2`` window)."""
-    accn = _masked(tk.p2g_scatter(w27t, vel_s, cell_start, 2 * bound + 1),
-                   ~solid)
+    to non-solid target cells (not the FLIP frame's ``bound - 2`` window).
+    ``plan``: the frame's ``transfer_kernels.chunk_plan`` of
+    ``cell_start`` (the card's K1 builds one when None)."""
+    accn = _masked(tk.p2g_scatter(w27t, vel_s, cell_start, 2 * bound + 1,
+                                  plan), ~solid)
     return accn[0], accn[1:4]
 
 
@@ -108,7 +110,8 @@ def flip_delta(w27t, flat_s, dvc, bound: int, wall: int):
 
 
 def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
-                   active, solid, bound: int, hessian: str = "full"):
+                   active, solid, bound: int, hessian: str = "full",
+                   plan=None):
     """``(f0, dforce)``: the explicit grid force and its exact
     linearisation, channel-major (3,N,N,N).
 
@@ -120,9 +123,10 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     chain, so no automatic differentiation is involved.  ``hessian`` is
     "full" (the exact corotated differential), "spd" (its Gauss-Newton
     part) or "hybrid", which returns ``(f0, dforce_full, dforce_spd)``.
-    The polar decomposition runs once for all of them, and so, on the
-    card, does the force scatter's chunk plan (``transfer_kernels.
-    force_plan``; the CPU's plain scatter needs none).
+    The polar decomposition runs once for all of them.  ``plan`` is the
+    frame's ``transfer_kernels.chunk_plan`` of ``cell_start``, shared by
+    every force scatter (with None each launch on the card builds its own;
+    the CPU's plain scatter needs none).
     """
     n = 2 * bound + 1
     p = pos_s.shape[0]
@@ -130,7 +134,6 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     p0, dp_full, dp_spd = piola_linearized(FE, mu, lam)
     valid = torch.all(torch.abs(cround(pos_s)) <= bound, dim=-1)
     scale = torch.where(valid, -volume, 0.0)
-    plan = tk.force_plan(cell_start, p) if cell_start.is_cuda else None
 
     def scatter_sigma(sigma):
         m9 = (scale[:, None] * sigma.reshape(p, 9)).contiguous()

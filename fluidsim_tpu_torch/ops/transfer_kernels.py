@@ -27,8 +27,13 @@ gives each cell's particle range.  The (27, P) stencil weights are computed
 once per frame and shared by both directions.  The TPU path's window layout
 (haloed ids, packed columns, one-hot matmuls) is not needed here.
 
+The three K1 modes run one chunked pull: ``chunk_plan`` cuts the cells'
+particle ranges into chunks once per frame (``chunk_fill`` writes its
+lists), and ``p2g_scatter_chunked``, ``p2g_scatter_affine_chunked`` and
+``p2g_scatter_force_chunked`` are the kernels' summation order in PyTorch.
+
 Each kernel wrapper (``p2g_scatter``, ``p2g_scatter_affine``,
-``p2g_scatter_force``, ``p2g_scatter_base``, ``shift_reduce``,
+``p2g_scatter_force``, ``chunk_fill``, ``p2g_scatter_base``, ``shift_reduce``,
 ``shift_expand``, ``g2p_gather``, ``g2p_moments``, ``g2p_gather_gw``,
 ``g2p_gather_table``, ``g2p_moments_table``, ``p2g_scatter_spans``,
 ``g2p_gather_spans``) launches its CUDA kernel of ``csrc/transfer.cu``
@@ -180,6 +185,175 @@ def _scatter27_plain(u: torch.Tensor, cell_start: torch.Tensor,
     return shift_reduce_plain(_base_cell_sums(u, flat, n))
 
 
+# ---- the chunk plan and the chunked pull of every K1 mode -----------------
+
+# Most particles in one chunk of a K1 plan: a crowded cell's range is cut
+# into chunks of at most this many particles, each summed by its own warp.
+CHUNK = 128
+
+
+class ChunkPlan(NamedTuple):
+    """The chunks of a K1 launch (``p2g_scatter``, ``p2g_scatter_affine``,
+    ``p2g_scatter_force``): every occupied cell's particle range cut into
+    chunks of at most ``CHUNK`` particles, listed in (cell, chunk) order.
+    ``cell_start`` is the tensor the plan was built from; ``chunk_start``
+    (n^3 + 1,) int32 is each cell's first chunk, its last entry the number
+    of chunks ``nch``; ``chunk_first`` and ``chunk_cell`` (nch + 1,) int32
+    are each chunk's first particle and its cell, with P and n^3 in their
+    last entry."""
+    cell_start: torch.Tensor
+    chunk_start: torch.Tensor
+    chunk_first: torch.Tensor
+    chunk_cell: torch.Tensor
+
+
+def chunk_fill_plain(cell_start: torch.Tensor, chunk_start: torch.Tensor,
+                     p: int):
+    """Plain PyTorch chunk lists of a plan: ``(chunk_first, chunk_cell)``,
+    (p + 1,) int32 each, entries ``0..nch`` as ``ChunkPlan`` holds them and
+    the rest (P, n^3)."""
+    dev = cell_start.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    ncell = cell_start.shape[0] - 1
+    idx = torch.arange(p, **i32)
+    cell = torch.searchsorted(cell_start, idx, right=True, out_int32=True) - 1
+    r = idx - cell_start[cell]
+    head = r % CHUNK == 0
+    slot = torch.where(head, chunk_start[cell] + r // CHUNK, p).to(torch.int64)
+    chunk_first = torch.full((p + 1,), p, **i32)
+    chunk_first.scatter_(0, slot, torch.where(head, idx, p))
+    chunk_cell = torch.full((p + 1,), ncell, **i32)
+    chunk_cell.scatter_(0, slot, torch.where(head, cell, ncell))
+    return chunk_first, chunk_cell
+
+
+def chunk_fill(cell_start: torch.Tensor, chunk_start: torch.Tensor, p: int):
+    """The chunk lists of a plan, ``(chunk_first, chunk_cell)``: (p + 1,)
+    int32 each, of which entries ``0..nch`` are the plan's (a plan has at
+    most P chunks).  CUDA tensors launch ``fs_chunk_fill``
+    (``csrc/transfer.cu``: one thread per cell writes its chunks), whose
+    entries ``0..nch`` equal ``chunk_fill_plain``'s and the rest are left
+    unwritten; CPU tensors take ``chunk_fill_plain``."""
+    if cell_start.device.type == "cpu":
+        return chunk_fill_plain(cell_start, chunk_start, p)
+    native.require_cuda(cell_start, "chunk_fill")
+    dev = cell_start.device
+    ncell = cell_start.shape[0] - 1
+    native.check_tensor("cell_start", cell_start, torch.int32, (ncell + 1,), dev)
+    native.check_tensor("chunk_start", chunk_start, torch.int32, (ncell + 1,),
+                        dev)
+    chunk_first = torch.empty((p + 1,), dtype=torch.int32, device=dev)
+    chunk_cell = torch.empty((p + 1,), dtype=torch.int32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_chunk_fill(cell_start.data_ptr(), chunk_start.data_ptr(),
+                               chunk_first.data_ptr(), chunk_cell.data_ptr(),
+                               ncell, CHUNK, native.stream_ptr(dev))
+    native.check_launch("chunk_fill", rc)
+    chunk_fill.launches += 1
+    return chunk_first, chunk_cell
+
+
+chunk_fill.launches = 0
+
+
+def _chunk_lists(cell_start: torch.Tensor, p: int):
+    """The device work of ``chunk_plan``, queued with no host read:
+    ``(chunk_start, chunk_first, chunk_cell)``, the lists P + 1 long."""
+    ncell = cell_start.shape[0] - 1
+    counts = cell_start[1:] - cell_start[:-1]
+    chunk_start = torch.zeros((ncell + 1,), dtype=torch.int32,
+                              device=cell_start.device)
+    torch.cumsum((counts + (CHUNK - 1)) // CHUNK, 0, dtype=torch.int32,
+                 out=chunk_start[1:])
+    return (chunk_start,) + chunk_fill(cell_start, chunk_start, p)
+
+
+def chunk_plan(cell_start: torch.Tensor, p: int) -> ChunkPlan:
+    """The ``ChunkPlan`` of the sorted particles that ``cell_start`` (n^3 +
+    1 offsets, the last ``p``) ranges, built on ``cell_start``'s device,
+    once per frame for all of the frame's K1 launches.  All of its device
+    work (``_chunk_lists``) is queued before its one host read, the chunk
+    count (4 bytes), which sizes the lists (views of the P + 1 long ones)
+    and the kernels' scratch.  Counts its builds in ``.builds``."""
+    chunk_start, chunk_first, chunk_cell = _chunk_lists(cell_start, p)
+    nch = int(chunk_start[-1])
+    chunk_plan.builds += 1
+    return ChunkPlan(cell_start, chunk_start, chunk_first[:nch + 1],
+                     chunk_cell[:nch + 1])
+
+
+chunk_plan.builds = 0
+
+
+def _scatter27_chunked(u: torch.Tensor, plan: ChunkPlan,
+                       n: int) -> torch.Tensor:
+    """The K1 modes' CUDA order in PyTorch, over the (P, 27, C) values
+    ``u``: each chunk's sums in particle order from +0, each cell's record
+    the sum of its chunks' in chunk order, then the 27 shifted adds of the
+    records in offset order (``shift_reduce_plain``).  It differs from
+    ``_scatter27_plain`` only in the order of the sums.  Reads the longest
+    chunk and chunk run on the host.  Returns (C, n, n, n)."""
+    p, _, c = u.shape
+    w = 27 * c
+    u = torch.cat([u.reshape(p, w), u.new_zeros((1, w))])    # row p: zeros
+    nch = plan.chunk_first.shape[0] - 1
+    first = plan.chunk_first.to(torch.int64)
+    sums = u.new_zeros((nch, w))
+    for j in range(int((first[1:] - first[:-1]).max()) if nch else 0):
+        row = first[:-1] + j
+        sums = sums + u[torch.where(row < first[1:], row, p)]
+    sums = torch.cat([sums, u.new_zeros((1, w))])            # row nch: zeros
+    start = plan.chunk_start.to(torch.int64)
+    count = start[1:] - start[:-1]
+    rec = u.new_zeros((n ** 3, w))
+    for j in range(int(count.max()) if nch else 0):
+        rec = rec + sums[torch.where(j < count, start[:-1] + j, nch)]
+    return shift_reduce_plain(rec.T.reshape(27, c, n, n, n))
+
+
+def _launch_chunked(name: str, entry: str, values: tuple, nc: int,
+                    cell_start: torch.Tensor, n: int, p: int,
+                    plan: ChunkPlan | None) -> torch.Tensor:
+    """Launch K1 mode ``entry`` of ``csrc/transfer.cu`` on its value inputs
+    ``values`` (checked by the caller) with the chunk lists of ``plan`` and
+    (nch, 27 nc) scratch.  A plan given is checked and refused when built
+    from another tensor than ``cell_start``; with None one is built here,
+    after everything else the launch needs, so that only the scratch and
+    the launch follow its host read.  Returns (nc, n, n, n)."""
+    dev = cell_start.device
+    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
+    if p >= 2 ** 31 or n ** 3 >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2^31 - 1 particles or cells")
+    if plan is not None:
+        if (plan.cell_start.data_ptr() != cell_start.data_ptr()
+                or plan.cell_start.shape != cell_start.shape):
+            raise ValueError(f"{name}: plan was not built from this "
+                             "cell_start")
+        nch = plan.chunk_first.shape[0] - 1
+        native.check_tensor("plan.chunk_start", plan.chunk_start,
+                            torch.int32, (n ** 3 + 1,), dev)
+        for field in ("chunk_first", "chunk_cell"):
+            native.check_tensor(f"plan.{field}", getattr(plan, field),
+                                torch.int32, (nch + 1,), dev)
+    out = torch.empty((nc, n, n, n), dtype=torch.float32, device=dev)
+    launch = getattr(native.library(), entry)
+    args = [t.data_ptr() for t in values]
+    with torch.cuda.device(dev):
+        stream = native.stream_ptr(dev)
+        if plan is None:
+            plan = chunk_plan(cell_start, p)
+        nch = plan.chunk_first.shape[0] - 1
+        sums = torch.empty((nch, 27 * nc), dtype=torch.float32, device=dev)
+        rc = launch(*args, plan.chunk_first.data_ptr(),
+                    plan.chunk_cell.data_ptr(), plan.chunk_start.data_ptr(),
+                    sums.data_ptr(), out.data_ptr(), n, p, nch, stream)
+    native.check_launch(name, rc)
+    return out
+
+
+# ---- K1: FLIP P2G scatter --------------------------------------------------
+
 def p2g_scatter_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
                       cell_start: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch K1: the 27x4 per-particle values ``w * [1, v]``
@@ -187,29 +361,31 @@ def p2g_scatter_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
     return _scatter27_plain(_wv_values(w27t, vel_s), cell_start, n)
 
 
+def p2g_scatter_chunked(w27t: torch.Tensor, vel_s: torch.Tensor,
+                        plan: ChunkPlan, n: int) -> torch.Tensor:
+    """K1 in the order of its CUDA kernels (``_scatter27_chunked`` of
+    ``_wv_values``), which equal it bit for bit.  Returns (4, n, n, n)."""
+    return _scatter27_chunked(_wv_values(w27t, vel_s), plan, n)
+
+
 def p2g_scatter(w27t: torch.Tensor, vel_s: torch.Tensor,
-                cell_start: torch.Tensor, n: int) -> torch.Tensor:
+                cell_start: torch.Tensor, n: int,
+                plan: ChunkPlan | None = None) -> torch.Tensor:
     """K1: ``out[g, c] = sum_o sum_{p: base(p) = c - off_o} w27t[o, p] *
     [1, v_p][g]`` over sorted particles, dropping contributions outside the
-    box.  (4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter``
-    (``csrc/transfer.cu``); CPU tensors take ``p2g_scatter_plain``."""
+    box.  ``plan``: the ``chunk_plan`` of ``cell_start``, built here when
+    not given.  (4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter``
+    (``csrc/transfer.cu``: the chunk sums and the cells' records, then the
+    pull), equal to ``p2g_scatter_chunked`` bit for bit; CPU tensors take
+    ``p2g_scatter_plain`` and ignore ``plan``."""
     if w27t.device.type == "cpu":
         return p2g_scatter_plain(w27t, vel_s, cell_start, n)
     native.require_cuda(w27t, "p2g_scatter")
-    dev = w27t.device
     p = vel_s.shape[0]
-    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
-    native.check_tensor("vel_s", vel_s, torch.float32, (p, 3), dev)
-    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
-    if p >= 2 ** 31:
-        raise ValueError("p2g_scatter: more than 2^31 - 1 particles")
-    out = torch.empty((4, n, n, n), dtype=torch.float32, device=dev)
-    lib = native.library()
-    with torch.cuda.device(dev):
-        rc = lib.fs_p2g_scatter(w27t.data_ptr(), vel_s.data_ptr(),
-                                cell_start.data_ptr(), out.data_ptr(), n, p,
-                                native.stream_ptr(dev))
-    native.check_launch("p2g_scatter", rc)
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), w27t.device)
+    native.check_tensor("vel_s", vel_s, torch.float32, (p, 3), w27t.device)
+    out = _launch_chunked("p2g_scatter", "fs_p2g_scatter", (w27t, vel_s), 4,
+                          cell_start, n, p, plan)
     p2g_scatter.launches += 1
     return out
 
@@ -228,13 +404,23 @@ def p2g_scatter_affine_plain(w27t: torch.Tensor, veff_s: torch.Tensor,
     return _scatter27_plain(_wv_values(w27t, veff_s, aff_s), cell_start, n)
 
 
+def p2g_scatter_affine_chunked(w27t: torch.Tensor, veff_s: torch.Tensor,
+                               aff_s: torch.Tensor, plan: ChunkPlan,
+                               n: int) -> torch.Tensor:
+    """K1 aff in the order of its CUDA kernels (``_scatter27_chunked`` of
+    ``_wv_values``), which equal it bit for bit.  Returns (4, n, n, n)."""
+    return _scatter27_chunked(_wv_values(w27t, veff_s, aff_s), plan, n)
+
+
 def p2g_scatter_affine(w27t: torch.Tensor, veff_s: torch.Tensor,
                        aff_s: torch.Tensor, cell_start: torch.Tensor,
-                       n: int) -> torch.Tensor:
+                       n: int, plan: ChunkPlan | None = None) -> torch.Tensor:
     """K1 aff: ``out[g, c] = sum_o sum_{p: base(p) = c - off_o} w27t[o, p] *
     [1, veff_p + C_p off_o][g]``, dropping contributions outside the box.
-    (4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_affine``
-    (``csrc/transfer.cu``); CPU tensors take ``p2g_scatter_affine_plain``."""
+    ``plan`` as in ``p2g_scatter``.  (4, n, n, n) f32.  CUDA tensors launch
+    ``fs_p2g_scatter_affine`` (``csrc/transfer.cu``), equal to
+    ``p2g_scatter_affine_chunked`` bit for bit; CPU tensors take
+    ``p2g_scatter_affine_plain`` and ignore ``plan``."""
     if w27t.device.type == "cpu":
         return p2g_scatter_affine_plain(w27t, veff_s, aff_s, cell_start, n)
     native.require_cuda(w27t, "p2g_scatter_affine")
@@ -243,17 +429,8 @@ def p2g_scatter_affine(w27t: torch.Tensor, veff_s: torch.Tensor,
     native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
     native.check_tensor("veff_s", veff_s, torch.float32, (p, 3), dev)
     native.check_tensor("aff_s", aff_s, torch.float32, (p, 9), dev)
-    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
-    if p >= 2 ** 31:
-        raise ValueError("p2g_scatter_affine: more than 2^31 - 1 particles")
-    out = torch.empty((4, n, n, n), dtype=torch.float32, device=dev)
-    lib = native.library()
-    with torch.cuda.device(dev):
-        rc = lib.fs_p2g_scatter_affine(w27t.data_ptr(), veff_s.data_ptr(),
-                                       aff_s.data_ptr(), cell_start.data_ptr(),
-                                       out.data_ptr(), n, p,
-                                       native.stream_ptr(dev))
-    native.check_launch("p2g_scatter_affine", rc)
+    out = _launch_chunked("p2g_scatter_affine", "fs_p2g_scatter_affine",
+                          (w27t, veff_s, aff_s), 4, cell_start, n, p, plan)
     p2g_scatter_affine.launches += 1
     return out
 
@@ -447,52 +624,6 @@ g2p_moments_table.launches = 0
 
 # ---- K1 fg: MPM force scatter ----------------------------------------------
 
-# Most particles in one chunk of the force scatter's plan: a crowded cell's
-# range is cut into chunks of at most this many particles, each summed by
-# its own warp.
-FORCE_CHUNK = 128
-
-
-class ForcePlan(NamedTuple):
-    """The chunks of ``p2g_scatter_force``: every occupied cell's particle
-    range cut into chunks of at most ``FORCE_CHUNK`` particles, listed in
-    (cell, chunk) order.  ``cell_start`` is the tensor the plan was built
-    from; ``chunk_start`` (n^3 + 1,) int32 is each cell's first chunk, its
-    last entry the number of chunks ``nch``; ``chunk_first`` and
-    ``chunk_cell`` (nch + 1,) int32 are each chunk's first particle and
-    its cell, with P and n^3 in their last entry."""
-    cell_start: torch.Tensor
-    chunk_start: torch.Tensor
-    chunk_first: torch.Tensor
-    chunk_cell: torch.Tensor
-
-
-def force_plan(cell_start: torch.Tensor, p: int) -> ForcePlan:
-    """The ``ForcePlan`` of the sorted particles that ``cell_start`` (n^3 +
-    1 offsets, the last ``p``) ranges, built on ``cell_start``'s device
-    once per frame for all of its force scatters.  Its one host read is
-    the chunk count (4 bytes), which sizes the plan and the kernel's
-    scratch exactly."""
-    dev = cell_start.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    ncell = cell_start.shape[0] - 1
-    counts = cell_start[1:] - cell_start[:-1]
-    chunk_start = torch.cat([torch.zeros((1,), **i32), torch.cumsum(
-        (counts + (FORCE_CHUNK - 1)) // FORCE_CHUNK, 0, dtype=torch.int32)])
-    nch = int(chunk_start[-1])
-    idx = torch.arange(p, **i32)
-    cell = torch.searchsorted(cell_start, idx, right=True, out_int32=True) - 1
-    r = idx - cell_start[cell]
-    head = r % FORCE_CHUNK == 0
-    slot = torch.where(head, chunk_start[cell] + r // FORCE_CHUNK,
-                       nch).to(torch.int64)
-    chunk_first = torch.full((nch + 1,), p, **i32)
-    chunk_first.scatter_(0, slot, torch.where(head, idx, p))
-    chunk_cell = torch.full((nch + 1,), ncell, **i32)
-    chunk_cell.scatter_(0, slot, torch.where(head, cell, ncell))
-    return ForcePlan(cell_start, chunk_start, chunk_first, chunk_cell)
-
-
 def _gradw_p27(gradw: torch.Tensor) -> torch.Tensor:
     """(81, P) gradW rows ``3o + k`` -> (P, 27, 3)."""
     return gradw.T.reshape(-1, 27, 3)
@@ -512,45 +643,24 @@ def p2g_scatter_force_plain(gradw: torch.Tensor, m9: torch.Tensor,
 
 
 def p2g_scatter_force_chunked(gradw: torch.Tensor, m9: torch.Tensor,
-                              plan: ForcePlan, n: int) -> torch.Tensor:
-    """K1 fg in the order of its CUDA kernel, in PyTorch: each chunk's sums
-    of ``_force_values`` in particle order from +0, each cell's record the
-    sum of its chunks' in chunk order, then the 27 shifted adds of the
-    records in offset order (``shift_reduce_plain``).  The kernel equals it
-    bit for bit; it differs from ``p2g_scatter_force_plain`` only in the
-    order of the sums.  Reads the longest chunk and chunk run on the host.
-    Returns (3, n, n, n)."""
-    p = m9.shape[0]
-    u = torch.cat([_force_values(gradw, m9).reshape(p, 81),
-                   m9.new_zeros((1, 81))])                 # row p: zeros
-    nch = plan.chunk_first.shape[0] - 1
-    first = plan.chunk_first.to(torch.int64)
-    sums = m9.new_zeros((nch, 81))
-    for j in range(int((first[1:] - first[:-1]).max()) if nch else 0):
-        row = first[:-1] + j
-        sums = sums + u[torch.where(row < first[1:], row, p)]
-    sums = torch.cat([sums, m9.new_zeros((1, 81))])        # row nch: zeros
-    start = plan.chunk_start.to(torch.int64)
-    count = start[1:] - start[:-1]
-    rec = m9.new_zeros((n ** 3, 81))
-    for j in range(int(count.max()) if nch else 0):
-        rec = rec + sums[torch.where(j < count, start[:-1] + j, nch)]
-    return shift_reduce_plain(rec.T.reshape(27, 3, n, n, n))
+                              plan: ChunkPlan, n: int) -> torch.Tensor:
+    """K1 fg in the order of its CUDA kernels (``_scatter27_chunked`` of
+    ``_force_values``), which equal it bit for bit.  Returns (3, n, n,
+    n)."""
+    return _scatter27_chunked(_force_values(gradw, m9), plan, n)
 
 
 def p2g_scatter_force(gradw: torch.Tensor, m9: torch.Tensor,
                       cell_start: torch.Tensor, n: int,
-                      plan: ForcePlan | None = None) -> torch.Tensor:
+                      plan: ChunkPlan | None = None) -> torch.Tensor:
     """K1 fg: ``out[c, cell] = sum_o sum_{p: base(p) = cell - off_o}
     sum_k M_p[c, k] gradW_k(p, o)`` over sorted particles, dropping
     contributions outside the box.  ``gradw`` is (81, P) with row
-    ``3o + k``; ``m9`` (P, 9) row-major M; ``plan`` the ``force_plan`` of
-    ``cell_start``, built here when not given (it must come from the same
-    sort: the wrapper refuses a plan built from another tensor).  (3, n,
-    n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_force``
-    (``csrc/transfer.cu``: the chunk sums and the cells' records, then the
-    pull), equal to ``p2g_scatter_force_chunked`` bit for bit; CPU tensors
-    take ``p2g_scatter_force_plain`` and ignore ``plan``."""
+    ``3o + k``; ``m9`` (P, 9) row-major M; ``plan`` as in ``p2g_scatter``.
+    (3, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_force``
+    (``csrc/transfer.cu``), equal to ``p2g_scatter_force_chunked`` bit for
+    bit; CPU tensors take ``p2g_scatter_force_plain`` and ignore
+    ``plan``."""
     if gradw.device.type == "cpu":
         return p2g_scatter_force_plain(gradw, m9, cell_start, n)
     native.require_cuda(gradw, "p2g_scatter_force")
@@ -558,33 +668,8 @@ def p2g_scatter_force(gradw: torch.Tensor, m9: torch.Tensor,
     p = m9.shape[0]
     native.check_tensor("gradw", gradw, torch.float32, (81, p), dev)
     native.check_tensor("m9", m9, torch.float32, (p, 9), dev)
-    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
-    if p >= 2 ** 31 or n ** 3 >= 2 ** 31:
-        raise ValueError("p2g_scatter_force: more than 2^31 - 1 particles "
-                         "or cells")
-    if plan is None:
-        plan = force_plan(cell_start, p)
-    elif (plan.cell_start.data_ptr() != cell_start.data_ptr()
-          or plan.cell_start.shape != cell_start.shape):
-        raise ValueError("p2g_scatter_force: plan was not built from this "
-                         "cell_start")
-    nch = plan.chunk_first.shape[0] - 1
-    native.check_tensor("plan.chunk_start", plan.chunk_start, torch.int32,
-                        (n ** 3 + 1,), dev)
-    for name in ("chunk_first", "chunk_cell"):
-        native.check_tensor(f"plan.{name}", getattr(plan, name), torch.int32,
-                            (nch + 1,), dev)
-    sums = torch.empty((nch, 81), dtype=torch.float32, device=dev)
-    out = torch.empty((3, n, n, n), dtype=torch.float32, device=dev)
-    lib = native.library()
-    with torch.cuda.device(dev):
-        rc = lib.fs_p2g_scatter_force(gradw.data_ptr(), m9.data_ptr(),
-                                      plan.chunk_first.data_ptr(),
-                                      plan.chunk_cell.data_ptr(),
-                                      plan.chunk_start.data_ptr(),
-                                      sums.data_ptr(), out.data_ptr(), n, p,
-                                      nch, native.stream_ptr(dev))
-    native.check_launch("p2g_scatter_force", rc)
+    out = _launch_chunked("p2g_scatter_force", "fs_p2g_scatter_force",
+                          (gradw, m9), 3, cell_start, n, p, plan)
     p2g_scatter_force.launches += 1
     return out
 
@@ -829,7 +914,8 @@ def p2g(w27t: torch.Tensor, vel_s: torch.Tensor, flat_s: torch.Tensor,
         solid: torch.Tensor, bound: int, fused_scatter: bool = True):
     """Full P2G of sorted particles, then the reference's target-cell masks
     (``p2g_masks``).  ``fused_scatter``: K1 over the cell ranges of a full
-    sort; else K6a and K6b, which need only a window-grouped order (the
+    sort (on the card its wrapper builds the frame's one chunk plan); else
+    K6a and K6b, which need only a window-grouped order (the
     counterpart of ``p2g_pallas(fused_scatter=False)``).  Returns
     ``weights`` (N,N,N), channel-major ``mom`` (3,N,N,N) and ``occ``
     (N,N,N)."""

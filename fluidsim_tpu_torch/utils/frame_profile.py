@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import subprocess
 import time
@@ -54,13 +55,15 @@ MPM_BOUND = 63      # mpm_cone: a 127^3 grid, 473,798 particles
 SEED = 0
 WARMUP = 5          # frames stepped before the profiled window
 FRAMES = 3          # frames in the window, run three times
+TOP_KERNELS = 30    # kernels listed, the busiest first
 
 # (phase, module, function): the calls of each frame, one phase each
 PHASES = {
     "flip": (
         ("sort", tk, "sort_by_cell"),
         ("stencil weights", tk, "masked_weights_cm"),
-        ("P2G", tk, "p2g"),             # with its cell or window ranges
+        ("P2G", tk, "p2g"),             # with its cell or window ranges and
+                                        # (K1) the frame's chunk plan
         ("P2G", apic, "p2g_apic"),
         ("projection", flip, "project"),
         ("G2P", tk, "g2p"),
@@ -71,6 +74,7 @@ PHASES = {
         ("sort", mk, "sort_mpm"),
         ("stencil", mk, "mpm_stencil"),
         ("cell ranges", tk, "cell_starts"),
+        ("chunk plan", tk, "chunk_plan"),   # K1's, once per frame
         ("P2G", mk, "p2g_mpm"),
         ("density", mk, "density"),
         ("stress (polar)", mk, "make_force_fns"),
@@ -99,6 +103,9 @@ def _phase_ranges(kind, sync):
     for phase, mod, name in PHASES[kind]:
         fn = getattr(mod, name)
 
+        # wraps() carries the function's attributes (``chunk_plan.builds``,
+        # which the function updates through its module's name) over
+        @functools.wraps(fn)
         def wrapped(*args, _fn=fn, _phase=phase, **kwargs):
             sync()
             with record_function(_TAG + _phase):
@@ -177,7 +184,7 @@ def profile_frames(sim, frames: int = FRAMES) -> dict:
             if t0 <= mid <= t1:
                 inside[phase] += dur
                 break
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:15]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
     mode = "mpm"
     if kind == "flip":
         bucket = sim.params.sort_method == "bucket"

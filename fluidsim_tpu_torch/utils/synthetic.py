@@ -1,6 +1,6 @@
 """Synthetic kernel inputs that a frame's state may not reach, made from a
-seed with numpy: the run tables of the bucket move (K5) and a skewed sorted
-state for the MPM force scatter (K1 fg).  ``chip_smoke.py`` holds the CUDA
+seed with numpy: the run tables of the bucket move (K5) and skewed sorted
+states for the K1 modes (K1, K1 aff, K1 fg).  ``chip_smoke.py`` holds the CUDA
 kernels to their plain versions on them, and the CPU tests hold the plain
 versions and the plans to numpy on the same inputs."""
 
@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from fluidsim_tpu_torch.ops.bucket_sort import DEAD_DST
-from fluidsim_tpu_torch.ops.transfer_kernels import FORCE_CHUNK
+from fluidsim_tpu_torch.ops.transfer_kernels import CHUNK
 
 
 def bucket_tables(seed: int, p: int, nc: int, to: int = 1024, emax: int = 64,
@@ -59,18 +59,8 @@ def bucket_tables(seed: int, p: int, nc: int, to: int = 1024, emax: int = 64,
             np.stack([dst, src, cnt], axis=1))
 
 
-def skewed_force_state(seed: int, n: int, big: int, band: float = 0.3,
-                       device="cpu"):
-    """A sorted K1 fg state on an n^3 grid: ``big`` particles in the centre
-    cell; cells of exactly C, C + 1, 2 C and 2 C + 1 particles beside it
-    (C = ``FORCE_CHUNK``, the most particles in one chunk of its plan); 1-300 particles in a third of the
-    cells of a band of ``band * n`` cells around the centre and in 1% of
-    the cells of each of the six faces; 7 in two corners; the rest of the
-    grid empty, so most target cells have an empty neighbourhood.  Returns
-    ``(gradw, m9, cell_start, counts)``: random f32 gradW (81, P) and M
-    (P, 9), the int32 cell ranges (n^3 + 1,), and the int64 numpy
-    particles per cell."""
-    rng = np.random.default_rng(seed)
+def _skewed_counts(rng, n: int, big: int, band: float) -> np.ndarray:
+    """The int64 particles per cell, (n^3,), of the skewed states."""
     counts = np.zeros((n, n, n), np.int64)
     h = max(1, int(band * n) // 2)
     c = n // 2
@@ -86,10 +76,25 @@ def skewed_force_state(seed: int, n: int, big: int, band: float = 0.3,
                              rng.integers(1, 301, face.shape), 0)
     counts[0, 0, 0] = counts[n - 1, n - 1, n - 1] = 7
     counts[c, c, c] = big
-    counts[c + 1, c, c], counts[c, c + 1, c] = FORCE_CHUNK, FORCE_CHUNK + 1
-    counts[c, c, c + 1] = 2 * FORCE_CHUNK
-    counts[c - 1, c - 1, c] = 2 * FORCE_CHUNK + 1
-    counts = counts.reshape(-1)
+    counts[c + 1, c, c], counts[c, c + 1, c] = CHUNK, CHUNK + 1
+    counts[c, c, c + 1] = 2 * CHUNK
+    counts[c - 1, c - 1, c] = 2 * CHUNK + 1
+    return counts.reshape(-1)
+
+
+def skewed_force_state(seed: int, n: int, big: int, band: float = 0.3,
+                       device="cpu"):
+    """A sorted K1 fg state on an n^3 grid: ``big`` particles in the centre
+    cell; cells of exactly C, C + 1, 2 C and 2 C + 1 particles beside it
+    (C = ``CHUNK``, the most particles in one chunk of a K1 plan); 1-300
+    particles in a third of the cells of a band of ``band * n`` cells
+    around the centre and in 1% of the cells of each of the six faces; 7 in
+    two corners; the rest of the grid empty, so most target cells have an
+    empty neighbourhood.  Returns ``(gradw, m9, cell_start, counts)``:
+    random f32 gradW (81, P) and M (P, 9), the int32 cell ranges (n^3 +
+    1,), and the int64 numpy particles per cell."""
+    rng = np.random.default_rng(seed)
+    counts = _skewed_counts(rng, n, big, band)
     p = int(counts.sum())
     cell_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     gradw = rng.standard_normal((81, p)).astype(np.float32)
@@ -97,3 +102,20 @@ def skewed_force_state(seed: int, n: int, big: int, band: float = 0.3,
     return (torch.as_tensor(gradw, device=device),
             torch.as_tensor(m9, device=device),
             torch.as_tensor(cell_start, device=device), counts)
+
+
+def skewed_wv_state(seed: int, n: int, big: int, band: float = 0.3,
+                    device="cpu"):
+    """The K1 and K1 aff inputs on ``skewed_force_state``'s cells (the same
+    counts for the same arguments): random weights in [0, 1) (27, P),
+    velocities (P, 3) and affine matrices (P, 9, scale 0.5), f32.  Returns
+    ``(w27t, vel, aff, cell_start, counts)``."""
+    rng = np.random.default_rng(seed)
+    counts = _skewed_counts(rng, n, big, band)
+    p = int(counts.sum())
+    cell_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    w27t = rng.random((27, p)).astype(np.float32)
+    vel = rng.normal(scale=3.0, size=(p, 3)).astype(np.float32)
+    aff = rng.normal(scale=0.5, size=(p, 9)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (w27t, vel, aff, cell_start)) + (counts,)

@@ -380,7 +380,7 @@ def test_mpm_wrappers_take_the_plain_version_on_cpu_only(state, frame):
         tk.g2p_gather_gw(fm.to("meta"), gradw.to("meta"), tflat.to("meta"))
 
 
-# ---- K1 fg: the chunk plan, the kernel's order and a crowded cell ----------
+# ---- the K1 chunk plan, K1 fg's order and a crowded cell --------------------
 
 def _skewed():
     """``utils/synthetic.skewed_force_state`` at n = 24 with 2,000 particles
@@ -388,24 +388,36 @@ def _skewed():
     return synthetic.skewed_force_state(0, 24, 2000)
 
 
-@pytest.mark.parametrize("case", ["skewed", "cone", "empty"])
-def test_force_plan_against_numpy(state, frame, case):
+def _flip_cell_start():
+    """The cell ranges of ``water_cube_drop`` at bound 8, density 3 (the
+    FLIP states of the transfer tests), seeded and sorted by the port."""
+    scene = tscenes.get_scene("water_cube_drop", bound=8, density=3.0)
+    pos, vel = tseeding.seed_particles(scene, seed=0)
+    flat = tk.sort_by_cell(torch.as_tensor(pos), torch.as_tensor(vel), 8)[2]
+    return tk.cell_starts(flat, 17)
+
+
+@pytest.mark.parametrize("case", ["skewed", "cone", "empty", "flip"])
+def test_chunk_plan_against_numpy(state, frame, case):
     """Every occupied cell's range is covered by consecutive chunks in
-    order, each of at most ``FORCE_CHUNK`` particles and all but a cell's
-    last of exactly ``FORCE_CHUNK``; no chunk crosses a cell, and
-    ``chunk_cell`` names it; empty cells have none; the plan holds exactly
-    the chunks, with P and n^3 in the last slot."""
-    chunk = tk.FORCE_CHUNK
+    order, each of at most ``CHUNK`` particles and all but a cell's last of
+    exactly ``CHUNK``; no chunk crosses a cell, and ``chunk_cell`` names it;
+    empty cells have none; the plan holds exactly the chunks, with P and
+    n^3 in the last slot; one build is counted."""
+    chunk = tk.CHUNK
     if case == "skewed":
         cs = _skewed()[2]
     elif case == "cone":
         cs = frame["cs"]
+    elif case == "flip":
+        cs = _flip_cell_start()
     else:
         cs = torch.zeros(N ** 3 + 1, dtype=torch.int32)
     cs_np = cs.numpy().astype(np.int64)
     p = int(cs_np[-1])
-    plan = tk.force_plan(cs, p)
-    assert plan.cell_start is cs
+    builds = tk.chunk_plan.builds
+    plan = tk.chunk_plan(cs, p)
+    assert plan.cell_start is cs and tk.chunk_plan.builds == builds + 1
     start = plan.chunk_start.numpy().astype(np.int64)
     first = plan.chunk_first.numpy().astype(np.int64)
     counts = np.diff(cs_np)
@@ -418,7 +430,7 @@ def test_force_plan_against_numpy(state, frame, case):
         return
     if case == "skewed":
         assert counts.max() > chunk
-    else:                     # the cone's cells each fit in one chunk
+    else:                     # the cone's and FLIP's cells each fit a chunk
         assert counts.max() <= chunk and nch == int((counts > 0).sum())
     length = np.diff(first[:nch + 1])
     assert first[0] == 0 and (length >= 1).all() and (length <= chunk).all()
@@ -438,7 +450,7 @@ def test_force_plan_against_numpy(state, frame, case):
 
 @pytest.mark.parametrize("case", ["skewed", "cone"])
 def test_force_chunked_order_matches_plain(state, frame, case):
-    """``p2g_scatter_force_chunked``, the CUDA kernel's summation order in
+    """``p2g_scatter_force_chunked``, the CUDA kernels' summation order in
     PyTorch, against the plain version: within 1e-5 of ``max|plain|`` (f32
     sums of up to 27 x 2,000 terms in another order)."""
     if case == "skewed":
@@ -448,7 +460,7 @@ def test_force_chunked_order_matches_plain(state, frame, case):
         gradw, cs, n = frame["gradw"], frame["cs"], N
         m9 = torch.as_tensor(np.random.default_rng(8).normal(
             size=(gradw.shape[1], 9)).astype(np.float32))
-    plan = tk.force_plan(cs, m9.shape[0])
+    plan = tk.chunk_plan(cs, m9.shape[0])
     ref = tk.p2g_scatter_force_plain(gradw, m9, cs, n)
     out = tk.p2g_scatter_force_chunked(gradw, m9, plan, n)
     scale = float(ref.abs().max())
@@ -456,18 +468,28 @@ def test_force_chunked_order_matches_plain(state, frame, case):
     assert float((out - ref).abs().max()) <= 1e-5 * scale
 
 
-def test_force_wrapper_ignores_plan_on_cpu():
-    """On CPU tensors the wrapper runs the plain version whatever plan it
-    is given: here the plan of an empty grid, whose one pull would drop
-    every particle."""
-    gradw, m9, cs, _ = _skewed()
-    wrong = tk.force_plan(torch.zeros_like(cs), 0)
-    before = tk.p2g_scatter_force.launches
-    out = tk.p2g_scatter_force(gradw, m9, cs, 24, wrong)
-    np.testing.assert_array_equal(
-        out.numpy(), tk.p2g_scatter_force_plain(gradw, m9, cs, 24).numpy())
+@pytest.mark.parametrize("mode", ["wv", "aff", "fg"])
+def test_k1_wrapper_ignores_plan_on_cpu(mode):
+    """On CPU tensors each K1 wrapper (FLIP, APIC, MPM force) runs its plain
+    version whatever plan it is given: here the plan of an empty grid,
+    whose one pull would drop every particle.  No launch is counted."""
+    if mode == "fg":
+        gradw, m9, cs, _ = _skewed()
+        fn, plain, args = tk.p2g_scatter_force, tk.p2g_scatter_force_plain, \
+            (gradw, m9)
+    else:
+        w27t, vel, aff, cs, _ = synthetic.skewed_wv_state(0, 24, 2000)
+        if mode == "wv":
+            fn, plain, args = tk.p2g_scatter, tk.p2g_scatter_plain, (w27t, vel)
+        else:
+            fn, plain, args = (tk.p2g_scatter_affine,
+                               tk.p2g_scatter_affine_plain, (w27t, vel, aff))
+    wrong = tk.chunk_plan(torch.zeros_like(cs), 0)
+    before = fn.launches
+    out = fn(*args, cs, 24, wrong)
+    np.testing.assert_array_equal(out.numpy(), plain(*args, cs, 24).numpy())
     assert float(out.abs().max()) > 1.0
-    assert tk.p2g_scatter_force.launches == before
+    assert fn.launches == before
 
 
 CB = 6               # the crowded-cell state: a 13^3 grid

@@ -4,8 +4,8 @@ can import neither ``jax`` nor ``fluidsim_tpu``, import
 and of the MPM cone, two FLIP frames on the bucket path, and the
 materialised G2P (``fused_table=False``) and ``ops/shift.py`` after a
 FLIP frame, the row-layout transfers of ``utils/transfer_parts.py``, and
-the synthetic K5 and K1 fg inputs of ``utils/synthetic.py`` with the force
-scatter's chunk plan and order."""
+the synthetic K5 and K1 inputs of ``utils/synthetic.py`` with the K1 chunk
+plan and the order of the three K1 modes."""
 
 import subprocess
 import sys
@@ -67,9 +67,13 @@ elif sys.argv[1] == "synthetic":
     key_s, pay_s, tbl, _ = synthetic.bucket_tables(0, 6000, 6)
     kf, _ = bucket_sort.bucket_move(key_s, pay_s, tbl, 6000, 1024)
     gradw, m9, cs, _ = synthetic.skewed_force_state(0, 12, 300)
-    plan = tk.force_plan(cs, m9.shape[0])
+    plan = tk.chunk_plan(cs, m9.shape[0])
     out = tk.p2g_scatter_force_chunked(gradw, m9, plan, 12)
-    m = {"kinetic_energy": out.abs().sum() + kf.shape[0]}
+    w27t, vel, aff, cs, _ = synthetic.skewed_wv_state(0, 12, 300)
+    plan = tk.chunk_plan(cs, vel.shape[0])
+    out = out.abs().sum() + tk.p2g_scatter_chunked(w27t, vel, plan, 12).sum()
+    out = out + tk.p2g_scatter_affine_chunked(w27t, vel, aff, plan, 12).sum()
+    m = {"kinetic_energy": out + kf.shape[0]}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
