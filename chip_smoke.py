@@ -55,6 +55,11 @@ Phases, each of which raises on failure (nonzero exit):
    as in phase 3, each beside one PyTorch call that computes the same
    function (``index_select``, ``index_add_``, ``conv3d``); K5 also bit
    for bit on synthetic run tables (``utils/synthetic.bucket_tables``);
+   K6a bit for bit against its summation order in PyTorch
+   (``p2g_scatter_base_ordered``) and a rerun, there, in its APIC instance
+   on phase 6's APIC state shuffled inside each window (timed), and in both
+   instances on ``utils/synthetic.skewed_window_state`` (20,000 particles
+   in one cell, a span of 2,560 ids, the ragged last window occupied);
 15. the bucket path at 129^3: 10 timed frames with the checks of phase 4,
    the launch counts (K5 once per frame that kept the bucket order, K6a
    and K6b once per frame, K1 never), how many frames fell back to the
@@ -71,8 +76,10 @@ Phases, each of which raises on failure (nonzero exit):
    their launch counts, bit for bit against ``fused_table=True``, both
    timed;
 20. the span entry points (K9a, K9b) against K6a and K7a and their plain
-   versions, the unhaloed shift entry points (K10a, K10b) against K6b and
-   K7b, their plain versions and ``conv3d``, the transposes (K10c, K10d) of
+   versions (K9a also bit for bit against ``p2g_scatter_base_ordered``),
+   the unhaloed shift entry points (K10a, K10b) against K6b and K7b, their
+   plain versions and ``conv3d`` (K10a bit for bit against both of its
+   plain versions and K6b), the transposes (K10c, K10d) of
    a (129^3, 108) matrix against ``.T.contiguous()``, and the launch
    counts of one call of each entry point;
 21. the row-layout transfer kernels (K8a row gather, K8b row scatter-add)
@@ -202,6 +209,76 @@ def _require_bitwise(name, a, b, torch):
     if not same:
         raise AssertionError(f"{name}: not bit for bit equal")
     print(f"bitwise {name}: equal")
+
+
+def _k6a_case(name, w27t, vel, flat, n, aff, torch):
+    """K6a on one window-grouped state (``aff``: its APIC instance) against
+    its plain version and ``index_add_`` of the prebuilt (P, 108) rows,
+    timed as in phase 3, then bit for bit against its summation order in
+    PyTorch (``p2g_scatter_base_ordered``) and a rerun.  Returns the line's
+    numbers."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    p = flat.shape[0]
+    ws = tk.window_starts(flat, n)
+    u108 = tk._wv_values(w27t, vel, aff).reshape(p, 108)
+    flat64 = flat.to(torch.int64)
+    launch = lambda: tk.p2g_scatter_base(w27t, vel, flat, ws, n, aff)
+    res = _compare(
+        name, launch, lambda: tk.p2g_scatter_base_plain(w27t, vel, flat, n, aff),
+        1e-5, (w27t, vel, flat, ws) + (() if aff is None else (aff,)),
+        27 * (7 if aff is None else 25) * p, torch,
+        library=lambda: torch.zeros((n ** 3, 108), device=flat.device)
+        .index_add_(0, flat64, u108))
+    out = launch()
+    _require_bitwise(f"{name}: against p2g_scatter_base_ordered", out,
+                     tk.p2g_scatter_base_ordered(w27t, vel, flat, n, aff), torch)
+    _require_bitwise(f"{name}: against its rerun", out, launch(), torch)
+    return res
+
+
+def _k6a_more_states(w27t, vel_s, flat, apic_state, bound, n, dev, torch):
+    """K6a's APIC instance on the frame-2 bucket state (``w27t``, ``vel_s``,
+    ``flat``) with random C and on phase 6's APIC state (the seeded cube,
+    random v and C) with its particles shuffled inside each window, then
+    both instances on ``utils/synthetic.skewed_window_state`` at n^3
+    (20,000 particles in one cell, a window of 2,560 ids, the ragged last
+    window occupied), each with ``_k6a_case``.  Returns their numbers."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import synthetic
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    aff = 0.5 * torch.randn((flat.shape[0], 9), generator=g, device=dev)
+    out = {"apic_bucket_state": _k6a_case(
+        "K6a APIC p2g_scatter_base, the frame-2 bucket state with random C",
+        w27t, vel_s, flat, n, aff, torch)}
+    del aff
+    pos_s, veff, flat_a, aff_s = apic_state
+    p = flat_a.shape[0]
+    key = (flat_a.to(torch.int64) // tk.WINDOW) * p + torch.randperm(
+        p, generator=g, device=dev)
+    perm = torch.sort(key)[1]
+    pos_s, veff, flat_a, aff_s = (t[perm].contiguous()
+                                  for t in (pos_s, veff, flat_a, aff_s))
+    out["apic_shuffled_state"] = _k6a_case(
+        "K6a APIC p2g_scatter_base, the APIC state shuffled inside each "
+        "window", tk.masked_weights_cm(pos_s, bound), veff, flat_a, n, aff_s,
+        torch)
+    del pos_s, veff, flat_a, aff_s, key, perm
+    w27t, vel, aff, flat, counts = synthetic.skewed_window_state(
+        SEED, n, 20_000, device=dev)
+    ws = tk.window_starts(flat, n)
+    spans = ws[1:] - ws[:-1]
+    print(f"skewed window state: {flat.shape[0]} particles at {n}^3, the "
+          f"fullest cell {int(counts.max())}, the longest span "
+          f"{int(spans.max())} ids, {int((spans > 0).sum())} of "
+          f"{spans.shape[0]} windows occupied, the last one "
+          f"{int(spans[-1])} ids")
+    for mode, a in (("flip", None), ("apic", aff)):
+        out[f"skewed_state_{mode}"] = _k6a_case(
+            f"K6a {mode} p2g_scatter_base, the skewed window state", w27t,
+            vel, flat, n, a, torch)
+    return out
 
 
 def _k1_order_checks(name, launch, chunked, cs, n, p, torch):
@@ -618,6 +695,10 @@ def _materialised_phases(dev, counted, torch):
             raise AssertionError(f"{name} differs from K6a/K7a")
     print("K9a, K9b: equal to K6a and K7a on the fully sorted state")
     del checks
+    _require_bitwise(
+        "K9a, the sorted state: against p2g_scatter_base_ordered",
+        tk.p2g_scatter_spans(w27t, vel_s, flat, n),
+        tk.p2g_scatter_base_ordered(w27t, vel_s, flat, n), torch)
 
     d_rows = d.view(108, n3).T.contiguous()                     # (n^3, 108)
     conv_in = d_rows.view(1, n, n, n, 108).permute(0, 4, 1, 2, 3)
@@ -627,8 +708,12 @@ def _materialised_phases(dev, counted, torch):
         27 * 4 * n3, torch,
         library=lambda: F.conv3d(conv_in, onehot_r, padding=1))
     red = shift.p2g_shift_reduce(d_rows, n)
-    if not torch.equal(red, tk.shift_reduce(d).permute(1, 2, 3, 0)):
-        raise AssertionError("K10a differs from K6b")
+    for name, ref in (
+            ("p2g_shift_reduce_rows_plain",
+             shift.p2g_shift_reduce_rows_plain(d_rows, n)),
+            ("p2g_shift_reduce_plain", shift.p2g_shift_reduce_plain(d_rows, n)),
+            ("K6b", tk.shift_reduce(d).permute(1, 2, 3, 0))):
+        _require_bitwise(f"K10a against {name}", red, ref, torch)
     fm_rows = fm.permute(1, 2, 3, 0).contiguous()               # (n, n, n, 4)
     fm_in = fm_rows.view(1, n, n, n, 4).permute(0, 4, 1, 2, 3)
     results["g2p_table_expand"] = _compare(
@@ -671,9 +756,9 @@ def _materialised_phases(dev, counted, torch):
     want = {name: 0 for name in entry_launches}
     want.update({"p2g_scatter_spans": 1, "p2g_scatter_base": 1,
                  "g2p_gather_spans": 1, "g2p_gather_table": 1,
-                 "p2g_shift_reduce": 1, "shift_reduce": 1,
-                 "g2p_table_expand": 1, "shift_expand": 1,
-                 "to_channel_major": 3, "from_channel_major": 3})
+                 "p2g_shift_reduce": 1, "g2p_table_expand": 1,
+                 "shift_expand": 1, "to_channel_major": 2,
+                 "from_channel_major": 2})
     if entry_launches != want:
         raise AssertionError(f"shift_entry_points: launches {entry_launches}, "
                              f"expected {want}")
@@ -958,6 +1043,8 @@ def main() -> int:
     vel_a, c_a = apic.g2p_apic(w27t, flat, pos_s, vc, B, wall)
     if not (bool(torch.isfinite(vel_a).all()) and bool(torch.isfinite(c_a).all())):
         raise AssertionError("g2p_apic: non-finite velocity or C")
+    # phase 14 times K6a's APIC instance on this state
+    apic_k6a = (pos_s, veff, flat, aff_s)
     del acc, vc, fm, vel0, aff0, pos_s, vel_s, flat, aff_s, veff, w27t, cs
     del vel_a, c_a, plan
 
@@ -1115,18 +1202,13 @@ def main() -> int:
     flat_o, cols_o = bs.bucket_move(key_s, pay_s, tbl, P, to)
     pos_s, vel_s = cols_o[0:3].T.contiguous(), cols_o[3:6].T.contiguous()
     w27t = tk.masked_weights_cm(pos_s, B)
-    ws = tk.window_starts(flat_o, n)
-    u108 = torch.cat([w27t.T[..., None], w27t.T[..., None] * vel_s[:, None]],
-                     dim=-1).reshape(P, 108)
-    flat64 = flat_o.to(torch.int64)
-    results["p2g_scatter_base"] = _compare(
-        "K6a p2g_scatter_base",
-        lambda: tk.p2g_scatter_base(w27t, vel_s, flat_o, ws, n),
-        lambda: tk.p2g_scatter_base_plain(w27t, vel_s, flat_o, n), 1e-5,
-        (w27t, vel_s, flat_o, ws), 27 * 7 * P, torch,
-        library=lambda: torch.zeros((n ** 3, 108), device=dev).index_add_(
-            0, flat64, u108))
-    d = tk.p2g_scatter_base(w27t, vel_s, flat_o, ws, n)
+    results["p2g_scatter_base"] = _k6a_case(
+        "K6a p2g_scatter_base", w27t, vel_s, flat_o, n, None, torch)
+    results["p2g_scatter_base"].update(_k6a_more_states(
+        w27t, vel_s, flat_o, apic_k6a, B, n, dev, torch))
+    del apic_k6a
+    d = tk.p2g_scatter_base(w27t, vel_s, flat_o,
+                            tk.window_starts(flat_o, n), n)
     _, onehot = _shift_onehots(dev, torch)
     torch.backends.cudnn.allow_tf32 = False
     conv = lambda: torch.nn.functional.conv3d(d.view(1, 108, n, n, n),
@@ -1138,7 +1220,7 @@ def main() -> int:
     print(f"K6b library conv3d: max |conv3d - kernel| "
           f"{_max_err(conv()[0], tk.shift_reduce(d)):.3e}")
     del st, bc, flat, key_s, pay_s, tbl, perm, rows, flat_o, cols_o
-    del pos_s, vel_s, w27t, ws, u108, flat64, d, onehot
+    del pos_s, vel_s, w27t, d, onehot
 
     # ---- 15. the bucket path: the two frames above were its warm-up ------
     ke, bucket_launches, bucket_ms = _run_frames(sim, counted, torch)

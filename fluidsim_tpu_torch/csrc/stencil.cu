@@ -1,7 +1,8 @@
 // Pressure-solve stencil kernels of the FLIP frame (K3, K4) and the
-// 27-offset shift stencils of the unfused transfers (K6b, K7b), for Hopper
-// (sm_90a), with a plain C interface bound through ctypes
-// (fluidsim_tpu_torch/ops/stencil_kernels.py, ops/transfer_kernels.py).
+// 27-offset shift stencils of the unfused transfers (K6b, K7b) and of the
+// row layout (K10a), for Hopper (sm_90a), with a plain C interface bound
+// through ctypes (fluidsim_tpu_torch/ops/stencil_kernels.py,
+// ops/transfer_kernels.py, ops/shift.py).
 //
 // All arrays are dense (n, n, n) f32, z fastest.  A cell is fluid exactly
 // where adiag > 0; every operand is read through that mask (q = adiag > 0 ?
@@ -44,6 +45,25 @@
 //   consecutive z, so each of the 27 loads of a warp is one contiguous row
 //   segment; the TPU kernel's x-block windows, lane rolls and double
 //   buffering are work the cache and the coalesced loads do here.
+//
+// K10a fs_shift_reduce_rows replaces fluidsim_tpu/ops/pallas_shift.py:150
+//   p2g_shift_reduce (_reduce_kernel on the unhaloed lane layout), K6b's
+//   function on the row layout: acc[cell, g] = sum_o d[cell - off_o, 4o + g]
+//   over the offsets in order from 0, sources outside the box adding 0 as
+//   in K6b.  d is (n^3, 108), acc (n, n, n, 4), both dense.
+//   Bound on the H100: memory.  Each d value is read by exactly one (cell,
+//   channel): one read of the rows (927.4 MB at 129^3) and one write of the
+//   result (34.3 MB), 961.7 MB, ~0.2871 ms at 3.35 TB/s.
+//   Design: one kernel on the rows, no transpose on either side (the port's
+//   first K10a was K10c, K6b and K10d, three launches).  One thread per
+//   target cell, consecutive threads on consecutive z: offset o is one
+//   16-byte load of d[(cell - off_o) * 108 + 4o ..] (a 432-byte row is 27
+//   aligned 16-byte slots), the four channels added at once, and the cell's
+//   result is one 16-byte store.  The other half of each 32-byte sector is
+//   offset o + 1 of the neighbouring z cell, read by the next thread from
+//   L1 or L2, so device memory sees about one read of d.  What limits it
+//   is loads in flight: the 27 loads are independent, and with registers
+//   for all of them (see the kernel) a thread has them all in flight.
 //
 // K7b fs_shift_expand replaces fluidsim_tpu/ops/pallas_shift.py:
 //   expand_haloed (_expand_kernel_haloed), the 27-offset neighbourhood table
@@ -160,6 +180,36 @@ __global__ void shift_reduce_kernel(const float* __restrict__ d,
   out[g * ncell + c] = a;
 }
 
+// __launch_bounds__(kThreads, 1) leaves the registers for all 27 loads in
+// flight at once; capped at 64 or fewer the loads go out a few at a time
+// and the kernel is slower on the H100.
+__global__ void __launch_bounds__(kThreads, 1)
+    shift_reduce_rows_kernel(const float4* __restrict__ d,
+                             float4* __restrict__ out, int n) {
+  const long long ncell = (long long)n * n * n;
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncell) return;
+  const int x = (int)(c / ((long long)n * n));
+  const int y = (int)((c / n) % n);
+  const int z = (int)(c % n);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    const int bx = x - (o / 9 - 1);
+    const int by = y - ((o / 3) % 3 - 1);
+    const int bz = z - (o % 3 - 1);
+    const bool inb = bx >= 0 && bx < n && by >= 0 && by < n && bz >= 0 && bz < n;
+    const float4 v =
+        inb ? __ldg(d + 27LL * (((long long)bx * n + by) * n + bz) + o)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    a.x = a.x + v.x;
+    a.y = a.y + v.y;
+    a.z = a.z + v.z;
+    a.w = a.w + v.w;
+  }
+  out[c] = a;
+}
+
 __global__ void shift_expand_kernel(const float* __restrict__ fm,
                                     float* __restrict__ table, int n) {
   const long long ncell = (long long)n * n * n;
@@ -208,6 +258,15 @@ extern "C" int fs_shift_reduce(const float* d, float* out, int n,
   const long long ncell = (long long)n * n * n;
   const dim3 blocks((unsigned)((ncell + kThreads - 1) / kThreads), 4);
   shift_reduce_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(d, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_shift_reduce_rows(const float* d, float* out, int n,
+                                    void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
+  shift_reduce_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(d), reinterpret_cast<float4*>(out), n);
   return (int)cudaGetLastError();
 }
 

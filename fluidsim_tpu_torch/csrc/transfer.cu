@@ -101,18 +101,44 @@
 //   The particles need only be grouped by 512-cell window of their flat id
 //   (the bucket sort's order); wstart[b] is the first particle of window b.
 //   Bound on the H100: memory.  Writing the 108 channels of every cell is
-//   most of the compulsory traffic (927 MB at 129^3; with w27t, v and the
-//   ids ~1.17 GB, ~0.35 ms at 3.35 TB/s).
-//   Design: deterministic, no float atomics.  One thread block per window,
-//   one thread per cell of the window.  The block counts its span's
-//   particles per cell (integer shared-memory atomics), scans the counts,
-//   and each thread then walks the span in order, through shared-memory
-//   tiles of ids, listing its cell's particles in a scratch array: a
-//   stable counting sort, so each cell's particles keep the order of the
-//   array (the full stable sort's order).  Each thread then sums its cell's
-//   particles, offset by offset, in that order; a warp's 32 cells are
-//   consecutive, so every channel's writes are coalesced.  The TPU kernel's
-//   one-hot matmuls, split3 passes and window-local f32 ids are not needed.
+//   most of the compulsory traffic: at 129^3 / 1,987,675 particles the
+//   output is 927.4 MB, with w27t, v and the ids 1,173.9 MB (0.3504 ms at
+//   3.35 TB/s); with C (APIC) 1,245.5 MB (0.3718 ms).
+//   Summation order (the contract): each of a cell's 108 sums is a
+//   sequential f32 sum from +0 over the cell's particles in array order,
+//   the products w * v and v + C off formed as in K1 aff.  That is the order
+//   of the plain version on the CPU (index_add_) and of
+//   transfer_kernels.p2g_scatter_base_ordered, which the kernel equals bit
+//   for bit.
+//   Design: deterministic, no float atomics; two kernels.  At 129^3 88% of
+//   the windows hold no particle: zero_empty_windows_kernel writes their
+//   108 x 512 zeros with 16-byte stores, 128 threads and two rows a block,
+//   no shared memory.  Then p2g_scatter_base_kernel<kAffine> runs one
+//   512-thread block per window, and an occupied window's block
+//   1. ranks its span stably in one pass: each warp takes a contiguous
+//      sub-span, counts its ids per cell and per group of kGroup cells
+//      (__match_any_sync groups equal keys of 32 consecutive particles; the
+//      group's leader adds its size to the warp's histogram), a scan over
+//      (cell, warp) gives every warp's first slot per cell and group, and a
+//      second pass over the sub-span writes each particle's sorted slot
+//      (its key group's base plus its rank among the lower lanes) into
+//      three lists in the scratch: the window's sorted order, each group's
+//      particles in array order, and each particle's sorted slot;
+//   2. sums group by group: the group's particles are staged in shared
+//      memory in their sorted slots (the 27 weights, v, and C), loaded in
+//      array order so that the reads of w27t coalesce (a group of more than
+//      kStage particles is staged kStage at a time in sorted order), and
+//      each (occupied cell, offset) pair of the group is one thread's four
+//      sums over the cell's staged particles, reading only shared memory;
+//      the running sums live in a shared (108, kGroup) block, so a cell that
+//      spans several stages continues its sums there;
+//   3. writes the group's (108, kGroup) block to the output, a warp per row
+//      segment of 32 consecutive cells.
+//   Staging every group in sorted order took most of an occupied block's
+//   time on the H100: the window's order scatters a warp's weight reads
+//   over the whole span, where the group's array order keeps them in runs.
+//   The TPU kernel's one-hot matmuls, split3 passes and window-local f32 ids
+//   are not needed.
 //
 // K7a fs_g2p_gather_table and fs_g2p_moments_table replace
 //   fluidsim_tpu/ops/pallas_transfer.py: gather_wv_cm (_gather_wv_kernel,
@@ -557,40 +583,134 @@ __global__ void g2p_gather_gw_kernel(const float* __restrict__ fm,
   for (int r = 0; r < 9; ++r) out[r * np + p] = acc[r];
 }
 
-constexpr int kWin = 512;      // cells per window (the bucket sort's grouping)
-constexpr int kIdTile = 2048;  // span ids staged in shared memory at a time
+constexpr int kWin = 512;             // cells per window (the bucket order's)
+constexpr int kWarps = kWin / 32;     // warps of a K6a block
+constexpr int kGroup = 32;            // cells summed and written together
+constexpr int kGroups = kWin / kGroup;
+static_assert(kGroups == kWarps, "lane 0 of warp g scans group g");
+constexpr int kStage = kWin;          // particles staged at a time, one a thread
+constexpr int kStageLd = kStage + 1;  // staged weight row stride (bank spread)
+constexpr int kGroupLd = kGroup + 1;  // row stride of the group's sums
 
+// K6a's dynamic shared memory, in 4-byte words: the staged particles (27
+// weight rows, v, C), whose space the rank pass uses first for its per-warp
+// histograms of cells and of groups; then the group's (108, kGroup) sums,
+// the window's first slot per cell (kWin + 1) and the group's occupied
+// cells (kGroup + 1).
 template <bool kAffine>
-__global__ void __launch_bounds__(kWin)
+__host__ __device__ constexpr int base_staged_words() {
+  return 27 * kStageLd + 3 * kStage + (kAffine ? 9 * kStage : 0);
+}
+template <bool kAffine>
+__host__ __device__ constexpr int base_smem_bytes() {
+  return 4 * (base_staged_words<kAffine>() + 108 * kGroupLd + kWin + 1 +
+              kGroup + 1);
+}
+static_assert(base_staged_words<false>() >= kWarps * (kWin + kGroups),
+              "the rank pass's histograms must fit in the staging space");
+
+// The 108 x 512 zeros of an empty window: block (b, y) writes rows 2y and
+// 2y + 1 of window b, 16-byte stores between a scalar head and tail (row r
+// starts at r * n^3 floats, which need not be 16-byte aligned).  Blocks of
+// 1, 2, 4 and 12 rows and a flat fill were measured: 2 rows were fastest.
+__global__ void __launch_bounds__(128)
+    zero_empty_windows_kernel(const int* __restrict__ wstart,
+                              float* __restrict__ out, long long ncell) {
+  const int b = blockIdx.x;
+  if (wstart[b] != wstart[b + 1]) return;
+  const long long cell0 = (long long)b * kWin;
+  const int ncw = (int)min((long long)kWin, ncell - cell0);
+  const int i = threadIdx.x;
+  for (int r = 2 * blockIdx.y; r < 2 * blockIdx.y + 2; ++r) {
+    float* row = out + r * ncell + cell0;
+    const int mis = (int)(((unsigned long long)row >> 2) & 3);
+    const int head = min(ncw, (4 - mis) & 3);
+    const int body = (ncw - head) >> 2;
+    const int tail = head + 4 * body;
+    if (i < head) row[i] = 0.f;
+    if (i < body)
+      reinterpret_cast<float4*>(row + head)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tail + i < ncw) row[tail + i] = 0.f;
+  }
+}
+
+// One block per occupied window (see the note at the top).  scratch holds
+// 3 np ints: the window's particles in sorted order (sorted[s + pos] = p),
+// group by group in array order (garr), and each particle's sorted position
+// (rank[p] = pos), pos and the group lists' slots counted from the window's
+// first particle s.
+template <bool kAffine>
+__global__ void __launch_bounds__(kWin, 2)
     p2g_scatter_base_kernel(const float* __restrict__ w27t,
                             const float* __restrict__ vel,
                             const float* __restrict__ aff,
                             const int* __restrict__ flat,
-                            const int* __restrict__ wstart,
-                            int* __restrict__ order, float* __restrict__ out,
-                            int n, long long np) {
-  __shared__ int count[kWin];
-  __shared__ int warp_total[kWin / 32];
-  __shared__ int ids[kIdTile];
+                            const int* __restrict__ wstart, int* scratch,
+                            float* __restrict__ out, int n, long long np) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int warp_total[kWarps];
   const long long ncell = (long long)n * n * n;
-  const int j = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long cell0 = (long long)blockIdx.x * kWin;
+  const int ncw = (int)min((long long)kWin, ncell - cell0);
   const int s = wstart[blockIdx.x];
   const int e = wstart[blockIdx.x + 1];
+  if (s == e) return;        // zero_empty_windows_kernel writes its zeros
+  int* sorted = scratch;
+  int* garr = scratch + np;
+  int* rank = scratch + 2 * np;
+  float* sw = smem;                          // [27][kStageLd] weights
+  float* sv = sw + 27 * kStageLd;            // [3][kStage] v
+  float* sc = sv + 3 * kStage;               // [9][kStage] C (APIC)
+  int* hist = reinterpret_cast<int*>(smem);  // [kWarps][kWin], rank pass
+  int* ghist = hist + kWarps * kWin;         // [kWarps][kGroups], rank pass
+  float* res = smem + base_staged_words<kAffine>();   // [108][kGroupLd]
+  int* first = reinterpret_cast<int*>(res + 108 * kGroupLd);   // [kWin + 1]
+  int* occ = first + kWin + 1;               // [kGroup], occ[kGroup] = count
 
-  // 1. particles per cell of the window (ids outside it are skipped)
-  count[j] = 0;
+  // 1. the stable rank: warp w ranks the sub-span [ws, we), by cell and by
+  // group of cells
+  for (int k = tid; k < kWarps * (kWin + kGroups); k += kWin) hist[k] = 0;
+  for (int k = tid; k < 108 * kGroupLd; k += kWin) res[k] = 0.f;
   __syncthreads();
-  for (int p = s + j; p < e; p += kWin) {
-    const long long id = flat[p] - cell0;
-    if (id >= 0 && id < kWin) atomicAdd(&count[id], 1);
+  const int len = (e - s + kWarps - 1) / kWarps;
+  const int ws = min(e, s + warp * len), we = min(e, ws + len);
+  int* h = hist + warp * kWin;
+  int* gh = ghist + warp * kGroups;
+  const unsigned below = (1u << lane) - 1u;
+  for (int p0 = ws; p0 < we; p0 += 32) {
+    const int p = p0 + lane;
+    int id = -1;      // ids outside the window are skipped
+    if (p < we) {
+      const long long d = flat[p] - cell0;
+      if (d >= 0 && d < kWin) id = (int)d;
+    }
+    const int gid = id >= 0 ? id / kGroup : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, id);
+    const unsigned gpeers = __match_any_sync(0xffffffffu, gid);
+    if (id >= 0 && (peers & below) == 0u) h[id] += __popc(peers);
+    if (id >= 0 && (gpeers & below) == 0u) gh[gid] += __popc(gpeers);
+    __syncwarp();
   }
   __syncthreads();
-
-  // 2. exclusive scan of the counts: the first slot of each cell
-  const int mine = count[j];
-  const int lane = j & 31, warp = j >> 5;
-  int incl = mine;
+  // cell tid: each warp's first slot relative to the cell's, then the
+  // window's; lane 0 of warp g does the same for group g, whose first slot
+  // is its first cell's
+  int cnt = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = hist[w * kWin + tid];
+    hist[w * kWin + tid] = cnt;
+    cnt += t;
+  }
+  if (lane == 0) {
+    int gcnt = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int t = ghist[w * kGroups + warp];
+      ghist[w * kGroups + warp] = gcnt;
+      gcnt += t;
+    }
+  }
+  int incl = cnt;     // exclusive scan of the counts over the window's cells
   for (int d = 1; d < 32; d <<= 1) {
     const int v = __shfl_up_sync(0xffffffffu, incl, d);
     if (lane >= d) incl += v;
@@ -599,52 +719,116 @@ __global__ void __launch_bounds__(kWin)
   __syncthreads();
   int before = 0;
   for (int k = 0; k < warp; ++k) before += warp_total[k];
-  const int first = s + before + incl - mine;
-
-  // 3. stable counting sort: each thread lists its cell's particles in
-  // span order
-  int last = first;
-  for (int t0 = s; t0 < e; t0 += kIdTile) {
-    const int m = min(kIdTile, e - t0);
-    __syncthreads();
-    for (int k = j; k < m; k += kWin) ids[k] = (int)(flat[t0 + k] - cell0);
-    __syncthreads();
-    if (mine > 0)
-      for (int k = 0; k < m; ++k)
-        if (ids[k] == j) order[last++] = t0 + k;
-  }
-
-  // 4. the 108 sums of this thread's cell, offset by offset
-  const long long cell = cell0 + j;
-  if (cell >= ncell) return;
-  for (int o = 0; o < 27; ++o) {
-    const float fx = (float)(o / 9 - 1);
-    const float fy = (float)((o / 3) % 3 - 1);
-    const float fz = (float)(o % 3 - 1);
-    const float* wo = w27t + (long long)o * np;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int q = first; q < last; ++q) {
-      const long long p = order[q];
-      const float w = wo[p];
-      float v0 = vel[3 * p];
-      float v1 = vel[3 * p + 1];
-      float v2 = vel[3 * p + 2];
-      if (kAffine) {
-        const float* cp = aff + 9 * p;
-        v0 = v0 + cp[0] * fx + cp[1] * fy + cp[2] * fz;
-        v1 = v1 + cp[3] * fx + cp[4] * fy + cp[5] * fz;
-        v2 = v2 + cp[6] * fx + cp[7] * fy + cp[8] * fz;
-      }
-      a0 += w;
-      a1 += w * v0;
-      a2 += w * v1;
-      a3 += w * v2;
+  const int f = before + incl - cnt;
+  first[tid] = f;
+  if (tid == kWin - 1) first[kWin] = f + cnt;
+  for (int w = 0; w < kWarps; ++w) hist[w * kWin + tid] += f;
+  if (lane == 0)
+    for (int w = 0; w < kWarps; ++w) ghist[w * kGroups + warp] += f;
+  __syncthreads();
+  for (int p0 = ws; p0 < we; p0 += 32) {
+    const int p = p0 + lane;
+    int id = -1;
+    if (p < we) {
+      const long long d = flat[p] - cell0;
+      if (d >= 0 && d < kWin) id = (int)d;
     }
-    float* oc = out + 4LL * o * ncell + cell;
-    oc[0] = a0;
-    oc[ncell] = a1;
-    oc[2 * ncell] = a2;
-    oc[3 * ncell] = a3;
+    const int gid = id >= 0 ? id / kGroup : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, id);
+    const unsigned gpeers = __match_any_sync(0xffffffffu, gid);
+    if (id >= 0) {
+      const int pos = h[id] + __popc(peers & below);
+      sorted[s + pos] = p;
+      garr[s + gh[gid] + __popc(gpeers & below)] = p;
+      rank[p] = pos;
+    }
+    __syncwarp();
+    if (id >= 0 && (peers & below) == 0u) h[id] += __popc(peers);
+    if (id >= 0 && (gpeers & below) == 0u) gh[gid] += __popc(gpeers);
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // 2-3. the sums of each group of kGroup cells, then its output block
+  for (int g0 = 0; g0 < kWin; g0 += kGroup) {
+    if (warp == 0) {
+      const bool has = first[g0 + lane + 1] > first[g0 + lane];
+      const unsigned b = __ballot_sync(0xffffffffu, has);
+      if (has) occ[__popc(b & below)] = lane;
+      if (lane == 0) occ[kGroup] = __popc(b);
+    }
+    const int q_end = first[g0 + kGroup];
+    // a group that fits one stage loads its particles in array order (its
+    // reads of w27t, v and C coalesce) into their sorted slots
+    const bool whole = q_end - first[g0] <= kStage;
+    for (int q0 = first[g0]; q0 < q_end; q0 += kStage) {
+      const int nq = min(kStage, q_end - q0);
+      if (tid < nq) {
+        long long p;
+        int slot;
+        if (whole) {
+          p = garr[s + q0 + tid];
+          slot = rank[p] - q0;
+        } else {
+          p = sorted[s + q0 + tid];
+          slot = tid;
+        }
+        for (int o = 0; o < 27; ++o)
+          sw[o * kStageLd + slot] = w27t[o * np + p];
+        sv[slot] = vel[3 * p];
+        sv[kStage + slot] = vel[3 * p + 1];
+        sv[2 * kStage + slot] = vel[3 * p + 2];
+        if (kAffine) {
+#pragma unroll
+          for (int k = 0; k < 9; ++k) sc[k * kStage + slot] = aff[9 * p + k];
+        }
+      }
+      __syncthreads();
+      const int items = occ[kGroup] * 27;
+      for (int it = tid; it < items; it += kWin) {
+        const int c = occ[it / 27], o = it % 27;
+        const int lo = max(first[g0 + c], q0) - q0;
+        const int hi = min(first[g0 + c + 1], q0 + nq) - q0;
+        if (lo >= hi) continue;
+        const float fx = (float)(o / 9 - 1);
+        const float fy = (float)((o / 3) % 3 - 1);
+        const float fz = (float)(o % 3 - 1);
+        const float* wo = sw + o * kStageLd;
+        float* rc = res + 4 * o * kGroupLd + c;
+        float a0 = rc[0], a1 = rc[kGroupLd], a2 = rc[2 * kGroupLd],
+              a3 = rc[3 * kGroupLd];
+        for (int q = lo; q < hi; ++q) {
+          const float w = wo[q];
+          float v0 = sv[q];
+          float v1 = sv[kStage + q];
+          float v2 = sv[2 * kStage + q];
+          if (kAffine) {
+            const float* cq = sc + q;
+            v0 = v0 + cq[0] * fx + cq[kStage] * fy + cq[2 * kStage] * fz;
+            v1 = v1 + cq[3 * kStage] * fx + cq[4 * kStage] * fy +
+                 cq[5 * kStage] * fz;
+            v2 = v2 + cq[6 * kStage] * fx + cq[7 * kStage] * fy +
+                 cq[8 * kStage] * fz;
+          }
+          a0 += w;
+          a1 += w * v0;
+          a2 += w * v1;
+          a3 += w * v2;
+        }
+        rc[0] = a0;
+        rc[kGroupLd] = a1;
+        rc[2 * kGroupLd] = a2;
+        rc[3 * kGroupLd] = a3;
+      }
+      __syncthreads();
+    }
+    for (int k = tid; k < 108 * kGroup; k += kWin) {
+      const int r = k / kGroup, c = k % kGroup;
+      float* rp = res + r * kGroupLd + c;
+      if (g0 + c < ncw) out[r * ncell + cell0 + g0 + c] = *rp;
+      *rp = 0.f;
+    }
+    __syncthreads();
   }
 }
 
@@ -740,17 +924,32 @@ extern "C" int fs_g2p_gather_gw(const float* fm, const float* gradw,
   return (int)cudaGetLastError();
 }
 
-extern "C" int fs_p2g_scatter_base(const float* w27t, const float* vel,
-                                   const float* aff, const int* flat,
-                                   const int* wstart, int* order, float* out,
-                                   int n, long long np, void* stream) {
+template <bool kAffine>
+int launch_scatter_base(const float* w27t, const float* vel, const float* aff,
+                        const int* flat, const int* wstart, int* scratch,
+                        float* out, int n, long long np, cudaStream_t st) {
+  constexpr int bytes = base_smem_bytes<kAffine>();
+  const cudaError_t rc = cudaFuncSetAttribute(
+      p2g_scatter_base_kernel<kAffine>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
   const long long ncell = (long long)n * n * n;
   const unsigned blocks = (unsigned)((ncell + kWin - 1) / kWin);
-  if (aff == nullptr)
-    p2g_scatter_base_kernel<false><<<blocks, kWin, 0, (cudaStream_t)stream>>>(
-        w27t, vel, nullptr, flat, wstart, order, out, n, np);
-  else
-    p2g_scatter_base_kernel<true><<<blocks, kWin, 0, (cudaStream_t)stream>>>(
-        w27t, vel, aff, flat, wstart, order, out, n, np);
+  zero_empty_windows_kernel<<<dim3(blocks, 54), 128, 0, st>>>(wstart, out,
+                                                                ncell);
+  p2g_scatter_base_kernel<kAffine><<<blocks, kWin, bytes, st>>>(
+      w27t, vel, aff, flat, wstart, scratch, out, n, np);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fs_p2g_scatter_base(const float* w27t, const float* vel,
+                                   const float* aff, const int* flat,
+                                   const int* wstart, int* scratch, float* out,
+                                   int n, long long np, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (aff == nullptr)
+    return launch_scatter_base<false>(w27t, vel, nullptr, flat, wstart,
+                                      scratch, out, n, np, st);
+  return launch_scatter_base<true>(w27t, vel, aff, flat, wstart, scratch, out,
+                                   n, np, st);
 }

@@ -4,10 +4,11 @@
 ``from_channel_major`` (K10d), with the JAX shapes.
 
 K10a and K10b are K6b's and K7b's functions on the (n^3, 108) row layout
-(column ``4o + g``): they transpose to the channel-major (27, 4, n, n, n)
-layout and back with ``fs_transpose_pad`` (``csrc/layout.cu``) around the
-``shift_reduce`` and ``shift_expand`` kernels.  Every cell is computed, for
-every n: the JAX functions pad the lanes to a multiple of 128 but launch
+(column ``4o + g``).  K10a is one kernel on the rows,
+``fs_shift_reduce_rows`` (``csrc/stencil.cu``); K10b transposes to the
+channel-major (27, 4, n, n, n) layout and back with ``fs_transpose_pad``
+(``csrc/layout.cu``) around the ``shift_expand`` kernel.  Every cell is
+computed, for every n: the JAX functions pad the lanes to a multiple of 128 but launch
 512-lane blocks, and leave lanes past the last whole block unwritten when
 n^2 rounded up to 128 is not a multiple of 512 (n = 25: lanes 512-624 of
 every x row).
@@ -23,6 +24,7 @@ import torch
 
 from fluidsim_tpu_torch import native
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
+from fluidsim_tpu_torch.ops.transfer import _OFFSETS
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -112,24 +114,55 @@ def _check_rows(name: str, t: torch.Tensor, shape: tuple):
 
 def p2g_shift_reduce_plain(d: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch K10a: ``p2g_shift_reduce`` through the plain versions
-    of its kernels.  (n^3, 108) -> (n, n, n, 4)."""
+    of the transposes and K6b.  (n^3, 108) -> (n, n, n, 4)."""
     _check_rows("p2g_shift_reduce", d, (n ** 3, 108))
     acc = tk.shift_reduce_plain(to_channel_major_plain(d, 1).view(27, 4, n, n, n))
     return from_channel_major_plain(acc.view(4, n ** 3), n ** 3, 1).view(n, n, n, 4)
 
 
+def _shift_lead3(a: torch.Tensor, d) -> torch.Tensor:
+    """result[j, ...] = a[j - d, ...] over the first three axes, zero-padded
+    (``transfer_kernels._shift3`` on the leading axes)."""
+    out = torch.zeros_like(a)
+    src, dst = [], []
+    for s, n_ax in zip(d, a.shape[:3]):
+        s = int(s)
+        src.append(slice(max(-s, 0), n_ax - max(s, 0)))
+        dst.append(slice(max(s, 0), n_ax - max(-s, 0)))
+    out[tuple(dst)] = a[tuple(src)]
+    return out
+
+
+def p2g_shift_reduce_rows_plain(d: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch K10a on the rows, with no transpose: 27 zero-padded
+    shifted adds of the column blocks ``4o .. 4o + 3`` of the (n, n, n, 108)
+    view, in offset order from zero — the kernel's order.
+    (n^3, 108) -> (n, n, n, 4)."""
+    _check_rows("p2g_shift_reduce", d, (n ** 3, 108))
+    rows = d.view(n, n, n, 108)
+    acc = torch.zeros((n, n, n, 4), dtype=d.dtype, device=d.device)
+    for o in range(27):
+        acc = acc + _shift_lead3(rows[..., 4 * o:4 * o + 4], _OFFSETS[o])
+    return acc
+
+
 def p2g_shift_reduce(d: torch.Tensor, n: int) -> torch.Tensor:
     """K10a: ``acc[cell, g] = sum_o d[cell - off_o, 4o + g]`` over the 27
-    offsets in order, sources outside the box dropped; ``d`` is (n^3, 108).
-    (n, n, n, 4) f32.  CUDA tensors launch ``to_channel_major``,
-    ``shift_reduce`` (K6b) and ``from_channel_major``; CPU tensors take
+    offsets in order, sources outside the box adding 0; ``d`` is (n^3, 108).
+    (n, n, n, 4) f32.  CUDA tensors launch ``fs_shift_reduce_rows``
+    (``csrc/stencil.cu``), bitwise equal to ``p2g_shift_reduce_rows_plain``
+    and ``p2g_shift_reduce_plain``; CPU tensors take
     ``p2g_shift_reduce_plain``."""
     if d.device.type == "cpu":
         return p2g_shift_reduce_plain(d, n)
     native.require_cuda(d, "p2g_shift_reduce")
-    _check_rows("p2g_shift_reduce", d, (n ** 3, 108))
-    acc = tk.shift_reduce(to_channel_major(d, 1).view(27, 4, n, n, n))
-    out = from_channel_major(acc.view(4, n ** 3), n ** 3, 1).view(n, n, n, 4)
+    native.check_tensor("d", d, torch.float32, (n ** 3, 108), d.device)
+    out = torch.empty((n, n, n, 4), dtype=torch.float32, device=d.device)
+    lib = native.library()
+    with torch.cuda.device(d.device):
+        rc = lib.fs_shift_reduce_rows(d.data_ptr(), out.data_ptr(), n,
+                                      native.stream_ptr(d.device))
+    native.check_launch("p2g_shift_reduce", rc)
     p2g_shift_reduce.launches += 1
     return out
 

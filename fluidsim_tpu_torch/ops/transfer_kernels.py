@@ -31,6 +31,7 @@ The three K1 modes run one chunked pull: ``chunk_plan`` cuts the cells'
 particle ranges into chunks once per frame (``chunk_fill`` writes its
 lists), and ``p2g_scatter_chunked``, ``p2g_scatter_affine_chunked`` and
 ``p2g_scatter_force_chunked`` are the kernels' summation order in PyTorch.
+``p2g_scatter_base_ordered`` is K6a's (each cell's sums in array order).
 
 Each kernel wrapper (``p2g_scatter``, ``p2g_scatter_affine``,
 ``p2g_scatter_force``, ``chunk_fill``, ``p2g_scatter_base``, ``shift_reduce``,
@@ -737,6 +738,33 @@ def p2g_scatter_base_plain(w27t: torch.Tensor, vel_s: torch.Tensor,
                            n).contiguous()
 
 
+def p2g_scatter_base_ordered(w27t: torch.Tensor, vel_s: torch.Tensor,
+                             flat_s: torch.Tensor, n: int,
+                             aff_s: torch.Tensor | None = None) -> torch.Tensor:
+    """K6a's summation order in PyTorch, deterministic on either device:
+    each of a cell's 108 sums is a sequential f32 sum from +0 over the
+    cell's particles in array order.  A stable sort by ``flat_s`` lists each
+    cell's particles; slot j = 0, 1, ... then adds the j-th particle of
+    every cell that has one (a masked add: cells with fewer particles are
+    left as they are).  Reads the particle counts on the host once.
+    Returns (27, 4, n, n, n)."""
+    p = vel_s.shape[0]
+    u = _wv_values(w27t, vel_s, aff_s).reshape(p, 108)
+    flat = flat_s.to(torch.int64)
+    _, perm = torch.sort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=n ** 3)
+    start = torch.cumsum(counts, 0) - counts
+    by_count = torch.argsort(counts, descending=True, stable=True)
+    # active[j]: how many cells hold more than j particles
+    active = torch.bincount(counts, minlength=1).flip(0).cumsum(0).flip(0)
+    active = active[1:].tolist()
+    d = u.new_zeros((n ** 3, 108))
+    for j, k in enumerate(active):
+        cells = by_count[:k]
+        d[cells] = d[cells] + u[perm[start[cells] + j]]
+    return d.T.reshape(27, 4, n, n, n).contiguous()
+
+
 def p2g_scatter_base(w27t: torch.Tensor, vel_s: torch.Tensor,
                      flat_s: torch.Tensor, wstart: torch.Tensor, n: int,
                      aff_s: torch.Tensor | None = None) -> torch.Tensor:
@@ -747,7 +775,9 @@ def p2g_scatter_base(w27t: torch.Tensor, vel_s: torch.Tensor,
     ``wstart`` is ``window_starts(flat_s, n)``.  ``aff_s`` (P, 9): the APIC
     term, with ``vel_s`` then veff.  (27, 4, n, n, n) f32, every cell
     written.  CUDA tensors launch ``fs_p2g_scatter_base``
-    (``csrc/transfer.cu``); CPU tensors take ``p2g_scatter_base_plain``."""
+    (``csrc/transfer.cu``), bitwise equal to ``p2g_scatter_base_ordered``;
+    CPU tensors take ``p2g_scatter_base_plain``, which sums in the same
+    order."""
     if w27t.device.type == "cpu":
         return p2g_scatter_base_plain(w27t, vel_s, flat_s, n, aff_s)
     native.require_cuda(w27t, "p2g_scatter_base")
@@ -763,13 +793,14 @@ def p2g_scatter_base(w27t: torch.Tensor, vel_s: torch.Tensor,
     if p >= 2 ** 31:
         raise ValueError("p2g_scatter_base: more than 2^31 - 1 particles")
     out = torch.empty((27, 4, n, n, n), dtype=torch.float32, device=dev)
-    order = torch.empty((p,), dtype=torch.int32, device=dev)   # scratch
+    # scratch: the windows' sorted order, the groups' lists and the ranks
+    scratch = torch.empty((3 * p,), dtype=torch.int32, device=dev)
     lib = native.library()
     with torch.cuda.device(dev):
         rc = lib.fs_p2g_scatter_base(
             w27t.data_ptr(), vel_s.data_ptr(),
             None if aff_s is None else aff_s.data_ptr(), flat_s.data_ptr(),
-            wstart.data_ptr(), order.data_ptr(), out.data_ptr(), n, p,
+            wstart.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, p,
             native.stream_ptr(dev))
     native.check_launch("p2g_scatter_base", rc)
     p2g_scatter_base.launches += 1

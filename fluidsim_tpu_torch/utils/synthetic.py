@@ -1,6 +1,7 @@
 """Synthetic kernel inputs that a frame's state may not reach, made from a
-seed with numpy: the run tables of the bucket move (K5) and skewed sorted
-states for the K1 modes (K1, K1 aff, K1 fg).  ``chip_smoke.py`` holds the CUDA
+seed with numpy: the run tables of the bucket move (K5), skewed sorted
+states for the K1 modes (K1, K1 aff, K1 fg) and a skewed window-grouped
+state for the base-cell scatter (K6a).  ``chip_smoke.py`` holds the CUDA
 kernels to their plain versions on them, and the CPU tests hold the plain
 versions and the plans to numpy on the same inputs."""
 
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from fluidsim_tpu_torch.ops.bucket_sort import DEAD_DST
-from fluidsim_tpu_torch.ops.transfer_kernels import CHUNK
+from fluidsim_tpu_torch.ops.transfer_kernels import CHUNK, WINDOW
 
 
 def bucket_tables(seed: int, p: int, nc: int, to: int = 1024, emax: int = 64,
@@ -119,3 +120,38 @@ def skewed_wv_state(seed: int, n: int, big: int, band: float = 0.3,
     aff = rng.normal(scale=0.5, size=(p, 9)).astype(np.float32)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (w27t, vel, aff, cell_start)) + (counts,)
+
+
+def skewed_window_state(seed: int, n: int, big: int, fill: float = 0.05,
+                        device="cpu"):
+    """A K6a state on an n^3 grid (n^3 not a multiple of ``WINDOW``), its
+    particles grouped by ``WINDOW``-cell window of their cell id and
+    shuffled inside each window: 1-40 particles in a fraction ``fill`` of
+    the cells of the lower half of the ids (the upper half's windows stay
+    empty); 5 in every cell of window 1 (a span of 2,560 ids); ``big`` in
+    the centre cell; 1-3 in every cell of the ragged last window.  Returns
+    ``(w27t, vel, aff, flat_s, counts)``: random weights in [0, 1) (27, P),
+    velocities (P, 3), affine matrices (P, 9, scale 0.5), f32, the int32
+    cell ids (P,), and the int64 numpy particles per cell (n^3,)."""
+    n3 = n ** 3
+    last = n3 // WINDOW * WINDOW
+    centre = (n // 2 * n + n // 2) * n + n // 2
+    if last == n3 or last < 3 * WINDOW or centre // WINDOW in (1, last // WINDOW):
+        raise ValueError(f"skewed_window_state: n = {n} gives no ragged last "
+                         "window, or one that is window 1 or the centre's")
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(n3, np.int64)
+    half = counts[:n3 // 2]
+    half[...] = np.where(rng.random(half.shape) < fill,
+                         rng.integers(1, 41, half.shape), 0)
+    counts[WINDOW:2 * WINDOW] = 5
+    counts[last:] = rng.integers(1, 4, n3 - last)
+    counts[centre] = big
+    flat = np.repeat(np.arange(n3), counts)
+    flat = flat[np.lexsort((rng.random(flat.size), flat // WINDOW))]
+    p = flat.size
+    w27t = rng.random((27, p)).astype(np.float32)
+    vel = rng.normal(scale=3.0, size=(p, 3)).astype(np.float32)
+    aff = rng.normal(scale=0.5, size=(p, 9)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (w27t, vel, aff, flat.astype(np.int32))) + (counts,)

@@ -284,6 +284,80 @@ def test_k6a_scatter_base_matches_scatter_wv_cm(mode, grouped, k6a_both):
     assert np.abs(ref).max() > 1 and not np.asarray(d_cm)[108:].any()
 
 
+@pytest.mark.parametrize("mode", ["flip", "apic"])
+def test_k6a_order_function_matches_scatter_wv_cm(mode, grouped, k6a_both):
+    """``p2g_scatter_base_ordered``, K6a's order on the card, against the
+    TPU kernel at the tolerance of its plain version."""
+    lay, _, (tpos, tvel, tflat, taff) = grouped
+    d_cm, _ = k6a_both[mode]
+    out = tk.p2g_scatter_base_ordered(
+        tk.masked_weights_cm(tpos, KBOUND), tvel, tflat, KN,
+        aff_s=taff if mode == "apic" else None)
+    np.testing.assert_allclose(out.numpy().reshape(108, KN, KN, KN),
+                               _unhalo(d_cm, lay), atol=1e-5, rtol=1e-5)
+
+
+def _k6a_state(kind, grouped):
+    """(w27t, vel, aff, flat_s) of one K6a state: the window-grouped one of
+    ``grouped``, the same particles fully sorted by cell, or
+    ``synthetic.skewed_window_state`` (3,000 particles in one cell, a span
+    past 2,048 ids, the ragged last window occupied)."""
+    if kind == "skewed":
+        return synthetic.skewed_window_state(3, 17, 3000)[:4]
+    *_, (tpos, tvel, tflat, taff) = grouped
+    w27t = tk.masked_weights_cm(tpos, KBOUND)
+    if kind == "sorted":
+        perm = torch.sort(tflat, stable=True)[1]
+        return w27t[:, perm].contiguous(), tvel[perm], taff[perm], tflat[perm]
+    return w27t, tvel, taff, tflat
+
+
+@pytest.mark.parametrize("mode", ["flip", "apic"])
+@pytest.mark.parametrize("kind", ["grouped", "sorted", "skewed"])
+def test_k6a_order_function_equals_the_plain_version_bitwise(kind, mode,
+                                                             grouped):
+    """The CPU plain version (``index_add_``) sums each cell in array order,
+    as the kernel does: the order function equals it to the bit."""
+    w27t, vel, aff, flat = _k6a_state(kind, grouped)
+    n = 17 if kind == "skewed" else KN
+    aff = aff if mode == "apic" else None
+    ordered = tk.p2g_scatter_base_ordered(w27t, vel, flat, n, aff)
+    plain = tk.p2g_scatter_base_plain(w27t, vel, flat, n, aff)
+    assert ordered.shape == (27, 4, n, n, n)
+    np.testing.assert_array_equal(_bits(ordered.numpy()), _bits(plain.numpy()))
+    assert float(ordered.abs().max()) > 1
+
+
+def test_k6a_plain_version_sums_in_array_order():
+    """Both against an explicit numpy loop over the particles in array
+    order, each add rounded to f32, on the skewed window state."""
+    w27t, vel, aff, flat, _ = synthetic.skewed_window_state(4, 17, 500)
+    n3 = 17 ** 3
+    u = tk._wv_values(w27t, vel, aff).reshape(-1, 108).numpy()
+    ref = np.zeros((n3, 108), np.float32)
+    for i, f in enumerate(flat.numpy()):
+        ref[f] = ref[f] + u[i]
+    ref = ref.T.reshape(27, 4, 17, 17, 17)
+    for fn in (tk.p2g_scatter_base_plain, tk.p2g_scatter_base_ordered):
+        np.testing.assert_array_equal(
+            _bits(fn(w27t, vel, flat, 17, aff).numpy()), _bits(ref))
+
+
+def test_skewed_window_state_has_what_it_claims():
+    w27t, vel, aff, flat, counts = synthetic.skewed_window_state(5, 17, 3000)
+    f = flat.numpy().astype(np.int64)
+    n3, p = 17 ** 3, f.size
+    assert w27t.shape == (27, p) and vel.shape == (p, 3) and aff.shape == (p, 9)
+    np.testing.assert_array_equal(np.bincount(f, minlength=n3), counts)
+    win = f // tk.WINDOW
+    assert (np.diff(win) >= 0).all() and not (np.diff(f) >= 0).all()
+    spans = np.bincount(win)
+    assert counts.max() == 3000 and spans.max() > 2048
+    assert n3 % tk.WINDOW and spans[-1] > 0 and (spans == 0).any()
+    ws = tk.window_starts(flat, 17).numpy()
+    np.testing.assert_array_equal(np.diff(ws), spans)
+
+
 def test_k6b_shift_reduce_matches_reduce_haloed(grouped, k6a_both):
     """On the APIC base-cell sums (K6b is linear and blind to the mode)."""
     lay = grouped[0]

@@ -309,6 +309,22 @@ def test_k10_shift_entry_points_match_numpy_at_n25(which):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("n", [17, 25, 45])
+def test_k10a_row_plain_version_equals_the_transposed_one_bitwise(n):
+    """``p2g_shift_reduce_rows_plain`` (27 shifted adds on the rows, the
+    CUDA kernel's order) against ``p2g_shift_reduce_plain`` (K10c, K6b,
+    K10d), every cell, n^3 a multiple of 32 or not."""
+    d = torch.as_tensor(np.random.default_rng(n).normal(
+        size=(n ** 3, 108)).astype(np.float32))
+    rows = shift.p2g_shift_reduce_rows_plain(d, n)
+    ref = shift.p2g_shift_reduce_plain(d, n)
+    assert rows.shape == (n, n, n, 4)
+    np.testing.assert_array_equal(rows.numpy().view(np.int32),
+                                  ref.numpy().view(np.int32))
+    with pytest.raises(ValueError):
+        shift.p2g_shift_reduce_rows_plain(d[1:], n)
+
+
 @pytest.mark.parametrize("n3,c,r", [(1000, 108, 256), (4096, 108, 2048),
                                     (3000, 4, 2048)])
 def test_k10_transposes_match_jax(n3, c, r):
