@@ -79,14 +79,21 @@ Phases, each of which raises on failure (nonzero exit):
    versions (K9a also bit for bit against ``p2g_scatter_base_ordered``),
    the unhaloed shift entry points (K10a, K10b) against K6b and K7b, their
    plain versions and ``conv3d`` (K10a bit for bit against both of its
-   plain versions and K6b), the transposes (K10c, K10d) of
-   a (129^3, 108) matrix against ``.T.contiguous()``, and the launch
-   counts of one call of each entry point;
+   plain versions and K6b; K10b bit for bit against both of its plain
+   versions and K7b's table transposed, at 129^3 and again at 25^3 and
+   45^3 on random fields), the transposes (K10c, K10d) of a (129^3, 108)
+   matrix against ``.T.contiguous()``, and the launch counts of one call
+   of each entry point;
 21. the row-layout transfer kernels (K8a row gather, K8b row scatter-add)
    against their plain versions and one PyTorch call (``index_select``,
    ``index_add_``) on that state, timed as in phase 3; the row P2G (K8b,
    then K6b) against K6a and K6b and the row G2P (K7b, K8a, the
-   contraction) against K7a and K2, bit for bit; both kernels again on
+   contraction) against K7a and K2, bit for bit; K8b's tile plan against
+   ``scatter_tile_starts_plain`` and K8b against its rerun, bit for bit;
+   K8b on ``utils/synthetic.skewed_row_state`` (20,000 rows in one cell)
+   timed, and bit for bit against its plain version on the CPU (each
+   cell's rows in array order); one K8b call on the state's rows in an
+   order that is not sorted, which must not fault; both kernels again on
    sweep_transfer's 127-lane rows and table of ones;
 22. ``utils/transfer_parts`` at 129^3 on the 3-frame state: one pass of the
    row P2G and G2P with the launch counts of every kernel, the row P2G
@@ -567,6 +574,22 @@ def _shift_onehots(dev, torch):
     return expand, expand.transpose(0, 1).flip(2, 3, 4).contiguous()
 
 
+def _k10b_bitwise(fm_rows, n, torch):
+    """K10b on the (n, n, n, 4) field ``fm_rows``, bit for bit against both
+    of its plain versions and K7b's (27, 4, n, n, n) table transposed."""
+    from fluidsim_tpu_torch.ops import shift
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    out = shift.g2p_table_expand(fm_rows, n)
+    k7b = tk.shift_expand(fm_rows.permute(3, 0, 1, 2).contiguous())
+    for name, ref in (
+            ("g2p_table_expand_rows_plain",
+             shift.g2p_table_expand_rows_plain(fm_rows, n)),
+            ("g2p_table_expand_plain", shift.g2p_table_expand_plain(fm_rows, n)),
+            ("K7b's table transposed", k7b.view(108, n ** 3).T)):
+        _require_bitwise(f"K10b at {n}^3 against {name}", out, ref, torch)
+
+
 def _materialised_phases(dev, counted, torch):
     """Phases 18-20 on the sorted state of ``FlipSim`` after its 2 warm-up
     frames: the materialised G2P's kernels (K7b, K7a), the materialised G2P
@@ -720,9 +743,11 @@ def _materialised_phases(dev, counted, torch):
         "K10b g2p_table_expand", lambda: shift.g2p_table_expand(fm_rows, n),
         lambda: shift.g2p_table_expand_plain(fm_rows, n), 0.0, (fm_rows,), 0,
         torch, library=lambda: F.conv3d(fm_in, onehot, padding=1))
-    if not torch.equal(shift.g2p_table_expand(fm_rows, n),
-                       table.view(108, n3).T):
-        raise AssertionError("K10b differs from K7b")
+    _k10b_bitwise(fm_rows, n, torch)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for m in (25, 45):          # m^3 not a multiple of the kernel's block
+        _k10b_bitwise(torch.randn((m, m, m, 4), generator=g, device=dev), m,
+                      torch)
     print("K10a, K10b: equal to K6b and K7b in the row layout, bit for bit")
     del red, table, d, conv_in, fm_in
 
@@ -757,14 +782,50 @@ def _materialised_phases(dev, counted, torch):
     want.update({"p2g_scatter_spans": 1, "p2g_scatter_base": 1,
                  "g2p_gather_spans": 1, "g2p_gather_table": 1,
                  "p2g_shift_reduce": 1, "g2p_table_expand": 1,
-                 "shift_expand": 1, "to_channel_major": 2,
-                 "from_channel_major": 2})
+                 "to_channel_major": 1, "from_channel_major": 1})
     if entry_launches != want:
         raise AssertionError(f"shift_entry_points: launches {entry_launches}, "
                              f"expected {want}")
     state = dict(pos_s=pos_s, vel_s=vel_s, flat=flat, w27t=w27t, fm=fm,
                  bound=B, wall=wall, cells=cells)
     return results, table_launches, entry_launches, state
+
+
+def _k8b_more_states(u_rows, flat, n, dev, torch):
+    """K8b on ``utils/synthetic.skewed_row_state`` at n^3 (20,000 rows in
+    one cell) against its plain version and ``index_add_``, timed as in
+    phase 3, and bit for bit against the plain version on the CPU, whose
+    ``index_add_`` adds each cell's rows in array order; then one call on
+    ``u_rows`` with ``flat`` shuffled, which must not fault (the result is
+    undefined).  Returns the skewed state's numbers."""
+    from fluidsim_tpu_torch.ops import rows as rw
+    from fluidsim_tpu_torch.utils import synthetic
+
+    n3 = n ** 3
+    rows, flat_k, counts = synthetic.skewed_row_state(SEED, n, 20_000,
+                                                      device=dev)
+    p = flat_k.shape[0]
+    print(f"skewed row state: {p} rows at {n}^3, the fullest cell "
+          f"{int(counts.max())}, {int((counts > 0).sum())} cells occupied")
+    flat64 = flat_k.to(torch.int64)
+    res = _compare(
+        "K8b scatter_rows_cm, the skewed row state",
+        lambda: rw.scatter_rows_cm(rows, flat_k, n3),
+        lambda: rw.scatter_rows_cm_plain(rows, flat_k, n3), 1e-5,
+        (rows[:p], flat_k), 128 * p, torch,
+        library=lambda: torch.zeros((128, n3), device=dev).t().index_add_(
+            0, flat64, rows[:p]))
+    _require_bitwise(
+        "K8b, the skewed row state: against the plain version on the CPU",
+        rw.scatter_rows_cm(rows, flat_k, n3).cpu(),
+        rw.scatter_rows_cm_plain(rows.cpu(), flat_k.cpu(), n3), torch)
+    del rows, flat_k, flat64
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shuffled = flat[torch.randperm(flat.shape[0], generator=g, device=dev)]
+    rw.scatter_rows_cm(u_rows, shuffled, n3)
+    torch.cuda.synchronize()
+    print("K8b on an order that is not sorted: no fault")
+    return {"skewed_state": res}
 
 
 def _row_phases(dev, torch, state):
@@ -821,7 +882,17 @@ def _row_phases(dev, torch, state):
                              f"{_max_err(d[:108], base.view(108, n3)):.3e}")
     if not torch.equal(acc, tk.shift_reduce(base)):
         raise AssertionError("K6b of K8b differs from K6b of K6a")
-    del d, acc, base
+    del acc, base
+    d1, tile_start = rw.scatter_rows_cm_launch(u_rows, flat, n3)
+    _require_bitwise("K8b tile plan against scatter_tile_starts_plain",
+                     tile_start, rw.scatter_tile_starts_plain(flat, n3), torch)
+    _require_bitwise("K8b against its rerun", d1, d, torch)
+    tiles = tile_start[1:] - tile_start[:-1]
+    print(f"K8b tiles: {int((tiles > 0).sum())} of {tiles.numel()} occupied, "
+          f"the fullest {int(tiles.max())} rows")
+    del d, d1, tile_start, tiles
+    results["scatter_rows_cm"].update(_k8b_more_states(u_rows, flat, n, dev,
+                                                       torch))
     rows, out = tparts.row_g2p(st, table_cm, u_rows)
     k7a = tk.g2p_gather_table(tk.shift_expand(fm), st.w27t, flat)
     k2 = tk.g2p_gather(fm, st.w27t, flat)

@@ -1,6 +1,6 @@
 // Pressure-solve stencil kernels of the FLIP frame (K3, K4) and the
 // 27-offset shift stencils of the unfused transfers (K6b, K7b) and of the
-// row layout (K10a), for Hopper (sm_90a), with a plain C interface bound
+// row layout (K10a, K10b), for Hopper (sm_90a), with a plain C interface bound
 // through ctypes (fluidsim_tpu_torch/ops/stencil_kernels.py,
 // ops/transfer_kernels.py, ops/shift.py).
 //
@@ -79,6 +79,28 @@
 //   warp is one contiguous row segment of the table, and the 27 loads of a
 //   cell's neighbours come from L1/L2 (the x neighbours are one plane,
 //   66 KB, away).
+//
+// K10b fs_shift_expand_rows replaces fluidsim_tpu/ops/pallas_shift.py:179
+//   g2p_table_expand (_expand_kernel, l.111, on the unhaloed lane layout),
+//   K7b's function on the row layout and the mirror of K10a:
+//   table[cell, 4o + g] = fm[cell + off_o, g], 0 where cell + off_o is
+//   outside the box.  fm is (n, n, n, 4), table (n^3, 108), both dense.
+//   Bound on the H100: memory.  One read of fm (34.3 MB at 129^3) and one
+//   write of the rows (927.4 MB), 961.7 MB, ~0.2871 ms at 3.35 TB/s; the
+//   writes are 96% of it, so the design serves them.
+//   Design: one kernel on the rows, no transpose (the port's first K10b
+//   was K10c, K7b and K10d, three launches moving ~2.8 GB).  A block takes
+//   kExpandCells consecutive cells of the flat index and stages in shared
+//   memory the 9 line ranges of fm its cells' neighbours come from,
+//   [c0 + dx n^2 + dy n - 1, c0 + T + dx n^2 + dy n + 1) for dx, dy in
+//   {-1, 0, 1} (9 x 130 x 16 B at T = 128), with a 27-bit mask per cell of
+//   the neighbours inside the box.  The block's output is one contiguous,
+//   16-byte aligned span of T x 432 B: consecutive threads write
+//   consecutive 16-byte slots (slot e is offset e % 27 of cell c0 + e / 27),
+//   so every warp store is 512 contiguous bytes; the value comes from
+//   shared memory, masked by the cell's bit, so a neighbour across a line,
+//   plane or box edge reads 0.  The fm reads of the 9 lines are served
+//   mostly by L2 (the x neighbours are one plane, 266 KB, away).
 //
 // Built with --fmad=false: with the same operation order as the plain
 // PyTorch versions every result is rounded identically (bitwise equal).
@@ -230,6 +252,54 @@ __global__ void shift_expand_kernel(const float* __restrict__ fm,
   }
 }
 
+
+// K10b: a block of kExpandCells cells; lines[l] holds fm[c0 + dx n^2 + dy n
+// - 1 + k] for l = 3 (dx + 1) + (dy + 1), k < kExpandCells + 2 (0 outside
+// the array), valid[j] bit o whether cell c0 + j's neighbour o is in the
+// box.  Offset o = 9 (dx + 1) + 3 (dy + 1) + (dz + 1) reads lines[o / 3][j +
+// dz + 1].
+constexpr int kExpandCells = 128;
+constexpr int kExpandPitch = kExpandCells + 3;   // odd in float4: fewer conflicts
+
+__global__ void __launch_bounds__(kThreads)
+    shift_expand_rows_kernel(const float4* __restrict__ fm,
+                             float4* __restrict__ table, int n) {
+  __shared__ float4 lines[9][kExpandPitch];
+  __shared__ unsigned valid[kExpandCells];
+  const long long ncell = (long long)n * n * n;
+  const long long n2 = (long long)n * n;
+  const long long c0 = (long long)blockIdx.x * kExpandCells;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < 9 * (kExpandCells + 2); i += blockDim.x) {
+    const int l = i / (kExpandCells + 2), k = i - l * (kExpandCells + 2);
+    const long long src = c0 + (l / 3 - 1) * n2 + (l % 3 - 1) * n + k - 1;
+    lines[l][k] = src >= 0 && src < ncell ? __ldg(fm + src) : zero;
+  }
+  for (int j = threadIdx.x; j < kExpandCells; j += blockDim.x) {
+    const long long c = c0 + j;
+    unsigned m = 0;
+    if (c < ncell) {
+      const int x = (int)(c / n2), y = (int)((c / n) % n), z = (int)(c % n);
+      // bit d + 1 of each: whether the neighbour at d in {-1, 0, 1} is inside
+      const unsigned mx = (x > 0) | 2u | (x < n - 1) << 2;
+      const unsigned my = (y > 0) | 2u | (y < n - 1) << 2;
+      const unsigned mz = (z > 0) | 2u | (z < n - 1) << 2;
+#pragma unroll
+      for (int o = 0; o < 27; ++o)
+        m |= (mx >> (o / 9) & my >> (o / 3 % 3) & mz >> (o % 3) & 1u) << o;
+    }
+    valid[j] = m;
+  }
+  __syncthreads();
+  const long long cells = ncell - c0 < kExpandCells ? ncell - c0 : kExpandCells;
+  const int slots = (int)cells * 27;
+  float4* out = table + c0 * 27;
+  for (int e = threadIdx.x; e < slots; e += blockDim.x) {
+    const int j = e / 27, o = e - 27 * j;
+    out[e] = valid[j] >> o & 1u ? lines[o / 3][j + o % 3] : zero;
+  }
+}
+
 }  // namespace
 
 extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
@@ -276,5 +346,17 @@ extern "C" int fs_shift_expand(const float* fm, float* table, int n,
   const dim3 blocks((unsigned)((ncell + kThreads - 1) / kThreads), 4);
   shift_expand_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(fm, table,
                                                                      n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_shift_expand_rows(const float* fm, float* table, int n,
+                                    void* stream) {
+  const long long ncell = (long long)n * n * n;
+  const long long blocks = (ncell + kExpandCells - 1) / kExpandCells;
+  if (blocks == 0) return 0;
+  shift_expand_rows_kernel<<<(unsigned)blocks, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(fm), reinterpret_cast<float4*>(table),
+      n);
   return (int)cudaGetLastError();
 }

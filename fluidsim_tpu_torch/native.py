@@ -51,6 +51,7 @@ _SIGNATURES = {
     "fs_shift_reduce": (_P, _P, ctypes.c_int, _P),
     "fs_shift_expand": (_P, _P, ctypes.c_int, _P),
     "fs_shift_reduce_rows": (_P, _P, ctypes.c_int, _P),
+    "fs_shift_expand_rows": (_P, _P, ctypes.c_int, _P),
     "fs_transpose_pad": (_P, _P, ctypes.c_longlong, ctypes.c_longlong,
                          ctypes.c_longlong, ctypes.c_longlong, _P),
     "fs_gather_rows_cm": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,

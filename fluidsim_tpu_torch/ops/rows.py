@@ -160,6 +160,21 @@ gather_rows_cm.launches = 0
 
 # ---- K8b: the channel-major row scatter-add ---------------------------------
 
+SCATTER_CELLS = 128   # cells per K8b tile (kScatterCells in csrc/rows.cu)
+
+
+def scatter_tile_starts_plain(flat_s: torch.Tensor, ncells: int) -> torch.Tensor:
+    """K8b's tile plan in PyTorch: ``tile_start[t]``, the first p with
+    ``flat_s[p] >= min(t * SCATTER_CELLS, ncells)`` for t = 0 .. ntiles, so
+    tile t's rows are ``[tile_start[t], tile_start[t + 1])``.  (ntiles + 1,)
+    int32, ``ntiles = ceil(ncells / SCATTER_CELLS)``; the kernel's first
+    pass writes the same numbers."""
+    ntiles = -(-ncells // SCATTER_CELLS)
+    edges = torch.clamp(torch.arange(ntiles + 1, device=flat_s.device)
+                        * SCATTER_CELLS, max=ncells)
+    return torch.searchsorted(flat_s.to(torch.int64), edges).to(torch.int32)
+
+
 def scatter_rows_cm_plain(u_rows: torch.Tensor, flat_s: torch.Tensor,
                           ncells: int) -> torch.Tensor:
     """Plain PyTorch K8b: ``index_add_`` of the rows below P onto a
@@ -168,6 +183,28 @@ def scatter_rows_cm_plain(u_rows: torch.Tensor, flat_s: torch.Tensor,
     d = torch.zeros((ncells, LANES), dtype=torch.float32, device=u_rows.device)
     d.index_add_(0, flat_s.to(torch.int64), u_rows[:p])
     return d.T.contiguous()
+
+
+def scatter_rows_cm_launch(u_rows: torch.Tensor, flat_s: torch.Tensor,
+                           ncells: int):
+    """Launch K8b on CUDA tensors: ``(out, tile_start)``, the tile plan the
+    kernel's first pass wrote (``scatter_tile_starts_plain``'s numbers on a
+    sorted order).  ``scatter_rows_cm`` returns ``out``."""
+    native.require_cuda(u_rows, "scatter_rows_cm")
+    dev = u_rows.device
+    p = flat_s.shape[0]
+    _check_common("scatter_rows_cm", flat_s, u_rows)
+    if u_rows.data_ptr() % 16:
+        raise ValueError("scatter_rows_cm: the rows must be 16-byte aligned "
+                         "(the kernel copies them in 512-byte rows)")
+    out = torch.empty((LANES, ncells), dtype=torch.float32, device=dev)
+    tile_start = torch.empty((-(-ncells // SCATTER_CELLS) + 1,),
+                             dtype=torch.int32, device=dev)
+    _launch(scatter_rows_cm, flat_s, ncells, lambda lib, stream:
+            lib.fs_scatter_rows_cm(u_rows.data_ptr(), flat_s.data_ptr(),
+                                   tile_start.data_ptr(), out.data_ptr(),
+                                   ncells, p, stream))
+    return out, tile_start
 
 
 def scatter_rows_cm(u_rows: torch.Tensor, flat_s: torch.Tensor,
@@ -179,27 +216,16 @@ def scatter_rows_cm(u_rows: torch.Tensor, flat_s: torch.Tensor,
 
     ``u_rows`` (P_pad, 128) f32, P_pad >= P (rows past P are ignored);
     ``flat_s`` (P,) int32, sorted ascending, every id in [0, ncells)
-    (raises otherwise; the order is the caller's contract, as in JAX).
-    (128, ncells) f32.  CUDA tensors launch ``fs_scatter_rows_cm``
-    (``csrc/rows.cu``); CPU tensors take ``scatter_rows_cm_plain``."""
+    (raises otherwise; the order is the caller's contract, as in JAX: on
+    another order the result is undefined, but the kernel stays inside the
+    arrays).  (128, ncells) f32.  CUDA tensors launch
+    ``fs_scatter_rows_cm`` (``csrc/rows.cu``: the tile plan, then one block
+    per 128-cell tile); CPU tensors take ``scatter_rows_cm_plain``."""
     if u_rows.device.type == "cpu":
         if flat_s.numel():
             _check_ids("scatter_rows_cm", int(flat_s[0]), int(flat_s[-1]), ncells)
         return scatter_rows_cm_plain(u_rows, flat_s, ncells)
-    native.require_cuda(u_rows, "scatter_rows_cm")
-    dev = u_rows.device
-    p = flat_s.shape[0]
-    _check_common("scatter_rows_cm", flat_s, u_rows)
-    if u_rows.data_ptr() % 16:
-        raise ValueError("scatter_rows_cm: the rows must be 16-byte aligned "
-                         "(the kernel reads them as float4)")
-    out = torch.empty((LANES, ncells), dtype=torch.float32, device=dev)
-    starts = torch.empty((ncells + 1,), dtype=torch.int32, device=dev)  # scratch
-    _launch(scatter_rows_cm, flat_s, ncells, lambda lib, stream:
-            lib.fs_scatter_rows_cm(u_rows.data_ptr(), flat_s.data_ptr(),
-                                   starts.data_ptr(), out.data_ptr(), ncells,
-                                   p, stream))
-    return out
+    return scatter_rows_cm_launch(u_rows, flat_s, ncells)[0]
 
 
 scatter_rows_cm.launches = 0

@@ -4,14 +4,12 @@
 ``from_channel_major`` (K10d), with the JAX shapes.
 
 K10a and K10b are K6b's and K7b's functions on the (n^3, 108) row layout
-(column ``4o + g``).  K10a is one kernel on the rows,
-``fs_shift_reduce_rows`` (``csrc/stencil.cu``); K10b transposes to the
-channel-major (27, 4, n, n, n) layout and back with ``fs_transpose_pad``
-(``csrc/layout.cu``) around the ``shift_expand`` kernel.  Every cell is
-computed, for every n: the JAX functions pad the lanes to a multiple of 128 but launch
-512-lane blocks, and leave lanes past the last whole block unwritten when
-n^2 rounded up to 128 is not a multiple of 512 (n = 25: lanes 512-624 of
-every x row).
+(column ``4o + g``), each one kernel on the rows with no transpose:
+``fs_shift_reduce_rows`` and ``fs_shift_expand_rows`` (``csrc/stencil.cu``).
+Every cell is computed, for every n: the JAX functions pad the lanes to a
+multiple of 128 but launch 512-lane blocks, and leave lanes past the last
+whole block unwritten when n^2 rounded up to 128 is not a multiple of 512
+(n = 25: lanes 512-624 of every x row).
 
 Each function launches its kernels for CUDA tensors and takes its plain
 PyTorch version only for CPU tensors; anything else raises.  Each counts its
@@ -172,24 +170,42 @@ p2g_shift_reduce.launches = 0
 
 def g2p_table_expand_plain(fm: torch.Tensor, n: int) -> torch.Tensor:
     """Plain PyTorch K10b: ``g2p_table_expand`` through the plain versions
-    of its kernels.  (n, n, n, 4) -> (n^3, 108)."""
+    of the transposes and K7b.  (n, n, n, 4) -> (n^3, 108)."""
     _check_rows("g2p_table_expand", fm, (n, n, n, 4))
     fm_cm = to_channel_major_plain(fm.reshape(n ** 3, 4), 1).view(4, n, n, n)
     return from_channel_major_plain(tk.shift_expand_plain(fm_cm).view(108, n ** 3),
                                     n ** 3, 1)
 
 
+def g2p_table_expand_rows_plain(fm: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch K10b on the rows, with no transpose: 27 zero-padded
+    shifted copies of ``fm`` into the column blocks ``4o .. 4o + 3`` of the
+    (n, n, n, 108) view, in offset order — the kernel's function.
+    (n, n, n, 4) -> (n^3, 108)."""
+    _check_rows("g2p_table_expand", fm, (n, n, n, 4))
+    rows = torch.empty((n, n, n, 108), dtype=fm.dtype, device=fm.device)
+    for o in range(27):
+        rows[..., 4 * o:4 * o + 4] = _shift_lead3(fm, -_OFFSETS[o])
+    return rows.view(n ** 3, 108)
+
+
 def g2p_table_expand(fm: torch.Tensor, n: int) -> torch.Tensor:
     """K10b: ``table[cell, 4o + g] = fm[cell + off_o, g]``, 0 where that
     neighbour is outside the box; ``fm`` is (n, n, n, 4).  (n^3, 108) f32.
-    CUDA tensors launch ``to_channel_major``, ``shift_expand`` (K7b) and
-    ``from_channel_major``; CPU tensors take ``g2p_table_expand_plain``."""
+    CUDA tensors launch ``fs_shift_expand_rows`` (``csrc/stencil.cu``),
+    bitwise equal to ``g2p_table_expand_rows_plain`` and
+    ``g2p_table_expand_plain``; CPU tensors take
+    ``g2p_table_expand_plain``."""
     if fm.device.type == "cpu":
         return g2p_table_expand_plain(fm, n)
     native.require_cuda(fm, "g2p_table_expand")
-    _check_rows("g2p_table_expand", fm, (n, n, n, 4))
-    fm_cm = to_channel_major(fm.reshape(n ** 3, 4), 1).view(4, n, n, n)
-    out = from_channel_major(tk.shift_expand(fm_cm).view(108, n ** 3), n ** 3, 1)
+    native.check_tensor("fm", fm, torch.float32, (n, n, n, 4), fm.device)
+    out = torch.empty((n ** 3, 108), dtype=torch.float32, device=fm.device)
+    lib = native.library()
+    with torch.cuda.device(fm.device):
+        rc = lib.fs_shift_expand_rows(fm.data_ptr(), out.data_ptr(), n,
+                                      native.stream_ptr(fm.device))
+    native.check_launch("g2p_table_expand", rc)
     g2p_table_expand.launches += 1
     return out
 

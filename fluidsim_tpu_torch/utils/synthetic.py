@@ -1,7 +1,8 @@
 """Synthetic kernel inputs that a frame's state may not reach, made from a
 seed with numpy: the run tables of the bucket move (K5), skewed sorted
-states for the K1 modes (K1, K1 aff, K1 fg) and a skewed window-grouped
-state for the base-cell scatter (K6a).  ``chip_smoke.py`` holds the CUDA
+states for the K1 modes (K1, K1 aff, K1 fg), a skewed window-grouped
+state for the base-cell scatter (K6a) and a skewed sorted row state for
+the row scatter-add (K8b).  ``chip_smoke.py`` holds the CUDA
 kernels to their plain versions on them, and the CPU tests hold the plain
 versions and the plans to numpy on the same inputs."""
 
@@ -155,3 +156,25 @@ def skewed_window_state(seed: int, n: int, big: int, fill: float = 0.05,
     aff = rng.normal(scale=0.5, size=(p, 9)).astype(np.float32)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (w27t, vel, aff, flat.astype(np.int32))) + (counts,)
+
+
+def skewed_row_state(seed: int, n: int, big: int, device="cpu"):
+    """A K8b state on an n^3 grid, sorted by cell: 1-40 rows in 5% of the
+    cells of the lower half of the ids (the upper half stays empty), ``big`` rows in the centre cell and 1-3 in each of the
+    last 200 cells (a ragged last tile where n^3 is not a multiple of
+    ``rows.SCATTER_CELLS``).  Returns ``(u_rows, flat_s, counts)``: random
+    f32 rows (P + 8, 128) (8 rows past P), the int32 cell ids (P,), and the
+    int64 numpy rows per cell (n^3,)."""
+    n3 = n ** 3
+    centre = (n // 2 * n + n // 2) * n + n // 2
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(n3, np.int64)
+    half = counts[:n3 // 2]
+    half[...] = np.where(rng.random(half.shape) < 0.05,
+                         rng.integers(1, 41, half.shape), 0)
+    counts[n3 - 200:] = rng.integers(1, 4, 200)
+    counts[centre] = big
+    flat = np.repeat(np.arange(n3, dtype=np.int32), counts)
+    rows = rng.standard_normal((flat.size + 8, 128), dtype=np.float32)
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(flat, device=device), counts)

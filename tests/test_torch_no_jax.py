@@ -4,8 +4,8 @@ can import neither ``jax`` nor ``fluidsim_tpu``, import
 and of the MPM cone, two FLIP frames on the bucket path, and the
 materialised G2P (``fused_table=False``) and ``ops/shift.py`` after a
 FLIP frame, the row-layout transfers of ``utils/transfer_parts.py``, and
-the synthetic K5 and K1 inputs of ``utils/synthetic.py`` with the K1 chunk
-plan and the order of the three K1 modes."""
+the synthetic K5, K1 and K8b inputs of ``utils/synthetic.py`` with the K1
+chunk plan, the order of the three K1 modes and K8b's tile plan."""
 
 import subprocess
 import sys
@@ -47,8 +47,9 @@ elif sys.argv[1] == "flip-table":
     va, ca = apic.g2p_apic(w27t, flat, pos_s, vc, b, wall)
     vb, cb = apic.g2p_apic(w27t, flat, pos_s, vc, b, wall, fused_table=False)
     assert torch.equal(va, vb) and torch.equal(ca, cb)
-    rows = shift.g2p_table_expand(vc[0, :, :, :, None].expand(-1, -1, -1, 4).contiguous(),
-                                  2 * b + 1)
+    fm = vc[0, :, :, :, None].expand(-1, -1, -1, 4).contiguous()
+    rows = shift.g2p_table_expand(fm, 2 * b + 1)
+    assert torch.equal(rows, shift.g2p_table_expand_rows_plain(fm, 2 * b + 1))
     assert shift.p2g_shift_reduce(rows, 2 * b + 1).shape == (2 * b + 1,) * 3 + (4,)
 elif sys.argv[1] == "rows":
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
@@ -73,6 +74,10 @@ elif sys.argv[1] == "synthetic":
     plan = tk.chunk_plan(cs, vel.shape[0])
     out = out.abs().sum() + tk.p2g_scatter_chunked(w27t, vel, plan, 12).sum()
     out = out + tk.p2g_scatter_affine_chunked(w27t, vel, aff, plan, 12).sum()
+    from fluidsim_tpu_torch.ops import rows as rw
+    u_rows, flat, _ = synthetic.skewed_row_state(0, 12, 300)
+    out = out + rw.scatter_rows_cm(u_rows, flat, 12 ** 3).sum()
+    assert rw.scatter_tile_starts_plain(flat, 12 ** 3)[-1] == flat.shape[0]
     m = {"kinetic_energy": out + kf.shape[0]}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",

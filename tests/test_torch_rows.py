@@ -37,6 +37,7 @@ from fluidsim_tpu.ops import pallas_transfer as pt
 from fluidsim_tpu.ops import transfer_pallas as tp
 from fluidsim_tpu_torch.ops import rows as rw
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
+from fluidsim_tpu_torch.utils import synthetic
 from fluidsim_tpu_torch.utils import transfer_parts as tparts
 
 T = 256         # the JAX kernels' particle chunk: small interpret grids
@@ -216,6 +217,56 @@ def test_k8_wrappers_take_the_plain_version_on_cpu_only(name):
                  for a in args)
     with pytest.raises(ValueError):
         fn(*meta)
+
+
+# ---- K8b's tile plan and its order -------------------------------------------
+
+def _tile_case(kind):
+    """Sorted ids and ncells: random sorted ids (ncells a multiple of the
+    tile), the skewed row state (a cell of 2,000 rows, the upper half
+    empty, a ragged last tile), no rows, and an odd ncells."""
+    rng = np.random.default_rng(11)
+    if kind == "skewed":
+        _, flat, _ = synthetic.skewed_row_state(3, 17, 2000)
+        return flat.numpy(), 17 ** 3
+    ncells = {"sorted": 4096, "empty": 1000, "odd": 2001}[kind]
+    p = {"sorted": 3000, "empty": 0, "odd": 5000}[kind]
+    return _sorted_ids(rng, p, ncells), ncells
+
+
+@pytest.mark.parametrize("kind", ["sorted", "skewed", "empty", "odd"])
+def test_k8b_tile_plan_against_numpy(kind):
+    flat, ncells = _tile_case(kind)
+    ts = rw.scatter_tile_starts_plain(torch.as_tensor(flat), ncells)
+    ntiles = -(-ncells // rw.SCATTER_CELLS)
+    edges = np.minimum(np.arange(ntiles + 1) * rw.SCATTER_CELLS, ncells)
+    assert ts.dtype == torch.int32 and ts.shape == (ntiles + 1,)
+    np.testing.assert_array_equal(ts.numpy(),
+                                  np.searchsorted(flat, edges, side="left"))
+    assert ts[0] == 0 and ts[-1] == flat.size
+    tile = flat // rw.SCATTER_CELLS      # every row lies in its tile's range
+    np.testing.assert_array_equal(ts.numpy()[tile] <= np.arange(flat.size),
+                                  True)
+    np.testing.assert_array_equal(np.arange(flat.size) < ts.numpy()[tile + 1],
+                                  True)
+
+
+def test_k8b_skewed_state_and_its_sums_in_array_order():
+    """The skewed row state's shape, and the plain K8b on it bitwise equal
+    to a numpy loop that adds each cell's rows in array order from +0 (the
+    kernel's order, which chip_smoke.py holds the kernel to)."""
+    n = 17
+    rows, flat, counts = synthetic.skewed_row_state(3, n, 2000)
+    centre = (n // 2 * n + n // 2) * n + n // 2
+    assert counts[centre] == 2000 and not counts[centre + 1:-200].any()
+    assert (counts[-200:] >= 1).all() and (n ** 3) % rw.SCATTER_CELLS
+    assert rows.shape == (counts.sum() + 8, 128)
+    np.testing.assert_array_equal(flat.numpy(),
+                                  np.repeat(np.arange(n ** 3), counts))
+    ref = np.zeros((n ** 3, 128), np.float32)
+    np.add.at(ref, flat.numpy(), rows.numpy()[:flat.shape[0]])
+    out = rw.scatter_rows_cm(rows, flat, n ** 3)
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref.T))
 
 
 # ---- the profile_p2g_parts pipeline -------------------------------------------

@@ -325,6 +325,23 @@ def test_k10a_row_plain_version_equals_the_transposed_one_bitwise(n):
         shift.p2g_shift_reduce_rows_plain(d[1:], n)
 
 
+@pytest.mark.parametrize("n", [17, 25, 45])
+def test_k10b_row_plain_version_equals_the_transposed_one_bitwise(n):
+    """``g2p_table_expand_rows_plain`` (27 shifted copies into the rows, the
+    CUDA kernel's function) against ``g2p_table_expand_plain`` (K10c, K7b,
+    K10d), every cell, n^3 a multiple of the kernel's 128-cell blocks or
+    not."""
+    fm = torch.as_tensor(np.random.default_rng(n).normal(
+        size=(n, n, n, 4)).astype(np.float32))
+    rows = shift.g2p_table_expand_rows_plain(fm, n)
+    ref = shift.g2p_table_expand_plain(fm, n)
+    assert rows.shape == (n ** 3, 108)
+    np.testing.assert_array_equal(rows.numpy().view(np.int32),
+                                  ref.numpy().view(np.int32))
+    with pytest.raises(ValueError):
+        shift.g2p_table_expand_rows_plain(fm[1:], n)
+
+
 @pytest.mark.parametrize("n3,c,r", [(1000, 108, 256), (4096, 108, 2048),
                                     (3000, 4, 2048)])
 def test_k10_transposes_match_jax(n3, c, r):
