@@ -75,15 +75,27 @@ Phases, each of which raises on failure (nonzero exit):
 19. ``g2p`` and ``g2p_apic`` with ``fused_table=False`` on that state, with
    their launch counts, bit for bit against ``fused_table=True``, both
    timed;
-20. the span entry points (K9a, K9b) against K6a and K7a and their plain
-   versions (K9a also bit for bit against ``p2g_scatter_base_ordered``),
-   the unhaloed shift entry points (K10a, K10b) against K6b and K7b, their
-   plain versions and ``conv3d`` (K10a bit for bit against both of its
-   plain versions and K6b; K10b bit for bit against both of its plain
-   versions and K7b's table transposed, at 129^3 and again at 25^3 and
-   45^3 on random fields), the transposes (K10c, K10d) of a (129^3, 108)
-   matrix against ``.T.contiguous()``, and the launch counts of one call
-   of each entry point;
+20. the span kernels (K9a, K9b) on that state: what the old route spent
+   (the host order check, then K6a or K7a); each against its plain version
+   (K9a also beside ``index_add_``), timed as in phase 3; K9a bit for bit
+   against K6a, ``p2g_scatter_base_ordered`` and a rerun, its tile plan
+   against ``span_tile_starts_plain``, there, on phase 6's APIC state, on
+   ``utils/synthetic.skewed_window_state`` sorted by cell (timed) and on
+   random states at 25^3 and 45^3; K9b and K9b moments bit for bit against
+   K7a and K2 (K2 moments) there and on random states at 25^3 and 45^3,
+   where every full block spans more than 32 cells and so reads the table
+   directly instead of staging it; what
+   each wrapper queues before its host wait within 0.02 ms of its kernels
+   alone (``_queued_ms``); an unsorted order and an id of n^3 raising
+   ``ValueError``, each flag matching ``span_order_flag_plain``, and a
+   sorted call after them still bit for bit; then the unhaloed shift entry
+   points (K10a, K10b) against K6b and K7b, their plain versions and
+   ``conv3d`` (K10a bit for bit against both of its plain versions and
+   K6b; K10b bit for bit against both of its plain versions and K7b's
+   table transposed, at 129^3 and again at 25^3 and 45^3 on random
+   fields), the transposes (K10c, K10d) of a (129^3, 108) matrix against
+   ``.T.contiguous()``, and the launch counts of one call of each entry
+   point (K9 no longer launches K6a or K7a);
 21. the row-layout transfer kernels (K8a row gather, K8b row scatter-add)
    against their plain versions and one PyTorch call (``index_select``,
    ``index_add_``) on that state, timed as in phase 3; the row P2G (K8b,
@@ -100,7 +112,11 @@ Phases, each of which raises on failure (nonzero exit):
    against K1 and the row G2P against K2, then each part's time.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+last line is ``{"ok": true, "device": {...}}``.  An entry's ``ms`` is its
+wrapper's time, except for K9a and K9b: theirs is the time of their kernels
+alone (``*_launch``), without the wrapper's wait on the host for the order
+flag, which their ``wrapper_ms`` includes.  K8b's ``ms`` still includes
+its wrapper's copy of the end ids to the host and its wait on it.
 """
 
 from __future__ import annotations
@@ -153,6 +169,34 @@ def _cuda_ms(fn, torch):
         start.record()
         fn()
         end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _queued_ms(fn, torch):
+    """Median device time in ms of what ``fn()`` queues before it waits on
+    the host: each run queues a spin kernel, the start event, then runs
+    ``fn()`` on another host thread and records the end event from this
+    one 5 ms later, while the card still spins.  A wrapper that reads from
+    the card before its launch is still waiting then, so the events hold
+    only what came before the read; one that reads after its launch has
+    queued all of its kernels between them."""
+    import threading
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_SPIN_CYCLES)
+        start.record()
+        worker = threading.Thread(target=fn)
+        worker.start()
+        time.sleep(0.005)
+        end.record()
+        worker.join()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
@@ -239,7 +283,8 @@ def _k6a_case(name, w27t, vel, flat, n, aff, torch):
         .index_add_(0, flat64, u108))
     out = launch()
     _require_bitwise(f"{name}: against p2g_scatter_base_ordered", out,
-                     tk.p2g_scatter_base_ordered(w27t, vel, flat, n, aff), torch)
+                     tk.p2g_scatter_base_ordered(w27t, vel, flat, n, aff),
+                     torch)
     _require_bitwise(f"{name}: against its rerun", out, launch(), torch)
     return res
 
@@ -590,11 +635,241 @@ def _k10b_bitwise(fm_rows, n, torch):
         _require_bitwise(f"K10b at {n}^3 against {name}", out, ref, torch)
 
 
-def _materialised_phases(dev, counted, torch):
+def _k9a_case(name, w27t, vel, flat, n, aff, torch, timed=True):
+    """K9a on one fully sorted state (``aff``: its APIC instance): against
+    its plain version and ``index_add_`` of the prebuilt (P, 108) rows,
+    timed as in phase 3 (``timed``), then bit for bit against K6a, its
+    summation order in PyTorch (``p2g_scatter_base_ordered``) and a rerun;
+    its tile plan against ``span_tile_starts_plain`` and its flag 0.
+    Returns the line's numbers (with ``timed``; ``ms`` is its kernels'
+    time, ``_kernels_ms``)."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    p = flat.shape[0]
+    launch = lambda: tk.p2g_scatter_spans(w27t, vel, flat, n, aff)
+    res = None
+    if timed:
+        u108 = tk._wv_values(w27t, vel, aff).reshape(p, 108)
+        flat64 = flat.to(torch.int64)
+        res = _compare(
+            name, launch,
+            lambda: tk.p2g_scatter_base_plain(w27t, vel, flat, n, aff), 1e-5,
+            (w27t, vel, flat) + (() if aff is None else (aff,)),
+            27 * (7 if aff is None else 25) * p, torch,
+            library=lambda: torch.zeros((n ** 3, 108), device=flat.device)
+            .index_add_(0, flat64, u108))
+        _kernels_ms(name, res, lambda: tk.p2g_scatter_spans_launch(
+            w27t, vel, flat, n, aff), torch)
+        del u108, flat64
+    out = launch()
+    k6a = tk.p2g_scatter_base(w27t, vel, flat, tk.window_starts(flat, n), n,
+                              aff)
+    _require_bitwise(f"{name}: against K6a", out, k6a, torch)
+    del k6a
+    _require_bitwise(f"{name}: against p2g_scatter_base_ordered", out,
+                     tk.p2g_scatter_base_ordered(w27t, vel, flat, n, aff),
+                     torch)
+    again, tile_start, flag = tk.p2g_scatter_spans_launch(w27t, vel, flat, n,
+                                                          aff)
+    _require_bitwise(f"{name}: against its rerun", out, again, torch)
+    _require_bitwise(f"{name}: tile plan against span_tile_starts_plain",
+                     tile_start, tk.span_tile_starts_plain(flat, n ** 3),
+                     torch)
+    if int(flag) != 0 or int(tk.span_order_flag_plain(flat, n ** 3)) != 0:
+        raise AssertionError(f"{name}: order flag set on a sorted state")
+    tiles = tile_start[1:] - tile_start[:-1]
+    print(f"{name}: {p} particles at {n}^3, {int((tiles > 0).sum())} of "
+          f"{tiles.numel()} tiles occupied, the fullest {int(tiles.max())} "
+          "particles")
+    return res
+
+
+def _kernels_ms(name, res, launch, torch):
+    """Make ``res["ms"]`` the time of a K9 wrapper's kernels alone
+    (``launch`` queues them and reads nothing) and keep the wrapper's, which
+    ends with its wait on the host, as ``res["wrapper_ms"]``."""
+    res["wrapper_ms"] = res["ms"]
+    res["ms"] = _cuda_ms(launch, torch)
+    print(f"time {name}: its kernels {res['ms']:.4f} ms, the wrapper with its "
+          f"wait on the host {res['wrapper_ms']:.4f} ms (medians of {_REPS})")
+
+
+def _k9b_staged_blocks(flat, torch) -> int:
+    """How many of K9b's 256-particle blocks of the sorted ids ``flat`` span
+    at most 32 cells and so stage their table columns (kSpanStageCells in
+    csrc/transfer.cu)."""
+    first = flat[::256]
+    ends = torch.arange(1, first.shape[0] + 1, device=flat.device) * 256
+    last = flat[ends.clamp(max=flat.shape[0]) - 1]
+    return int((last - first < 32).sum())
+
+
+def _k9_refusals(w27t, vel, flat, table, n, torch):
+    """K9a and K9b on an order that is not sorted and on an id outside the
+    box: each raises ValueError on the card, its flag matching
+    ``span_order_flag_plain``; a correct call right after each still gives
+    the sorted state's result bit for bit."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    n3 = n ** 3
+    good_a = tk.p2g_scatter_spans(w27t, vel, flat, n)
+    good_b = tk.g2p_gather_spans(table, w27t, flat)
+    g = torch.Generator(device=flat.device).manual_seed(SEED)
+    shuffled = flat[torch.randperm(flat.shape[0], generator=g,
+                                   device=flat.device)]
+    outside = flat.clone()
+    outside[-1] = n3
+    for tag, bad in (("an unsorted order", shuffled),
+                     ("an id of n^3", outside)):
+        flags = (tk.p2g_scatter_spans_launch(w27t, vel, bad, n)[2],
+                 tk.g2p_gather_spans_launch(table, w27t, bad)[1])
+        torch.cuda.synchronize()
+        want = int(tk.span_order_flag_plain(bad, n3))
+        if want != 1 or any(int(f) != want for f in flags):
+            raise AssertionError(f"K9 on {tag}: flags "
+                                 f"{[int(f) for f in flags]}, plain {want}")
+        for name, call, good in (
+                ("K9a", lambda: tk.p2g_scatter_spans(w27t, vel, bad, n),
+                 (lambda: tk.p2g_scatter_spans(w27t, vel, flat, n), good_a)),
+                ("K9b", lambda: tk.g2p_gather_spans(table, w27t, bad),
+                 (lambda: tk.g2p_gather_spans(table, w27t, flat), good_b))):
+            try:
+                call()
+            except ValueError as e:
+                print(f"{name} on {tag}: raised ValueError ({e})")
+            else:
+                raise AssertionError(f"{name} on {tag}: no ValueError")
+            _require_bitwise(f"{name}, a sorted call after {tag}", good[0](),
+                             good[1], torch)
+
+
+def _k9_phase(state, apic_state, dev, torch):
+    """Phase 20's span kernels on the frame-2 FLIP state (``state``): what
+    the old route spent (the host check, then K6a or K7a), K9a and K9b
+    against their plain versions, K6a and K7a, K2 and K2 moments, what each
+    wrapper queues before its host wait against its kernels, K9a on phase
+    6's APIC
+    state, on ``utils/synthetic.skewed_window_state`` sorted by cell and on
+    random states at 25^3 and 45^3, K9b there too, and both refusing bad
+    orders.  Returns the two kernels' results."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import synthetic
+
+    w27t, vel_s, flat, fm = (state[k] for k in ("w27t", "vel_s", "flat", "fm"))
+    B = state["bound"]
+    n, P = 2 * B + 1, flat.shape[0]
+    table = tk.shift_expand(fm)
+    ws = tk.window_starts(flat, n)
+    old = {"host check and read": lambda: bool((flat[1:] >= flat[:-1]).all()),
+           "window_starts + K6a": lambda: tk.p2g_scatter_base(
+               w27t, vel_s, flat, tk.window_starts(flat, n), n),
+           "K6a": lambda: tk.p2g_scatter_base(w27t, vel_s, flat, ws, n),
+           "K7a": lambda: tk.g2p_gather_table(table, w27t, flat),
+           "K7a moments": lambda: tk.g2p_moments_table(table, w27t, flat)}
+    for name, fn in old.items():
+        print(f"time the old K9 route's {name}: {_cuda_ms(fn, torch):.4f} ms "
+              f"(median of {_REPS})")
+    res_a = _k9a_case("K9a p2g_scatter_spans", w27t, vel_s, flat, n, None,
+                      torch)
+    res_b = _compare(
+        "K9b g2p_gather_spans", lambda: tk.g2p_gather_spans(table, w27t, flat),
+        lambda: tk.g2p_gather_table_plain(table, w27t, flat), 1e-5,
+        (w27t, flat), 27 * 8 * P, torch, extra_bytes=432 * state["cells"])
+    _kernels_ms("K9b g2p_gather_spans", res_b,
+                lambda: tk.g2p_gather_spans_launch(table, w27t, flat), torch)
+    res_b["moments"] = _compare(
+        "K9b moments g2p_gather_spans",
+        lambda: tk.g2p_gather_spans(table, w27t, flat, True),
+        lambda: tk.g2p_moments_table_plain(table, w27t, flat), 1e-5,
+        (w27t, flat), 27 * 44 * P, torch, extra_bytes=432 * state["cells"])
+    _kernels_ms("K9b moments g2p_gather_spans", res_b["moments"],
+                lambda: tk.g2p_gather_spans_launch(table, w27t, flat, True),
+                torch)
+    for tag, mom, k7a, k2 in (("", False, tk.g2p_gather_table, tk.g2p_gather),
+                              (" moments", True, tk.g2p_moments_table,
+                               tk.g2p_moments)):
+        out = tk.g2p_gather_spans(table, w27t, flat, mom)
+        _require_bitwise(f"K9b{tag}: against K7a{tag}", out,
+                         k7a(table, w27t, flat), torch)
+        _require_bitwise(f"K9b{tag}: against K2{tag}", out, k2(fm, w27t, flat),
+                         torch)
+    print(f"K9b: {_k9b_staged_blocks(flat, torch)} of {-(-P // 256)} blocks "
+          "of the frame-2 FLIP state stage their table columns")
+    # the wrappers' host read comes after the launch: what each queues
+    # before it waits on the host takes its kernels' time
+    for name, res, wrapper in (
+            ("K9a", res_a, lambda: tk.p2g_scatter_spans(w27t, vel_s, flat, n)),
+            ("K9b", res_b, lambda: tk.g2p_gather_spans(table, w27t, flat)),
+            ("K9b moments", res_b["moments"],
+             lambda: tk.g2p_gather_spans(table, w27t, flat, True))):
+        res["queued_ms"] = _queued_ms(wrapper, torch)
+        gap = abs(res["queued_ms"] - res["ms"])
+        print(f"time {name}: the wrapper queues {res['queued_ms']:.4f} ms "
+              f"before its wait, its kernels take {res['ms']:.4f} ms "
+              f"(medians of {_REPS})")
+        if gap > 0.02:
+            raise AssertionError(f"{name}: the wrapper queues {gap:.4f} ms "
+                                 "apart from its kernels before it waits "
+                                 "(limit 0.02): a host read before the launch")
+    _k9_refusals(w27t, vel_s, flat, table, n, torch)
+    del table, ws
+
+    pos_a, veff, flat_a, aff_a = apic_state
+    res_a["apic_state"] = _k9a_case(
+        "K9a APIC p2g_scatter_spans, the APIC state",
+        tk.masked_weights_cm(pos_a, B), veff, flat_a, n, aff_a, torch)
+    w_k, v_k, aff_k, flat_k, counts = synthetic.skewed_window_state(
+        SEED, n, 20_000, device=dev)
+    flat_k, perm = torch.sort(flat_k, stable=True)
+    w_k, v_k, aff_k = (w_k[:, perm].contiguous(), v_k[perm].contiguous(),
+                       aff_k[perm].contiguous())
+    print(f"skewed state sorted by cell: {flat_k.shape[0]} particles at "
+          f"{n}^3, the fullest cell {int(counts.max())}")
+    for mode, a in (("flip", None), ("apic", aff_k)):
+        res_a[f"skewed_state_{mode}"] = _k9a_case(
+            f"K9a {mode} p2g_scatter_spans, the skewed state", w_k, v_k,
+            flat_k, n, a, torch)
+    del w_k, v_k, aff_k, flat_k, perm
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for m in (25, 45):         # m^3 not a multiple of the tile
+        p = 2 * m ** 3
+        flat_r = torch.sort(torch.randint(0, m ** 3, (p,), generator=g,
+                                          device=dev, dtype=torch.int32))[0]
+        w_r = torch.rand((27, p), generator=g, device=dev)
+        v_r = torch.randn((p, 3), generator=g, device=dev)
+        aff_r = 0.5 * torch.randn((p, 9), generator=g, device=dev)
+        for mode, a in (("flip", None), ("apic", aff_r)):
+            _k9a_case(f"K9a {mode}, random at {m}^3", w_r, v_r, flat_r, m, a,
+                      torch, timed=False)
+        # 2 particles a cell: a full block of 256 spans about 128 cells, so
+        # K9b reads the table directly in all but a short last block
+        staged, blocks = _k9b_staged_blocks(flat_r, torch), -(-p // 256)
+        if staged > 1:
+            raise AssertionError(f"K9b at {m}^3: {staged} of {blocks} random "
+                                 "blocks stage; the direct reads go untested")
+        fm_r = torch.randn((4, m, m, m), generator=g, device=dev)
+        table_r = tk.shift_expand(fm_r)
+        for tag, mom, k7a, k2 in (("", False, tk.g2p_gather_table,
+                                   tk.g2p_gather),
+                                  (" moments", True, tk.g2p_moments_table,
+                                   tk.g2p_moments)):
+            out = tk.g2p_gather_spans(table_r, w_r, flat_r, mom)
+            _require_bitwise(f"K9b{tag}, random at {m}^3: against K7a{tag}",
+                             out, k7a(table_r, w_r, flat_r), torch)
+            _require_bitwise(f"K9b{tag}, random at {m}^3: against K2{tag}",
+                             out, k2(fm_r, w_r, flat_r), torch)
+        print(f"K9b, random at {m}^3: {blocks - staged} of {blocks} blocks "
+              "read the table directly, equal to K7a and K2 (and moments) "
+              "bit for bit")
+    return {"p2g_scatter_spans": res_a, "g2p_gather_spans": res_b}
+
+
+def _materialised_phases(dev, counted, torch, apic_state):
     """Phases 18-20 on the sorted state of ``FlipSim`` after its 2 warm-up
     frames: the materialised G2P's kernels (K7b, K7a), the materialised G2P
     against the fused one, and the span and unhaloed shift entry points
-    (K9, K10).  Returns (results, launches of the materialised G2P,
+    (K9, K10; K9a also on phase 6's sorted APIC state ``apic_state``).
+    Returns (results, launches of the materialised G2P,
     launches of the entry points)."""
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.ops import apic, shift
@@ -691,37 +966,11 @@ def _materialised_phases(dev, counted, torch):
     del mat, fused, acc, vc
 
     # ---- 20. the span and unhaloed shift entry points ---------------------
-    ws = tk.window_starts(flat, n)
-    u108 = tk._wv_values(w27t, vel_s).reshape(P, 108)
-    flat64 = flat.to(torch.int64)
-    results["p2g_scatter_spans"] = _compare(
-        "K9a p2g_scatter_spans",
-        lambda: tk.p2g_scatter_spans(w27t, vel_s, flat, n),
-        lambda: tk.p2g_scatter_base_plain(w27t, vel_s, flat, n), 1e-5,
-        (w27t, vel_s, flat), 27 * 7 * P, torch,
-        library=lambda: torch.zeros((n3, 108), device=dev).index_add_(
-            0, flat64, u108))
-    del u108, flat64
-    d = tk.p2g_scatter_base(w27t, vel_s, flat, ws, n)
+    results.update(_k9_phase(dict(w27t=w27t, vel_s=vel_s, flat=flat, fm=fm,
+                                  cells=cells, bound=B), apic_state, dev,
+                             torch))
+    d = tk.p2g_scatter_base(w27t, vel_s, flat, tk.window_starts(flat, n), n)
     table = tk.shift_expand(fm)
-    results["g2p_gather_spans"] = _compare(
-        "K9b g2p_gather_spans", lambda: tk.g2p_gather_spans(table, w27t, flat),
-        lambda: tk.g2p_gather_table_plain(table, w27t, flat), 1e-5,
-        (w27t, flat), 27 * 8 * P, torch, extra_bytes=per_cell)
-    checks = (("K9a", tk.p2g_scatter_spans(w27t, vel_s, flat, n), d),
-              ("K9b", tk.g2p_gather_spans(table, w27t, flat),
-               tk.g2p_gather_table(table, w27t, flat)),
-              ("K9b moments", tk.g2p_gather_spans(table, w27t, flat, True),
-               tk.g2p_moments_table(table, w27t, flat)))
-    for name, a, b in checks:
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name} differs from K6a/K7a")
-    print("K9a, K9b: equal to K6a and K7a on the fully sorted state")
-    del checks
-    _require_bitwise(
-        "K9a, the sorted state: against p2g_scatter_base_ordered",
-        tk.p2g_scatter_spans(w27t, vel_s, flat, n),
-        tk.p2g_scatter_base_ordered(w27t, vel_s, flat, n), torch)
 
     d_rows = d.view(108, n3).T.contiguous()                     # (n^3, 108)
     conv_in = d_rows.view(1, n, n, n, 108).permute(0, 4, 1, 2, 3)
@@ -779,8 +1028,7 @@ def _materialised_phases(dev, counted, torch):
     entry_launches = {fn.__name__: fn.launches for fn in counted}
     print("shift_entry_points: launches:", json.dumps(entry_launches))
     want = {name: 0 for name in entry_launches}
-    want.update({"p2g_scatter_spans": 1, "p2g_scatter_base": 1,
-                 "g2p_gather_spans": 1, "g2p_gather_table": 1,
+    want.update({"p2g_scatter_spans": 1, "g2p_gather_spans": 1,
                  "p2g_shift_reduce": 1, "g2p_table_expand": 1,
                  "to_channel_major": 1, "from_channel_major": 1})
     if entry_launches != want:
@@ -1114,7 +1362,7 @@ def main() -> int:
     vel_a, c_a = apic.g2p_apic(w27t, flat, pos_s, vc, B, wall)
     if not (bool(torch.isfinite(vel_a).all()) and bool(torch.isfinite(c_a).all())):
         raise AssertionError("g2p_apic: non-finite velocity or C")
-    # phase 14 times K6a's APIC instance on this state
+    # phase 14 times K6a's APIC instance on this state, phase 20 K9a's
     apic_k6a = (pos_s, veff, flat, aff_s)
     del acc, vc, fm, vel0, aff0, pos_s, vel_s, flat, aff_s, veff, w27t, cs
     del vel_a, c_a, plan
@@ -1277,7 +1525,6 @@ def main() -> int:
         "K6a p2g_scatter_base", w27t, vel_s, flat_o, n, None, torch)
     results["p2g_scatter_base"].update(_k6a_more_states(
         w27t, vel_s, flat_o, apic_k6a, B, n, dev, torch))
-    del apic_k6a
     d = tk.p2g_scatter_base(w27t, vel_s, flat_o,
                             tk.window_starts(flat_o, n), n)
     _, onehot = _shift_onehots(dev, torch)
@@ -1309,8 +1556,9 @@ def main() -> int:
 
     # ---- 18-20. the materialised G2P and the K9, K10 entry points -------
     more, table_launches, entry_launches, state = _materialised_phases(
-        dev, counted, torch)
+        dev, counted, torch, apic_k6a)
     results.update(more)
+    del apic_k6a
 
     # ---- 21. the row-layout transfer kernels on that state --------------
     results.update(_row_phases(dev, torch, state))

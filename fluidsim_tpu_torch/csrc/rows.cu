@@ -63,6 +63,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_search.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;  // lanes of a row / channels of the table
@@ -124,13 +126,7 @@ __global__ void tile_starts_kernel(const int* __restrict__ flat, long long np,
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t > ntiles) return;
   const long long key = t * kScatterCells < ncells ? t * kScatterCells : ncells;
-  long long lo = 0, hi = np;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if ((long long)flat[mid] < key) lo = mid + 1;
-    else hi = mid;
-  }
-  tile_start[t] = (int)lo;
+  tile_start[t] = (int)first_at_least(flat, np, key);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

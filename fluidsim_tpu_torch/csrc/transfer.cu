@@ -1,7 +1,8 @@
 // Particle <-> grid transfer kernels of the FLIP, PIC, APIC and MPM frames
 // (K1, K2 and their APIC and MPM modes: K1 aff, K1 fg, K2 moments, K2 gw)
-// and of the unfused transfers (K6a, K7a), for Hopper (sm_90a), with a plain
-// C interface bound through ctypes (fluidsim_tpu_torch/ops/transfer_kernels.py).
+// and of the unfused and span transfers (K6a, K7a, K9a, K9b), for Hopper
+// (sm_90a), with a plain C interface bound through ctypes
+// (fluidsim_tpu_torch/ops/transfer_kernels.py).
 //
 // All take particles sorted by the flat id (x*n + y)*n + z of their
 // clipped base cell round(pos) + B, and the transposed stencil weights
@@ -154,10 +155,63 @@
 //   accumulators are one code and the offsets are summed in K2's order:
 //   the materialised G2P equals the fused one bit for bit.
 //
+// K9a fs_p2g_scatter_spans replaces fluidsim_tpu/ops/pallas_transfer.py:1500
+//   scatter_wv_spans (_scatter_wv_spans_kernel, its plan build_spans): K6a's
+//   function and summation order on particles fully sorted by cell, where
+//   each cell's particles are one contiguous span.  Output (27, 4, n, n, n)
+//   f32, every cell written, equal to K6a and
+//   transfer_kernels.p2g_scatter_base_ordered bit for bit.
+//   Bound on the H100: memory, as K6a: 1,173.9 MB at 129^3 / 1,987,675
+//   particles (0.3504 ms), with C 1,245.5 MB (0.3718 ms); the output is 79%.
+//   Design: three kernels and no scratch but the tile plan.
+//   span_plan_kernel binary-searches the edges of the kSpanCells-cell tiles
+//   (16,772 at 129^3) and checks the order: it sets a device flag, which
+//   the caller zeroes, when an id lies below its predecessor or outside the
+//   box; the wrapper copies it into pinned memory behind the kernels, waits
+//   on an event and raises on it.  zero_empty_tiles_kernel writes the zeros
+//   of the empty tiles (14,880 of 16,772 on the frame-2 FLIP state; 108
+//   segments of 512 B each, 16-byte stores, a warp per segment): its many
+//   small blocks write them faster than the tile blocks could, which fit
+//   only 3 to an SM for their shared memory.  Then
+//   scatter_spans_kernel<kAffine> runs a block per tile, and an occupied
+//   tile's particles are one span [lo, hi):
+//   - the block stages them span_stage() at a time in shared memory (the
+//     27 weight rows read along p, v, C and the ids as contiguous runs),
+//     each thread's share of the next stage loaded into registers while
+//     the block sums the current one;
+//   - each cell's run in the stage comes from the staged ids, and a thread
+//     per (cell, offset) adds the run's particles in array order onto its 4
+//     sums, which a shared (108, 128) block carries across stages from +0;
+//     no rank pass, as K6a needs on a window-grouped order;
+//   - the block then writes the tile, a warp per 512 B row segment.
+//   A crowded cell is one thread's serial sum per offset: the order forbids
+//   splitting it.  On an order that is not sorted the output is undefined
+//   (the wrapper raises), but every access stays inside the arrays: a
+//   tile's range is clamped to lo <= hi in [0, P], ids outside the tile are
+//   skipped and a cell's run is clipped to the stage.
+//
+// K9b fs_g2p_gather_spans replaces fluidsim_tpu/ops/pallas_transfer.py:1603
+//   gather_wv_spans (_gather_wv_spans_kernel): K7a's 4 rows (nout=8) or 22
+//   moments (nout=24) on particles fully sorted by cell, equal to K7a and K2
+//   (K2 moments) bit for bit through the same accumulators.
+//   Bound on the H100: memory, as K7a: 289.5 MB (0.0864 ms), moments 432.7
+//   MB (0.1292 ms).
+//   Design: K7a's thread per particle with the order check fused in (each
+//   thread tests its id against the box and its predecessor's id and sets
+//   the flag, as K9a's plan does).  Sorted neighbours share cells, so a
+//   block of 256 particles covers a short id range: when it spans at most
+//   kSpanStageCells = 32 cells, the block first stages those cells' 108
+//   table rows in shared memory, its reads coalesced along cells; a wider
+//   block reads the table directly, as K7a.  On the H100 staging took the
+//   frame-2 FLIP state from 0.1331 to 0.1196 ms (a probe; PERF.md §6).
+//   An id out of order or outside the box is clamped into the arrays.
+//
 // All are built with --fmad=false so every product and sum is rounded as
 // in the plain PyTorch versions they are checked against.
 
 #include <cuda_runtime.h>
+
+#include "tile_search.cuh"
 
 namespace {
 
@@ -202,15 +256,33 @@ struct TableColumn {
   }
 };
 
+// K9b's staged table: the columns f0 .. f0 + len - 1 of the block's id range
+// in shared memory, row r = 4o + c of column d at cols[r * len + d]; `col`
+// points at the particle's column.  The same values as TableColumn's.
+struct StagedColumn {
+  const float* col;
+  int len;
+  __device__ __forceinline__ bool load(int o, int, int, int, int, int,
+                                       long long, float v[4]) const {
+    const float* t = col + 4 * o * len;
+    v[0] = t[0];
+    v[1] = t[len];
+    v[2] = t[2 * len];
+    v[3] = t[3 * len];
+    return true;
+  }
+};
+
+// The rows of one particle p with base cell f = (x, y, z): K2's 4 sums
+// (gather_rows) or K2 moments' 22 (moment_rows), each over the 27 offsets in
+// order from +0, the grid values read through src.  K2, K7a and K9b run this
+// code with their own sources, so they agree bit for bit.
 template <class Src>
-__global__ void g2p_moments_kernel(Src src, const float* __restrict__ w27t,
-                                   const int* __restrict__ flat,
-                                   float* __restrict__ out, int n,
-                                   long long np) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= np) return;
+__device__ __forceinline__ void moment_rows(const Src& src,
+                                            const float* __restrict__ w27t,
+                                            float* __restrict__ out, int f,
+                                            int n, long long p, long long np) {
   const long long ncell = (long long)n * n * n;
-  const int f = flat[p];
   const int x = f / (n * n);
   const int y = (f / n) % n;
   const int z = f % n;
@@ -246,14 +318,11 @@ __global__ void g2p_moments_kernel(Src src, const float* __restrict__ w27t,
 }
 
 template <class Src>
-__global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
-                                  const int* __restrict__ flat,
-                                  float* __restrict__ out, int n,
-                                  long long np) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= np) return;
+__device__ __forceinline__ void gather_rows(const Src& src,
+                                            const float* __restrict__ w27t,
+                                            float* __restrict__ out, int f,
+                                            int n, long long p, long long np) {
   const long long ncell = (long long)n * n * n;
-  const int f = flat[p];
   const int x = f / (n * n);
   const int y = (f / n) % n;
   const int z = f % n;
@@ -271,6 +340,38 @@ __global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
   out[np + p] = s1;
   out[2 * np + p] = s2;
   out[3 * np + p] = s3;
+}
+
+template <bool kMom, class Src>
+__device__ __forceinline__ void contract_rows(const Src& src,
+                                              const float* __restrict__ w27t,
+                                              float* __restrict__ out, int f,
+                                              int n, long long p,
+                                              long long np) {
+  if constexpr (kMom)
+    moment_rows(src, w27t, out, f, n, p, np);
+  else
+    gather_rows(src, w27t, out, f, n, p, np);
+}
+
+template <class Src>
+__global__ void g2p_moments_kernel(Src src, const float* __restrict__ w27t,
+                                   const int* __restrict__ flat,
+                                   float* __restrict__ out, int n,
+                                   long long np) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= np) return;
+  moment_rows(src, w27t, out, flat[p], n, p, np);
+}
+
+template <class Src>
+__global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
+                                  const int* __restrict__ flat,
+                                  float* __restrict__ out, int n,
+                                  long long np) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= np) return;
+  gather_rows(src, w27t, out, flat[p], n, p, np);
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -609,10 +710,25 @@ __host__ __device__ constexpr int base_smem_bytes() {
 static_assert(base_staged_words<false>() >= kWarps * (kWin + kGroups),
               "the rank pass's histograms must fit in the staging space");
 
+// Zero row[0, len): 16-byte stores between a scalar head and tail (a row of
+// the (27, 4, n, n, n) output starts at r * n^3 floats, which need not be
+// 16-byte aligned); thread i of `threads` (at least 3) takes every
+// threads-th store.
+__device__ __forceinline__ void zero_segment(float* row, int len, int i,
+                                             int threads) {
+  const int mis = (int)(((unsigned long long)row >> 2) & 3);
+  const int head = min(len, (4 - mis) & 3);
+  const int body = (len - head) >> 2;
+  const int tail = head + 4 * body;
+  if (i < head) row[i] = 0.f;
+  for (int k = i; k < body; k += threads)
+    reinterpret_cast<float4*>(row + head)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tail + i < len) row[tail + i] = 0.f;
+}
+
 // The 108 x 512 zeros of an empty window: block (b, y) writes rows 2y and
-// 2y + 1 of window b, 16-byte stores between a scalar head and tail (row r
-// starts at r * n^3 floats, which need not be 16-byte aligned).  Blocks of
-// 1, 2, 4 and 12 rows and a flat fill were measured: 2 rows were fastest.
+// 2y + 1 of window b.  Blocks of 1, 2, 4 and 12 rows and a flat fill were
+// measured: 2 rows were fastest.
 __global__ void __launch_bounds__(128)
     zero_empty_windows_kernel(const int* __restrict__ wstart,
                               float* __restrict__ out, long long ncell) {
@@ -620,18 +736,8 @@ __global__ void __launch_bounds__(128)
   if (wstart[b] != wstart[b + 1]) return;
   const long long cell0 = (long long)b * kWin;
   const int ncw = (int)min((long long)kWin, ncell - cell0);
-  const int i = threadIdx.x;
-  for (int r = 2 * blockIdx.y; r < 2 * blockIdx.y + 2; ++r) {
-    float* row = out + r * ncell + cell0;
-    const int mis = (int)(((unsigned long long)row >> 2) & 3);
-    const int head = min(ncw, (4 - mis) & 3);
-    const int body = (ncw - head) >> 2;
-    const int tail = head + 4 * body;
-    if (i < head) row[i] = 0.f;
-    if (i < body)
-      reinterpret_cast<float4*>(row + head)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tail + i < ncw) row[tail + i] = 0.f;
-  }
+  for (int r = 2 * blockIdx.y; r < 2 * blockIdx.y + 2; ++r)
+    zero_segment(out + r * ncell + cell0, ncw, threadIdx.x, 128);
 }
 
 // One block per occupied window (see the note at the top).  scratch holds
@@ -832,6 +938,273 @@ __global__ void __launch_bounds__(kWin, 2)
   }
 }
 
+// ---- K9a, K9b: the span kernels, on particles fully sorted by cell -------
+
+constexpr int kSpanCells = 128;             // cells of a K9a tile
+constexpr int kSpanPitch = kSpanCells + 1;  // row stride of its running sums
+
+// Particles a K9a block stages at a time: as many as let 3 blocks share an
+// SM's 228 KB.  Shared memory: the (108, kSpanPitch) running sums, the 27
+// weight rows of the stage, its v (and C) rows and ids, and each of its
+// cells' run [first, last) in the stage.
+template <bool kAffine>
+__host__ __device__ constexpr int span_stage() {
+  return kAffine ? 112 : 128;
+}
+template <bool kAffine>
+__host__ __device__ constexpr int span_smem_bytes() {
+  return 4 * (108 * kSpanPitch + 27 * (span_stage<kAffine>() + 1) +
+              (kAffine ? 13 : 4) * span_stage<kAffine>() + 2 * kSpanCells);
+}
+
+// K9a's plan: tile_start[t], the first p with flat[p] >= min(t kSpanCells,
+// ncell), by a binary search per tile edge (t = 0 .. ntiles), and the order
+// check: flag = 1 when an id lies outside [0, ncell) or below its
+// predecessor, each block's threads striding over all ids.  On any order
+// every start lies in [0, np].
+__global__ void __launch_bounds__(kThreads)
+    span_plan_kernel(const int* __restrict__ flat, long long np,
+                     int* __restrict__ tile_start, long long ncell,
+                     long long ntiles, int* __restrict__ flag) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t <= ntiles)
+    tile_start[t] = (int)first_at_least(flat, np, min(t * kSpanCells, ncell));
+  bool bad = false;
+  for (long long p = t; p < np; p += (long long)gridDim.x * kThreads) {
+    const int f = flat[p];
+    bad |= f < 0 || f >= ncell || (p > 0 && flat[p - 1] > f);
+  }
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
+}
+
+// The zeros of K9a's empty tiles: block (b, y) writes rows 4y .. 4y + 3 of
+// tile b, a warp per 512 B row segment.
+__global__ void __launch_bounds__(128)
+    zero_empty_tiles_kernel(const int* __restrict__ tile_start,
+                            float* __restrict__ out, long long ncell) {
+  const int lo = tile_start[blockIdx.x];
+  if (max(lo, tile_start[blockIdx.x + 1]) != lo) return;
+  const long long c0 = (long long)blockIdx.x * kSpanCells;
+  const int cells = (int)min((long long)kSpanCells, ncell - c0);
+  const int r = 4 * blockIdx.y + (threadIdx.x >> 5);
+  zero_segment(out + r * ncell + c0, cells, threadIdx.x & 31, 32);
+}
+
+// A thread's share of one K9a stage, held in registers from its loads
+// until the block stores it: weight rows o0, o0 + kRowsAtOnce, ... at
+// particle qt, and v (and C) floats i, i + kThreads, ... of the stage's
+// contiguous runs, and the id of particle i (i < kS <= kThreads).
+template <bool kAffine>
+struct SpanShare {
+  static constexpr int kS = span_stage<kAffine>();
+  static constexpr int kRowsAtOnce = kThreads / kS;
+  static constexpr int kW = (27 + kRowsAtOnce - 1) / kRowsAtOnce;
+  static constexpr int kV = (3 * kS + kThreads - 1) / kThreads;
+  static constexpr int kC = kAffine ? (9 * kS + kThreads - 1) / kThreads : 0;
+  float w[kW], v[kV], c[kC > 0 ? kC : 1];
+  int id;
+
+  // issue every load of the stage [q0, q0 + nq) before any is used
+  __device__ __forceinline__ void load(const float* __restrict__ w27t,
+                                       const float* __restrict__ vel,
+                                       const float* __restrict__ aff,
+                                       const int* __restrict__ flat,
+                                       long long np, int q0, int nq) {
+    const int t = threadIdx.x, o0 = t / kS, qt = t % kS;
+    const bool lane_ok = t < kRowsAtOnce * kS && qt < nq;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const int o = o0 + k * kRowsAtOnce;
+      w[k] = lane_ok && o < 27 ? w27t[o * np + q0 + qt] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      const int i = t + k * kThreads;
+      v[k] = i < 3 * nq ? vel[3LL * q0 + i] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int i = t + k * kThreads;
+      c[k] = i < 9 * nq ? aff[9LL * q0 + i] : 0.f;
+    }
+    id = t < nq ? flat[q0 + t] : 0;
+  }
+
+  __device__ __forceinline__ void store(float* sw, float* sv, float* sc,
+                                        int* sid, int nq) const {
+    const int t = threadIdx.x, o0 = t / kS, qt = t % kS;
+    if (t < kRowsAtOnce * kS && qt < nq)
+#pragma unroll
+      for (int k = 0; k < kW; ++k)
+        if (o0 + k * kRowsAtOnce < 27)
+          sw[(o0 + k * kRowsAtOnce) * (kS + 1) + qt] = w[k];
+#pragma unroll
+    for (int k = 0; k < kV; ++k)
+      if (t + k * kThreads < 3 * nq) sv[t + k * kThreads] = v[k];
+#pragma unroll
+    for (int k = 0; k < kC; ++k)
+      if (t + k * kThreads < 9 * nq) sc[t + k * kThreads] = c[k];
+    if (t < nq) sid[t] = id;
+  }
+};
+
+// Sum one occupied tile [lo, hi) of K9a into its 108 output row segments.
+template <bool kAffine>
+__device__ __forceinline__ void sum_span_tile(
+    const float* __restrict__ w27t, const float* __restrict__ vel,
+    const float* __restrict__ aff, const int* __restrict__ flat,
+    float* __restrict__ out, int n, long long np, int tile, int lo, int hi) {
+  constexpr int kS = span_stage<kAffine>();
+  constexpr int kLd = kS + 1;                  // weight row stride
+  const long long ncell = (long long)n * n * n;
+  const long long c0 = (long long)tile * kSpanCells;
+  const int cells = (int)min((long long)kSpanCells, ncell - c0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  extern __shared__ __align__(16) float smem[];
+  float* acc = smem;                           // [108][kSpanPitch]
+  float* sw = acc + 108 * kSpanPitch;          // [27][kLd] weights
+  float* sv = sw + 27 * kLd;                   // [kS][3] v
+  float* sc = sv + 3 * kS;                     // [kS][9] C
+  int* sid = reinterpret_cast<int*>(sc + (kAffine ? 9 * kS : 0));  // [kS]
+  int* first = sid + kS;                       // [kSpanCells]
+  int* last = first + kSpanCells;
+
+  SpanShare<kAffine> share;
+  share.load(w27t, vel, aff, flat, np, lo, min(kS, hi - lo));
+  for (int i = threadIdx.x; i < 108 * kSpanPitch; i += kThreads) acc[i] = 0.f;
+  for (int j = threadIdx.x; j < kSpanCells; j += kThreads)
+    first[j] = last[j] = 0;
+
+  for (int q0 = lo; q0 < hi; q0 += kS) {
+    const int nq = min(kS, hi - q0);
+    share.store(sw, sv, sc, sid, nq);
+    __syncthreads();
+    // the next stage's loads fly while the block sums this one
+    if (q0 + kS < hi)
+      share.load(w27t, vel, aff, flat, np, q0 + kS, min(kS, hi - q0 - kS));
+    // each cell's run [first, last) in the stage, from the staged ids
+    if (threadIdx.x < nq) {
+      const int q = threadIdx.x, id = sid[q];
+      const long long j = id - c0;
+      if (j >= 0 && j < cells) {
+        if (q == 0 || sid[q - 1] != id) first[j] = q;
+        if (q == nq - 1 || sid[q + 1] != id) last[j] = q + 1;
+      }
+    }
+    __syncthreads();
+    // the stage's cells, clamped into the tile; a thread per (cell, offset)
+    // adds the cell's staged particles in order onto its 4 running sums.
+    // A cell between them that is not in the stage was in no earlier one
+    // either (sorted order), so its run is still the empty [0, 0).
+    const long long jf = sid[0] - c0, jl = sid[nq - 1] - c0;
+    const int j0 = (int)(jf < 0 ? 0 : jf < cells ? jf : cells - 1);
+    const int j1 = (int)(jl < 0 ? 0 : jl < cells ? jl : cells - 1);
+    const int items = (j1 - j0 + 1) * 27;
+    for (int it = threadIdx.x; it < items; it += kThreads) {
+      const int j = j0 + it / 27, o = it % 27;
+      const int a = first[j], e = min(last[j], nq);
+      if (a >= e) continue;
+      const float fx = (float)(o / 9 - 1);
+      const float fy = (float)((o / 3) % 3 - 1);
+      const float fz = (float)(o % 3 - 1);
+      const float* wo = sw + o * kLd;
+      float* rc = acc + 4 * o * kSpanPitch + j;
+      float a0 = rc[0], a1 = rc[kSpanPitch], a2 = rc[2 * kSpanPitch],
+            a3 = rc[3 * kSpanPitch];
+      for (int q = a; q < e; ++q) {
+        const float w = wo[q];
+        float v0 = sv[3 * q], v1 = sv[3 * q + 1], v2 = sv[3 * q + 2];
+        if (kAffine) {
+          const float* cq = sc + 9 * q;
+          v0 = v0 + cq[0] * fx + cq[1] * fy + cq[2] * fz;
+          v1 = v1 + cq[3] * fx + cq[4] * fy + cq[5] * fz;
+          v2 = v2 + cq[6] * fx + cq[7] * fy + cq[8] * fz;
+        }
+        a0 += w;
+        a1 += w * v0;
+        a2 += w * v1;
+        a3 += w * v2;
+      }
+      rc[0] = a0;
+      rc[kSpanPitch] = a1;
+      rc[2 * kSpanPitch] = a2;
+      rc[3 * kSpanPitch] = a3;
+    }
+    __syncthreads();       // every thread is done with the stage
+  }
+
+  // a warp per row: one 512 B segment of each of the 108 rows
+  for (int r = warp; r < 108; r += kThreads / 32) {
+    float* row = out + r * ncell + c0;
+    const float* a = acc + r * kSpanPitch;
+    for (int j = lane; j < cells; j += 32) row[j] = a[j];
+  }
+}
+
+// K9a: a block per tile of kSpanCells cells (see the note at the top).
+template <bool kAffine>
+__global__ void __launch_bounds__(kThreads, 3)
+    scatter_spans_kernel(const float* __restrict__ w27t,
+                         const float* __restrict__ vel,
+                         const float* __restrict__ aff,
+                         const int* __restrict__ flat,
+                         const int* __restrict__ tile_start,
+                         float* __restrict__ out, int n, long long np) {
+  // clamped, so that no order makes a block read outside [0, np)
+  const int lo = tile_start[blockIdx.x];
+  const int hi = max(lo, tile_start[blockIdx.x + 1]);
+  if (hi > lo)             // zero_empty_tiles_kernel writes the others
+    sum_span_tile<kAffine>(w27t, vel, aff, flat, out, n, np, blockIdx.x, lo,
+                           hi);
+}
+
+// K9b: a thread per sorted particle (see the note at the top).  A block
+// whose ids span at most `cap` cells stages their 108 table rows in shared
+// memory first; the others read the table directly, as K7a does.  The
+// launcher passes cap = kSpanStageCells as an argument rather than the
+// kernel reading the constant: with the bound known at compile time nvcc
+// gives the moments kernel 40 registers instead of 48, and in a probe on
+// the H100 it ran 9% slower (0.206 against 0.188 ms on the frame-2 FLIP
+// state).
+constexpr int kSpanStageCells = 32;
+template <bool kMom>
+__global__ void __launch_bounds__(kThreads)
+    gather_spans_kernel(const float* __restrict__ table,
+                        const float* __restrict__ w27t,
+                        const int* __restrict__ flat, float* __restrict__ out,
+                        int* __restrict__ flag, int n, long long np,
+                        int cap) {
+  extern __shared__ float cols[];              // [108][len] when staged
+  const long long ncell = (long long)n * n * n;
+  const long long p0 = (long long)blockIdx.x * kThreads;
+  const long long p1 = min(p0 + kThreads, np);
+  const int f0 = flat[p0];
+  const long long len = (long long)flat[p1 - 1] - f0 + 1;
+  const bool staged =
+      f0 >= 0 && f0 + len <= ncell && len >= 1 && len <= cap;
+  const int m = staged ? (int)len : 1;
+  if (staged) {            // uniform over the block
+    for (int i = threadIdx.x; i < 108 * m; i += kThreads) {
+      const int r = i / m;
+      cols[i] = __ldg(table + r * ncell + f0 + (i - r * m));
+    }
+    __syncthreads();
+  }
+  const long long p = p0 + threadIdx.x;
+  if (p >= np) return;
+  const int f = flat[p];
+  if (f < 0 || f >= ncell || (p > 0 && flat[p - 1] > f)) *flag = 1;
+  // an id out of order or outside the box is clamped into the arrays
+  if (staged) {
+    const int d = min(max(f - f0, 0), m - 1);
+    contract_rows<kMom>(StagedColumn{cols + d, m}, w27t, out, f, n, p, np);
+  } else {
+    const int fc = (int)min(max((long long)f, 0LL), ncell - 1);
+    contract_rows<kMom>(TableColumn{table}, w27t, out, fc, n, p, np);
+  }
+}
+
 }  // namespace
 
 extern "C" int fs_p2g_scatter(const float* w27t, const float* vel,
@@ -952,4 +1325,63 @@ extern "C" int fs_p2g_scatter_base(const float* w27t, const float* vel,
                                       scratch, out, n, np, st);
   return launch_scatter_base<true>(w27t, vel, aff, flat, wstart, scratch, out,
                                    n, np, st);
+}
+
+template <bool kAffine>
+int launch_scatter_spans(const float* w27t, const float* vel, const float* aff,
+                         const int* flat, int* tile_start, int* flag,
+                         float* out, int n, long long np, cudaStream_t st) {
+  constexpr int bytes = span_smem_bytes<kAffine>();
+  cudaError_t err = cudaFuncSetAttribute(
+      scatter_spans_kernel<kAffine>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long ncell = (long long)n * n * n;
+  if (ncell == 0) return 0;
+  const long long ntiles = (ncell + kSpanCells - 1) / kSpanCells;
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // ntiles + 1 searches, and about 8 ids a thread for the check
+  const long long edge_blocks = (ntiles + kThreads) / kThreads;
+  const long long check_blocks = (np + 8LL * kThreads - 1) / (8LL * kThreads);
+  const long long blocks =
+      edge_blocks > check_blocks ? edge_blocks : check_blocks;
+  span_plan_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(flat, np, tile_start,
+                                                          ncell, ntiles, flag);
+  zero_empty_tiles_kernel<<<dim3((unsigned)ntiles, 27), 128, 0, st>>>(
+      tile_start, out, ncell);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scatter_spans_kernel<kAffine><<<(unsigned)ntiles, kThreads, bytes, st>>>(
+      w27t, vel, aff, flat, tile_start, out, n, np);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fs_p2g_scatter_spans(const float* w27t, const float* vel,
+                                    const float* aff, const int* flat,
+                                    int* tile_start, int* flag, float* out,
+                                    int n, long long np, void* stream) {
+  // tile_start holds ceil(n^3 / kSpanCells) + 1 ints (transfer_kernels.py)
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (aff == nullptr)
+    return launch_scatter_spans<false>(w27t, vel, nullptr, flat, tile_start,
+                                       flag, out, n, np, st);
+  return launch_scatter_spans<true>(w27t, vel, aff, flat, tile_start, flag,
+                                    out, n, np, st);
+}
+
+extern "C" int fs_g2p_gather_spans(const float* table, const float* w27t,
+                                   const int* flat, int* flag, float* out,
+                                   int n, long long np, int moments,
+                                   void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (np == 0) return 0;
+  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
+  constexpr int bytes = 108 * 4 * kSpanStageCells;
+  if (moments)
+    gather_spans_kernel<true><<<blocks, kThreads, bytes, st>>>(
+        table, w27t, flat, out, flag, n, np, kSpanStageCells);
+  else
+    gather_spans_kernel<false><<<blocks, kThreads, bytes, st>>>(
+        table, w27t, flat, out, flag, n, np, kSpanStageCells);
+  return (int)cudaGetLastError();
 }

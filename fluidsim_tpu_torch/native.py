@@ -25,6 +25,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("transfer.cu", "stencil.cu", "bucket.cu", "layout.cu", "rows.cu")
+HEADERS = ("tile_search.cuh",)      # included by the sources: in the hash too
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
@@ -48,6 +49,10 @@ _SIGNATURES = {
                              _P),
     "fs_p2g_scatter_base": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                             ctypes.c_longlong, _P),
+    "fs_p2g_scatter_spans": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                             ctypes.c_longlong, _P),
+    "fs_g2p_gather_spans": (_P, _P, _P, _P, _P, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_int, _P),
     "fs_shift_reduce": (_P, _P, ctypes.c_int, _P),
     "fs_shift_expand": (_P, _P, ctypes.c_int, _P),
     "fs_shift_reduce_rows": (_P, _P, ctypes.c_int, _P),
@@ -85,7 +90,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libfluidsim_kernels_{h.hexdigest()[:16]}.so"

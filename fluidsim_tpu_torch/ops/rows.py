@@ -163,15 +163,17 @@ gather_rows_cm.launches = 0
 SCATTER_CELLS = 128   # cells per K8b tile (kScatterCells in csrc/rows.cu)
 
 
-def scatter_tile_starts_plain(flat_s: torch.Tensor, ncells: int) -> torch.Tensor:
+def scatter_tile_starts_plain(flat_s: torch.Tensor, ncells: int,
+                              cells: int = SCATTER_CELLS) -> torch.Tensor:
     """K8b's tile plan in PyTorch: ``tile_start[t]``, the first p with
-    ``flat_s[p] >= min(t * SCATTER_CELLS, ncells)`` for t = 0 .. ntiles, so
-    tile t's rows are ``[tile_start[t], tile_start[t + 1])``.  (ntiles + 1,)
-    int32, ``ntiles = ceil(ncells / SCATTER_CELLS)``; the kernel's first
-    pass writes the same numbers."""
-    ntiles = -(-ncells // SCATTER_CELLS)
+    ``flat_s[p] >= min(t * cells, ncells)`` for t = 0 .. ntiles, so tile t's
+    rows are ``[tile_start[t], tile_start[t + 1])``.  (ntiles + 1,) int32,
+    ``ntiles = ceil(ncells / cells)``; the kernel's first pass writes the
+    same numbers (``cells``: K8b's ``SCATTER_CELLS``, or the tiles of
+    another kernel's plan)."""
+    ntiles = -(-ncells // cells)
     edges = torch.clamp(torch.arange(ntiles + 1, device=flat_s.device)
-                        * SCATTER_CELLS, max=ncells)
+                        * cells, max=ncells)
     return torch.searchsorted(flat_s.to(torch.int64), edges).to(torch.int32)
 
 

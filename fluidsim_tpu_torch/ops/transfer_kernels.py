@@ -18,8 +18,9 @@ MPM modes (the force scatter, ``expand='fg'``, and the gradW gather,
 ``gather_wv_cm``, 4 rows or the 22 moments) — is ``shift_expand``,
 ``g2p_gather_table`` and ``g2p_moments_table``, reached by
 ``g2p(fused_table=False)`` and ``apic.g2p_apic(fused_table=False)``.  The
-span-chunked entry points of ``scatter_wv_spans`` and ``gather_wv_spans``
-(K9a, K9b) are ``p2g_scatter_spans`` and ``g2p_gather_spans``.
+span kernels ``scatter_wv_spans`` and ``gather_wv_spans`` (K9a, K9b) are
+``p2g_scatter_spans`` and ``g2p_gather_spans``, on particles fully sorted
+by cell.
 
 Particles are sorted by the plain flat id ``(x*n + y)*n + z`` of their
 clipped base cell; ``cell_start`` (n^3 + 1 offsets into the sorted arrays)
@@ -31,7 +32,8 @@ The three K1 modes run one chunked pull: ``chunk_plan`` cuts the cells'
 particle ranges into chunks once per frame (``chunk_fill`` writes its
 lists), and ``p2g_scatter_chunked``, ``p2g_scatter_affine_chunked`` and
 ``p2g_scatter_force_chunked`` are the kernels' summation order in PyTorch.
-``p2g_scatter_base_ordered`` is K6a's (each cell's sums in array order).
+``p2g_scatter_base_ordered`` is K6a's and K9a's (each cell's sums in array
+order).
 
 Each kernel wrapper (``p2g_scatter``, ``p2g_scatter_affine``,
 ``p2g_scatter_force``, ``chunk_fill``, ``p2g_scatter_base``, ``shift_reduce``,
@@ -52,6 +54,7 @@ import torch
 from fluidsim_tpu_torch import native
 from fluidsim_tpu_torch.core.splines import cround
 from fluidsim_tpu_torch.ops import bucket_sort
+from fluidsim_tpu_torch.ops.rows import scatter_tile_starts_plain
 from fluidsim_tpu_torch.ops.smallmat import apply_mat27, outer_sum27
 from fluidsim_tpu_torch.ops.transfer import _KERNELS, _OFFSETS
 
@@ -879,54 +882,157 @@ def shift_expand(fm: torch.Tensor) -> torch.Tensor:
 shift_expand.launches = 0
 
 
-# ---- K9a, K9b: the span-chunked entry points -------------------------------
+# ---- K9a, K9b: the span kernels -------------------------------------------
 #
 # The JAX package's span kernels are another TPU schedule of K6a's and K7a's
 # sums (fixed-stride particle chunks looping over the windows each touches),
-# for particles sorted by cell.  Here they check that order and run the K6a
-# and K7a kernels.
+# for particles fully sorted by cell.  Here each has a kernel of its own
+# that uses that order, in which each cell's particles are one contiguous
+# span.  The kernels check the order on the device and set a flag; the
+# wrapper copies it into pinned memory behind them, waits on an event and
+# raises on it, so no host read comes before the launch.
 
-def _require_sorted(flat_s: torch.Tensor, name: str):
-    if flat_s.numel() > 1 and not bool((flat_s[1:] >= flat_s[:-1]).all()):
-        raise ValueError(f"{name}: the particles must be sorted by cell id")
+SPAN_CELLS = 128       # cells per K9a tile (kSpanCells in csrc/transfer.cu)
+
+
+def span_tile_starts_plain(flat_s: torch.Tensor, ncells: int) -> torch.Tensor:
+    """K9a's tile plan in PyTorch: ``tile_start[t]``, the first p with
+    ``flat_s[p] >= min(t * SPAN_CELLS, ncells)`` for t = 0 .. ntiles, so
+    tile t's particles are ``[tile_start[t], tile_start[t + 1])``.
+    (ntiles + 1,) int32.  The kernel writes the same numbers; both search
+    each edge by halving, so on any order every start lies in [0, P]."""
+    return scatter_tile_starts_plain(flat_s, ncells, SPAN_CELLS)
+
+
+def span_order_flag_plain(flat_s: torch.Tensor, ncells: int) -> torch.Tensor:
+    """K9a's and K9b's order check in PyTorch: a 0-dim int32 tensor, 1 when
+    an id lies outside [0, ncells) or below its predecessor, else 0 — the
+    flag the kernels set."""
+    bad = ((flat_s < 0) | (flat_s >= ncells)).any()
+    return (bad | (flat_s[1:] < flat_s[:-1]).any()).to(torch.int32)
+
+
+def _order_error(name: str, ncells: int) -> ValueError:
+    return ValueError(f"{name}: the particles must be sorted by cell id, "
+                      f"every id in [0, {ncells})")
+
+
+def _raise_on_flag(name: str, flag: torch.Tensor, ncells: int):
+    """Queue a copy of a kernel's (1,) device flag into pinned memory behind
+    the kernel, wait on an event recorded after the copy, and raise if the
+    flag is set."""
+    buf = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    with torch.cuda.device(flag.device):
+        buf.copy_(flag, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    done.synchronize()
+    if int(buf[0]):
+        raise _order_error(name, ncells)
+
+
+def p2g_scatter_spans_launch(w27t: torch.Tensor, vel_s: torch.Tensor,
+                             flat_s: torch.Tensor, n: int,
+                             aff_s: torch.Tensor | None = None):
+    """Queue K9a on CUDA tensors, with no host read: ``(out, tile_start,
+    flag)``, the plan its first kernel wrote (``span_tile_starts_plain``'s
+    numbers) and its (1,) int32 device order flag (``span_order_flag_plain``'s
+    value).  ``out`` is undefined when the flag is set.
+    ``p2g_scatter_spans`` reads the flag and returns ``out``."""
+    name = "p2g_scatter_spans"
+    native.require_cuda(w27t, name)
+    dev = w27t.device
+    p = vel_s.shape[0]
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
+    native.check_tensor("vel_s", vel_s, torch.float32, (p, 3), dev)
+    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    if aff_s is not None:
+        native.check_tensor("aff_s", aff_s, torch.float32, (p, 9), dev)
+    if p >= 2 ** 31 or n ** 3 >= 2 ** 31:
+        raise ValueError(f"{name}: more than 2^31 - 1 particles or cells")
+    out = torch.empty((27, 4, n, n, n), dtype=torch.float32, device=dev)
+    tile_start = torch.empty((-(-n ** 3 // SPAN_CELLS) + 1,),
+                             dtype=torch.int32, device=dev)
+    flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_p2g_scatter_spans(
+            w27t.data_ptr(), vel_s.data_ptr(),
+            None if aff_s is None else aff_s.data_ptr(), flat_s.data_ptr(),
+            tile_start.data_ptr(), flag.data_ptr(), out.data_ptr(), n, p,
+            native.stream_ptr(dev))
+    native.check_launch(name, rc)
+    p2g_scatter_spans.launches += 1
+    return out, tile_start, flag
 
 
 def p2g_scatter_spans(w27t: torch.Tensor, vel_s: torch.Tensor,
                       flat_s: torch.Tensor, n: int,
                       aff_s: torch.Tensor | None = None) -> torch.Tensor:
     """K9a, the counterpart of ``scatter_wv_spans``: ``p2g_scatter_base``'s
-    function on particles fully sorted by cell (raises otherwise).
-    (27, 4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter_base``;
-    CPU tensors take ``p2g_scatter_base_plain``."""
+    function and summation order on particles fully sorted by cell, every
+    id in [0, n^3) (raises otherwise).  (27, 4, n, n, n) f32.  CUDA tensors
+    launch ``fs_p2g_scatter_spans`` (``csrc/transfer.cu``: the tile plan
+    with the order check, the empty tiles' zeros, then a block per occupied
+    128-cell tile), bitwise equal to ``p2g_scatter_base_ordered``, and raise
+    after it on the flag; CPU
+    tensors check the order with ``span_order_flag_plain`` and take
+    ``p2g_scatter_base_plain``."""
     if w27t.device.type == "cpu":
-        _require_sorted(flat_s, "p2g_scatter_spans")
+        if int(span_order_flag_plain(flat_s, n ** 3)):
+            raise _order_error("p2g_scatter_spans", n ** 3)
         return p2g_scatter_base_plain(w27t, vel_s, flat_s, n, aff_s)
-    native.require_cuda(w27t, "p2g_scatter_spans")
-    _require_sorted(flat_s, "p2g_scatter_spans")
-    out = p2g_scatter_base(w27t, vel_s, flat_s, window_starts(flat_s, n), n,
-                           aff_s)
-    p2g_scatter_spans.launches += 1
+    out, _, flag = p2g_scatter_spans_launch(w27t, vel_s, flat_s, n, aff_s)
+    _raise_on_flag("p2g_scatter_spans", flag, n ** 3)
     return out
 
 
 p2g_scatter_spans.launches = 0
 
 
+def g2p_gather_spans_launch(table: torch.Tensor, w27t: torch.Tensor,
+                            flat_s: torch.Tensor, moments: bool = False):
+    """Queue K9b on CUDA tensors, with no host read: ``(out, flag)``, its
+    order flag as in ``p2g_scatter_spans_launch``."""
+    name = "g2p_gather_spans"
+    native.require_cuda(table, name)
+    dev = table.device
+    n = table.shape[-1]
+    p = flat_s.shape[0]
+    native.check_tensor("table", table, torch.float32, (27, 4, n, n, n), dev)
+    native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
+    native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    out = torch.empty((MOMENT_ROWS if moments else 4, p), dtype=torch.float32,
+                      device=dev)
+    flag = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lib = native.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_g2p_gather_spans(table.data_ptr(), w27t.data_ptr(),
+                                     flat_s.data_ptr(), flag.data_ptr(),
+                                     out.data_ptr(), n, p, int(moments),
+                                     native.stream_ptr(dev))
+    native.check_launch(name, rc)
+    g2p_gather_spans.launches += 1
+    return out, flag
+
+
 def g2p_gather_spans(table: torch.Tensor, w27t: torch.Tensor,
                      flat_s: torch.Tensor, moments: bool = False) -> torch.Tensor:
-    """K9b, the counterpart of ``gather_wv_spans``: ``g2p_gather_table``
-    (``nout=8``) or, with ``moments``, ``g2p_moments_table`` (``nout=24``)
-    on particles fully sorted by cell (raises otherwise).  (4, P) or (22, P)
-    f32.  CUDA tensors launch ``fs_g2p_gather_table`` or
-    ``fs_g2p_moments_table``; CPU tensors take their plain versions."""
-    gather = g2p_moments_table if moments else g2p_gather_table
+    """K9b, the counterpart of ``gather_wv_spans``: ``g2p_gather_table``'s
+    4 rows (``nout=8``) or, with ``moments``, ``g2p_moments_table``'s 22
+    (``nout=24``) on particles fully sorted by cell, every id in [0, n^3)
+    (raises otherwise).  (4, P) or (22, P) f32.  CUDA tensors launch
+    ``fs_g2p_gather_spans`` (``csrc/transfer.cu``), bitwise equal to K7a and
+    K2, and raise after it on the flag; CPU tensors check the order with
+    ``span_order_flag_plain`` and take the plain versions."""
+    ncells = table.shape[-1] ** 3
     if table.device.type == "cpu":
-        _require_sorted(flat_s, "g2p_gather_spans")
-        return gather(table, w27t, flat_s)
-    native.require_cuda(table, "g2p_gather_spans")
-    _require_sorted(flat_s, "g2p_gather_spans")
-    out = gather(table, w27t, flat_s)
-    g2p_gather_spans.launches += 1
+        if int(span_order_flag_plain(flat_s, ncells)):
+            raise _order_error("g2p_gather_spans", ncells)
+        plain = g2p_moments_table_plain if moments else g2p_gather_table_plain
+        return plain(table, w27t, flat_s)
+    out, flag = g2p_gather_spans_launch(table, w27t, flat_s, moments)
+    _raise_on_flag("g2p_gather_spans", flag, ncells)
     return out
 
 
