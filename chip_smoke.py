@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths, the
-materialised G2P, the span and unhaloed shift entry points and the
-row-layout transfers on one NVIDIA GPU and check them.
+materialised G2P, the span and unhaloed shift entry points, the
+row-layout transfers and config-driven runs (multigrid, the clean
+projection, MPM Jacobi) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
@@ -109,7 +110,24 @@ Phases, each of which raises on failure (nonzero exit):
    sweep_transfer's 127-lane rows and table of ones;
 22. ``utils/transfer_parts`` at 129^3 on the 3-frame state: one pass of the
    row P2G and G2P with the launch counts of every kernel, the row P2G
-   against K1 and the row G2P against K2, then each part's time.
+   against K1 and the row G2P against K2, then each part's time;
+23. ``config.make_sim`` of a JSON config with ``water_cube_drop``'s cube
+   (the particles of phase 4), a solid block under it (the grid bounce
+   probe) and ``preconditioner="multigrid"``: 10 timed frames with the
+   checks of phase 4, 6 K3 launches per CG iteration (the CG apply and the
+   V-cycle's 5 fine-level sweeps and residual) and no K4 launch; ms/frame,
+   CG iterations and outer passes per frame;
+24. the same config with ``compat_projection=False, cheb_degree=4,
+   cheb_ratio=50``: one outer pass a frame, 3 K4 launches per
+   preconditioner application; ms/frame and CG iterations;
+25. ``mpm_cone`` at 127^3 with ``precond="jacobi"``: 10 timed frames with
+   the checks of phase 11 and one more K1 launch a frame (the stiffness
+   scatter); CG iterations per frame beside phase 11's;
+26. card against CPU: the small config (bound 8, an obstacle) with the
+   Jacobi and multigrid preconditioners, the clean projection and the MPM
+   spline, as phase 9; ``mpm_cone`` at bound 15 with ``precond="jacobi"``,
+   as phase 13; ``extrapolate`` of phase 23's last grid velocity and fluid
+   mask at 129^3, within 1e-6 x max|v|.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  An entry's ``ms`` is its
@@ -181,7 +199,9 @@ def _queued_ms(fn, torch):
     one 5 ms later, while the card still spins.  A wrapper that reads from
     the card before its launch is still waiting then, so the events hold
     only what came before the read; one that reads after its launch has
-    queued all of its kernels between them."""
+    queued all of its kernels between them.  The spin is 4x ``_cuda_ms``'s
+    (~40 ms): the end event must be queued before the spin ends, and on a
+    loaded host the 5 ms sleep and the thread's start can take over 10."""
     import threading
 
     fn()
@@ -190,7 +210,7 @@ def _queued_ms(fn, torch):
     for _ in range(_REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(_SPIN_CYCLES)
+        torch.cuda._sleep(4 * _SPIN_CYCLES)
         start.record()
         worker = threading.Thread(target=fn)
         worker.start()
@@ -388,16 +408,28 @@ def _flip_sim(dev, mode="flip", sort_method="full", bound=BOUND,
     return FlipSim(scene, params=params, seed=SEED, device=dev)
 
 
-def _run_frames(sim, counted, torch):
+def _stencil_launches(params):
+    """(K3, K4) launches per CG solve start and per CG iteration of the
+    frame's projection: one K3 apply, plus the preconditioner's — the
+    Chebyshev polynomial's ``cheb_degree - 1`` K4 steps, or the V-cycle's
+    pre + 1 + post = 5 fine-level K3 applies (on a grid that coarsens, as
+    every grid here does), or nothing for Jacobi."""
+    if params.preconditioner == "chebyshev":
+        return 1, params.cheb_degree - 1
+    if params.preconditioner == "multigrid":
+        return 6, 0
+    return 1, 0
+
+
+def _run_frames(sim, counted, torch, label=None):
     """Step ``FRAMES`` frames with every launch count set to 0 just before;
     check them and their launch counts; return (energies, launches,
-    ms/frame)."""
+    ms/frame, CG iterations per frame, outer passes per frame)."""
     from fluidsim_tpu_torch.ops import bucket_sort as bs
-    from fluidsim_tpu_torch.ops import stencil_kernels as sk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
     bucket = sim.params.sort_method == "bucket"
-    mode = sim.params.mode + ("-bucket" if bucket else "")
+    mode = label or (sim.params.mode + ("-bucket" if bucket else ""))
     for fn in counted:
         fn.launches = 0
     tk.chunk_plan.builds = 0
@@ -434,8 +466,9 @@ def _run_frames(sim, counted, torch):
             or last["outer_iters"] < sim.params.max_outer):
         raise AssertionError(f"{mode}: projection did not meet its outer tolerance")
     # PCG: one apply for the initial residual plus one per iteration, and the
-    # preconditioner (degree - 1 fused steps) as often
+    # preconditioner as often
     solves = sum(cg) + sum(outer)
+    k3, k4 = _stencil_launches(sim.params)
     gather = "g2p_moments" if sim.params.mode == "apic" else "g2p_gather"
     if bucket:
         scatters = {"p2g_scatter_base": FRAMES, "shift_reduce": FRAMES,
@@ -445,18 +478,23 @@ def _run_frames(sim, counted, torch):
     else:
         scatters = {"p2g_scatter": FRAMES, "chunk_fill": FRAMES}
     want = {name: 0 for name in launches}
-    want.update({gather: FRAMES, **scatters, "apply_laplacian": solves,
-                 "cheb_step": (sk.CHEB_DEGREE - 1) * solves})
+    want.update({gather: FRAMES, **scatters, "apply_laplacian": k3 * solves,
+                 "cheb_step": k4 * solves})
     if launches != want:
         raise AssertionError(f"{mode}: kernel launches {launches}, expected {want}")
     # one chunk plan per frame, shared by the frame's K1 launch
     if tk.chunk_plan.builds != (0 if bucket else FRAMES):
         raise AssertionError(f"{mode}: {tk.chunk_plan.builds} K1 chunk plans "
                              f"built in {FRAMES} frames")
+    print(f"{mode}: per CG iteration (and per solve start) "
+          f"{launches['apply_laplacian'] / solves} K3 and "
+          f"{launches['cheb_step'] / solves} K4 launches")
     ms = 1e3 * wall_s / FRAMES
     print(f"{mode}: ms/frame {ms:.3f}  steps/s {FRAMES / wall_s:.3f}  "
-          f"({FRAMES} frames, host clock, synchronised)")
-    return ke, launches, ms
+          f"CG iterations/frame {sum(cg) / FRAMES:.1f}  outer passes/frame "
+          f"{sum(outer) / FRAMES:.1f} ({FRAMES} frames, host clock, "
+          "synchronised)")
+    return ke, launches, ms, cg, outer
 
 
 def _rerun(mode, kes, dev, sort_method="full"):
@@ -474,9 +512,14 @@ def _rerun(mode, kes, dev, sort_method="full"):
 
 def _small_scene(mode, dev, sort_method="full", bound=8, density=3.0):
     """A small scene, 3 frames on the card against 3 on the CPU."""
-    gpu_sim = _flip_sim(dev, mode, sort_method, bound, density)
-    cpu_sim = _flip_sim("cpu", mode, sort_method, bound, density)
-    mode = f"{mode} {sort_method}"
+    _card_against_cpu(
+        f"{mode} {sort_method}", bound,
+        lambda d: _flip_sim(d, mode, sort_method, bound, density), dev)
+
+
+def _card_against_cpu(mode, bound, make_sim, dev):
+    """3 frames of ``make_sim(dev)`` against 3 of ``make_sim("cpu")``."""
+    gpu_sim, cpu_sim = make_sim(dev), make_sim("cpu")
     # f32 sums in another order may move CG's stopping test by one iteration
     # in a pass; the outer passes, the energy and the positions must agree
     for f in range(3):
@@ -513,10 +556,10 @@ def _mpm_solves(m, params):
     return 1 + m["spd_fallback"], spd_iters < params.cg_maxiter
 
 
-def _run_mpm_frames(sim, counted, torch):
+def _run_mpm_frames(sim, counted, torch, label="mpm"):
     """Step ``FRAMES`` MPM frames with every launch count set to 0 just
     before; check them and their launch counts; return (energies,
-    launches)."""
+    launches, CG iterations per frame)."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
     for fn in counted:
@@ -528,54 +571,57 @@ def _run_mpm_frames(sim, counted, torch):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    print("mpm: launches in the timed frames:", json.dumps(launches),
+    print(f"{label}: launches in the timed frames:", json.dumps(launches),
           f"K1 chunk plans built: {tk.chunk_plan.builds}")
 
     ke = [float(f["kinetic_energy"]) for f in frames]
     cg = [f["cg_iters"] for f in frames]
     spd = [f["spd_fallback"] for f in frames]
-    print(f"mpm frames: ke {ke[0]:.6g} .. {ke[-1]:.6g}, cg_iters {cg}, "
+    print(f"{label} frames: ke {ke[0]:.6g} .. {ke[-1]:.6g}, cg_iters {cg}, "
           f"spd_fallback {spd}, min_det_fp(last) "
           f"{float(frames[-1]['min_det_fp']):.6g}")
     st = sim.state
     if not all(math.isfinite(k) for k in ke):
-        raise AssertionError("mpm: non-finite kinetic energy")
+        raise AssertionError(f"{label}: non-finite kinetic energy")
     if (not bool(torch.isfinite(st.pos).all())
             or float(st.pos.abs().max()) >= MPM_BOUND):
-        raise AssertionError("mpm: particles left the box or went non-finite")
+        raise AssertionError(f"{label}: particles left the box or went non-finite")
     if not all(bool(torch.isfinite(f).all()) for f in (st.FE, st.FP)):
-        raise AssertionError("mpm: non-finite deformation gradients")
+        raise AssertionError(f"{label}: non-finite deformation gradients")
     if not all(float(f["min_det_fp"]) > 0 for f in frames):
-        raise AssertionError("mpm: det(FP) <= 0")
+        raise AssertionError(f"{label}: det(FP) <= 0")
     applies = 0
     for f, m in enumerate(frames):
         solves, converged = _mpm_solves(m, sim.params)
         if not converged:
-            raise AssertionError(f"mpm frame {f}: the solve stopped at its cap")
+            raise AssertionError(f"{label} frame {f}: the solve stopped at its cap")
         # one apply for each solve's initial residual plus one per iteration
         applies += m["cg_iters"] + solves
     want = {name: 0 for name in launches}
-    want.update({"p2g_scatter": FRAMES, "g2p_gather": 2 * FRAMES,
+    # the Jacobi preconditioner's stiffness scatter is one more K1 a frame
+    k1 = 2 if sim.params.precond == "jacobi" else 1
+    want.update({"p2g_scatter": k1 * FRAMES, "g2p_gather": 2 * FRAMES,
                  "p2g_scatter_force": FRAMES + applies,
                  "g2p_gather_gw": applies + FRAMES, "chunk_fill": FRAMES})
     if launches != want:
-        raise AssertionError(f"mpm: kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {want}")
     # K1 and every K1 fg launch of a frame share the frame's one plan
     if tk.chunk_plan.builds != FRAMES:
-        raise AssertionError(f"mpm: {tk.chunk_plan.builds} K1 chunk plans "
+        raise AssertionError(f"{label}: {tk.chunk_plan.builds} K1 chunk plans "
                              f"built in {FRAMES} frames")
-    print(f"mpm: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
+    print(f"{label}: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
           f"{FRAMES / wall_s:.3f}  CG iterations/frame {sum(cg) / FRAMES:.1f} "
           f"({FRAMES} frames, host clock, synchronised)")
-    return ke, launches
+    return ke, launches, cg
 
 
-def _mpm_small_scene(hessian, dev):
+def _mpm_small_scene(hessian, dev, precond="none"):
     """``mpm_cone`` at bound 15, 3 frames on the card against 3 on the CPU."""
     from fluidsim_tpu_torch.models.mpm import MpmParams, MpmSim
 
-    params = MpmParams(hessian=hessian,
+    params = MpmParams(hessian=hessian, precond=precond,
                        cg_hybrid_cap=1 if hessian == "hybrid" else 150)
+    name = f"mpm {hessian}" + ("" if precond == "none" else f" {precond}")
     gpu_sim = MpmSim("mpm_cone", params=params, seed=SEED, device=dev,
                      **MPM_SMALL)
     cpu_sim = MpmSim("mpm_cone", params=params, seed=SEED, device="cpu",
@@ -584,7 +630,7 @@ def _mpm_small_scene(hessian, dev):
     for f in range(3):
         mg, mc = gpu_sim.step(), cpu_sim.step()
         kg, kc = float(mg["kinetic_energy"]), float(mc["kinetic_energy"])
-        print(f"reference mpm {hessian} frame {f}: card ke {kg:.7g} cg "
+        print(f"reference {name} frame {f}: card ke {kg:.7g} cg "
               f"{mg['cg_iters']} spd {mg['spd_fallback']} | cpu ke {kc:.7g} "
               f"cg {mc['cg_iters']} spd {mc['spd_fallback']}")
         solves, _ = _mpm_solves(mc, params)
@@ -592,16 +638,16 @@ def _mpm_small_scene(hessian, dev):
                 or int(mg["num_active_cells"]) != int(mc["num_active_cells"])
                 or mg["spd_fallback"] != mc["spd_fallback"]
                 or abs(mg["cg_iters"] - mc["cg_iters"]) > solves):
-            raise AssertionError(f"mpm {hessian} frame {f}: card and cpu differ")
+            raise AssertionError(f"{name} frame {f}: card and cpu differ")
         fallbacks += mc["spd_fallback"]
     if hessian == "hybrid" and fallbacks == 0:
         raise AssertionError("mpm hybrid cap 1: no frame took the SPD fallback")
     pos_err = _max_err(gpu_sim.state.pos.cpu(), cpu_sim.state.pos)
     fe_err = _max_err(gpu_sim.state.FE.cpu(), cpu_sim.state.FE)
     if pos_err > 1e-4 or fe_err > 1e-5:
-        raise AssertionError(f"mpm {hessian}: positions differ by {pos_err}, "
+        raise AssertionError(f"{name}: positions differ by {pos_err}, "
                              f"FE by {fe_err}")
-    print(f"reference mpm {hessian}: bound 15, 3 frames, max pos diff card vs "
+    print(f"reference {name}: bound 15, 3 frames, max pos diff card vs "
           f"cpu {pos_err:.3e}, max FE diff {fe_err:.3e}")
 
 
@@ -1201,6 +1247,125 @@ def _row_transfers(dev, counted, torch):
     return launches
 
 
+def _config_cube(params):
+    """Phases 23-24's config: ``water_cube_drop``'s cube at bound 64 and
+    density 25 with a solid block under it that the seed does not touch."""
+    return {"kind": "flip", "bound": BOUND, "density": DENSITY,
+            "seed": [{"box": [[-21, -21, -21], [21, 21, 21]]}],
+            "solid": [{"box": [[-8, -62, -8], [8, -30, 8]]}],
+            "params": params}
+
+
+def _config_phases(dev, counted, torch, flip_particles, flip_ms, flip_cg,
+                   mpm_particles, mpm_launches, mpm_cg):
+    """Phases 23-26; returns the launch counts of phases 23-25's timed
+    frames by path."""
+    from fluidsim_tpu_torch import config
+    from fluidsim_tpu_torch.models.mpm import MpmParams, MpmSim
+    from fluidsim_tpu_torch.ops import extrapolate as ex
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
+    from fluidsim_tpu_torch.scenes import get_scene
+
+    def config_sim(params):
+        sim = config.make_sim(_config_cube(params), seed=SEED, device=dev)
+        if sim.num_particles != flip_particles:
+            raise AssertionError(f"config {params}: {sim.num_particles} "
+                                 f"particles, phase 4 had {flip_particles}")
+        if sim.params.walls_only_solid:
+            raise AssertionError("config with an obstacle took the walls-"
+                                 "only bounce probe")
+        for _ in range(2):
+            sim.step()
+        return sim
+
+    # ---- 23. multigrid FLIP at full width, through make_sim ------------
+    sim = config_sim({"preconditioner": "multigrid"})
+    print(f"config multigrid: bound {BOUND}, {sim.num_particles} particles "
+          "(phase 4's), one solid block, the grid bounce probe")
+    _, mg_launches, mg_ms, mg_cg, _ = _run_frames(sim, counted, torch,
+                                                  "flip-multigrid")
+    print(f"flip-multigrid: ms/frame {mg_ms:.3f} against phase 4's "
+          f"{flip_ms:.3f}; CG iterations/frame {sum(mg_cg) / FRAMES:.1f} "
+          f"against {sum(flip_cg) / FRAMES:.1f}")
+    # phase 26's extrapolation input: the P2G of the last state
+    st, B, n = sim.state, sim.params.bound, 2 * sim.params.bound + 1
+    pos_s, vel_s, flat = tk.sort_by_cell(st.pos, st.vel, B)
+    w, mom, occ = tk.p2g(tk.masked_weights_cm(pos_s, B), vel_s, flat,
+                         sim.solid, B)
+    velg = normalize_velocity_cm(w, mom).permute(1, 2, 3, 0).contiguous()
+    fluid = (occ > 0) & ~sim.solid
+    del sim, st, pos_s, vel_s, flat, w, mom, occ
+
+    # ---- 24. the clean projection at full width -------------------------
+    sim = config_sim({"compat_projection": False, "cheb_degree": 4,
+                      "cheb_ratio": 50.0})
+    _, clean_launches, clean_ms, clean_cg, clean_outer = _run_frames(
+        sim, counted, torch, "flip-clean")
+    if clean_outer != [1] * FRAMES:
+        raise AssertionError(f"flip-clean: outer passes {clean_outer}")
+    if clean_launches["cheb_step"] != 3 * (sum(clean_cg) + FRAMES):
+        raise AssertionError("flip-clean: not 3 K4 launches per "
+                             "preconditioner application")
+    print(f"flip-clean: ms/frame {clean_ms:.3f}, CG iterations/frame "
+          f"{sum(clean_cg) / FRAMES:.1f}, 1 outer pass a frame, 3 K4 "
+          "launches per preconditioner application")
+    del sim
+
+    # ---- 25. MPM with the Jacobi preconditioner at full width -----------
+    scene = get_scene("mpm_cone", bound=MPM_BOUND)
+    sim = MpmSim(scene, seed=SEED, device=dev, params=MpmParams(
+        bound=MPM_BOUND, wall=scene.spec.wall, dx=scene.spec.dx,
+        gravity=tuple(scene.gravity), precond="jacobi"))
+    if sim.num_particles != mpm_particles:
+        raise AssertionError(f"mpm-jacobi: {sim.num_particles} particles, "
+                             f"phase 10 had {mpm_particles}")
+    for _ in range(2):
+        sim.step()
+    _, jac_launches, jac_cg = _run_mpm_frames(sim, counted, torch,
+                                              "mpm-jacobi")
+    if jac_launches["p2g_scatter"] != mpm_launches["p2g_scatter"] + FRAMES:
+        raise AssertionError("mpm-jacobi: not one more K1 launch a frame "
+                             "than phase 11")
+    print(f"mpm-jacobi: CG iterations per frame {jac_cg} against phase "
+          f"11's {mpm_cg}")
+    del sim
+
+    # ---- 26. card against CPU on small scenes ---------------------------
+    small = {"kind": "flip", "bound": 8, "density": 3,
+             "seed": [{"box": [[-3, -3, -3], [3, 3, 3]]}],
+             "solid": [{"box": [[-2, -6, -2], [2, -5, 2]]}]}
+    for params in ({"preconditioner": "jacobi"},
+                   {"preconditioner": "multigrid"},
+                   {"compat_projection": False}, {"kernel": "mpm"}):
+        _card_against_cpu(
+            f"config {json.dumps(params)}", 8,
+            lambda d: config.make_sim(dict(small, params=params), seed=SEED,
+                                      device=d), dev)
+    _mpm_small_scene("full", dev, precond="jacobi")
+    # the extrapolation is elementwise and sums the 26 neighbours in one
+    # order on both devices: it must agree within 1e-6 x max|v|
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_card, d_card = ex.extrapolate(velg, fluid)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_cpu, d_cpu = ex.extrapolate(velg.cpu(), fluid.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = _max_err(v_card.cpu(), v_cpu)
+    scale = float(v_cpu.abs().max())
+    bitwise = torch.equal(v_card.cpu(), v_cpu)
+    print(f"extrapolate at {n}^3 from {int(fluid.sum())} fluid cells: "
+          f"{int(d_cpu.sum())} cells defined, max |card - cpu| {err:.3e} "
+          f"(bound {1e-6 * scale:.3e}), bitwise {bitwise}; card "
+          f"{card_s:.3f} s, cpu {cpu_s:.3f} s (host clock)")
+    if not torch.equal(d_card.cpu(), d_cpu) or err > 1e-6 * scale:
+        raise AssertionError("extrapolate: card and cpu differ")
+    return {"flip_multigrid": mg_launches, "flip_clean": clean_launches,
+            "mpm_jacobi": jac_launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1248,7 +1413,7 @@ def main() -> int:
     sim = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
                   seed=SEED, device=dev)
     B, wall, n = sim.params.bound, sim.params.wall, 2 * sim.params.bound + 1
-    P = sim.num_particles
+    P = flip_particles = sim.num_particles
     print(f"scene water_cube_drop bound {B} grid {n}^3 particles {P}")
     rng = np.random.default_rng(SEED)
     vel0 = torch.as_tensor(rng.normal(scale=3.0, size=(P, 3))
@@ -1322,7 +1487,7 @@ def main() -> int:
                shift.to_channel_major, shift.from_channel_major,
                shift.p2g_shift_reduce, shift.g2p_table_expand,
                rw.gather_rows_cm, rw.scatter_rows_cm)
-    ke, flip_launches, flip_ms = _run_frames(sim, counted, torch)
+    ke, flip_launches, flip_ms, flip_cg, _ = _run_frames(sim, counted, torch)
     kes += ke
     del sim
 
@@ -1369,7 +1534,7 @@ def main() -> int:
 
     # ---- 7. the APIC main path --------------------------------------------
     kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
-    ke, apic_launches, _ = _run_frames(sim, counted, torch)
+    ke, apic_launches, *_ = _run_frames(sim, counted, torch)
     kes += ke
     del sim
 
@@ -1384,6 +1549,7 @@ def main() -> int:
     sim = MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED, device=dev)
     prm = sim.params
     B, n, P = prm.bound, 2 * prm.bound + 1, sim.num_particles
+    mpm_particles = P
     print(f"scene mpm_cone bound {B} grid {n}^3 particles {P} "
           f"operator {prm.hessian}")
     kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
@@ -1462,7 +1628,7 @@ def main() -> int:
     del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
-    ke, mpm_launches = _run_mpm_frames(sim, counted, torch)
+    ke, mpm_launches, mpm_cg = _run_mpm_frames(sim, counted, torch)
     kes += ke
     del sim
 
@@ -1541,7 +1707,7 @@ def main() -> int:
     del pos_s, vel_s, w27t, d, onehot
 
     # ---- 15. the bucket path: the two frames above were its warm-up ------
-    ke, bucket_launches, bucket_ms = _run_frames(sim, counted, torch)
+    ke, bucket_launches, bucket_ms, *_ = _run_frames(sim, counted, torch)
     kes += ke
     print(f"flip-bucket: ms/frame {bucket_ms:.3f} against the full sort's "
           f"{flip_ms:.3f} in phase 4 of this process")
@@ -1566,6 +1732,12 @@ def main() -> int:
 
     # ---- 22. the row-layout transfers at 129^3 --------------------------
     row_launches = _row_transfers(dev, counted, torch)
+
+    # ---- 23-26. config-driven runs: multigrid, the clean projection, MPM
+    # Jacobi, and small scenes card against CPU ---------------------------
+    config_launches = _config_phases(dev, counted, torch, flip_particles,
+                                     flip_ms, flip_cg, mpm_particles,
+                                     mpm_launches, mpm_cg)
 
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
@@ -1611,7 +1783,7 @@ def main() -> int:
              "flip_bucket": bucket_launches,
              "g2p_materialised": table_launches,
              "shift_entry_points": entry_launches,
-             "row_transfers": row_launches}
+             "row_transfers": row_launches, **config_launches}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
                 "launches": launches[name], **results[name],

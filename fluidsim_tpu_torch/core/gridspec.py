@@ -99,6 +99,13 @@ def shift_to_minus(a: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
+def cell_center_velocity(vel: torch.Tensor) -> torch.Tensor:
+    """``cell_center_velocity_cm`` for (N,N,N,3) MAC face velocity, the
+    layout of ``ops.extrapolate`` and of exported grids."""
+    return torch.stack([0.5 * (vel[..., d] + shift_to_plus(vel[..., d], d))
+                        for d in range(3)], dim=-1)
+
+
 def cell_center_velocity_cm(vel_cm: torch.Tensor) -> torch.Tensor:
     """Channel-major (3,N,N,N) MAC face velocity -> cell-centred velocity,
     ``0.5 * (v[d, c] + v[d, c + e_d])`` with zero beyond the array edge."""

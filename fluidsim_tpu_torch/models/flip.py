@@ -5,7 +5,9 @@ fused transfers and the packed, Chebyshev-preconditioned projection).
 One ``flip_step`` is
 
   sort by cell -> P2G (K1, or K1 aff in APIC) -> occupancy -> pressure
-  projection do-while (PCG with K3 applies and K4 Chebyshev steps) -> G2P
+  projection do-while (PCG with K3 applies; the preconditioner K4
+  Chebyshev steps, a multigrid V-cycle whose fine level is K3, or Jacobi)
+  -> G2P
   (FLIP: the delta through K2; PIC: the new velocity through K2; APIC: the
   offset moments through K2 moments and the affine fit) -> CFL dt ->
   advection with solid bounce (restitution 0 in FLIP, 0.5 in PIC and APIC)
@@ -17,9 +19,10 @@ unfused pair K6a (base-cell scatter) and K6b (shift-reduce), which need no
 more than that grouping; G2P reads each particle alone and takes either
 order.  The projection keeps
 the reference's outer divergence-correction loop (relative error <= 0.1)
-and its quirks (gradient at dt/10 strength, gravity re-applied per pass).
-The JAX package's other schedules (chunked and sharded transfers,
-multigrid, the clean projection) are not ported here.
+and its quirks (gradient at dt/10 strength, gravity re-applied per pass),
+unless ``compat_projection=False`` asks for the textbook projection.  The
+JAX package's XLA and chunked transfer schedules select no other function
+and have no counterpart here; the sharded sims are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm, flat_index
 from fluidsim_tpu_torch.core.splines import cround, cround_out
 from fluidsim_tpu_torch.ops import apic
+from fluidsim_tpu_torch.ops import multigrid as mg
 from fluidsim_tpu_torch.ops import pressure as pr
 from fluidsim_tpu_torch.ops import stencil_kernels as sk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
@@ -45,11 +49,28 @@ from fluidsim_tpu_torch.utils.profiling import check_finite
 
 @dataclasses.dataclass(frozen=True)
 class FlipParams:
-    """Solver configuration.  Defaults mirror the reference constants: dt
-    cap 0.1, rho = 1, dx = 1, gravity (0, -10, 0), outer tolerance 0.1.
-    ``mode`` is "flip", "pic" or "apic".  The frame uses the FLIP spline
-    and a Chebyshev-Jacobi preconditioner of degree
-    ``stencil_kernels.CHEB_DEGREE``."""
+    """Solver configuration: the JAX package's fields with its defaults,
+    which mirror the reference constants (dt cap 0.1, rho = 1, dx = 1,
+    gravity (0, -10, 0), outer tolerance 0.1).
+
+    Fields that change what the frame computes: ``mode`` ("flip", "pic" or
+    "apic"), ``kernel`` (the transfer spline, "flip" or "mpm"),
+    ``compat_projection`` (True: the reference's do-while with the gradient
+    at 1/10 strength and gravity on every pass; False: gravity once, one
+    full-strength solve), ``preconditioner`` ("chebyshev" with
+    ``cheb_degree`` and ``cheb_ratio``, "jacobi" or "multigrid"),
+    ``sort_method`` ("full": stable sort by cell and K1; "bucket":
+    window-grouped bucket sort K5 and the unfused P2G K6a, K6b) and the
+    solver tolerances.
+
+    ``fast_transfer``, ``transfer_chunks``, ``pallas_transfer``,
+    ``pallas_interpret``, ``transfer_window``, ``transfer_chunk`` and
+    ``stencil_bx_cap`` choose among the JAX package's XLA and Pallas
+    schedules of the same functions.  The port accepts and keeps them, but
+    they change nothing on its path: the frame runs its kernels whatever
+    they hold.  ``walls_only_solid`` (the analytic bounce probe) is set by
+    ``FlipSim`` when the scene's solid is exactly the box walls.
+    """
 
     bound: int = 60
     wall: int = 58
@@ -61,20 +82,32 @@ class FlipParams:
     max_outer: int = 100
     pcg_rtol: float = 0.0            # 0 = auto by grid size (auto_pcg_rtol)
     pcg_maxiter: int = 400
-    mode: str = "flip"               # "flip" (e=0), "pic" or "apic" (e=0.5)
-    sort_method: str = "full"        # "full": stable sort by cell, K1 P2G;
-                                     # "bucket": window-grouped bucket sort
-                                     # (K5), unfused P2G (K6a, K6b)
-    walls_only_solid: bool = False   # solid == box walls exactly: analytic
-                                     # bounce probe (auto-detected by FlipSim)
+    mode: str = "flip"
+    kernel: str = "flip"
+    compat_projection: bool = True
+    fast_transfer: bool = True
+    transfer_chunks: int = 0
+    pallas_transfer: bool | None = None
+    pallas_interpret: bool = False
+    sort_method: str = "full"
+    walls_only_solid: bool = False
+    transfer_window: int = 0
+    transfer_chunk: int = 0
+    preconditioner: str = "chebyshev"
+    cheb_degree: int = 3             # Chebyshev: cheb_degree - 1 K4 steps
+                                     # per application
+    cheb_ratio: float = 30.0         # Chebyshev: lam_max / lam_min
+    stencil_bx_cap: int = 0
 
     def __post_init__(self):
-        if self.mode not in ("flip", "pic", "apic"):
-            raise ValueError(f"mode {self.mode!r}: expected 'flip', 'pic' "
-                             "or 'apic'")
-        if self.sort_method not in ("full", "bucket"):
-            raise ValueError(f"sort_method {self.sort_method!r}: expected "
-                             "'full' or 'bucket'")
+        choices = {"mode": ("flip", "pic", "apic"),
+                   "kernel": ("flip", "mpm"),
+                   "sort_method": ("full", "bucket"),
+                   "preconditioner": ("jacobi", "chebyshev", "multigrid")}
+        for name, allowed in choices.items():
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} {getattr(self, name)!r}: expected "
+                                 f"one of {allowed}")
 
 
 @dataclasses.dataclass
@@ -143,13 +176,33 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum((x * x).to(torch.float32)))
 
 
+def _preconditioner(params: FlipParams, adiag, scale: float, fluid, solid,
+                    dt, apply_a):
+    """The packed branch's preconditioner of ``params.preconditioner``."""
+    if params.preconditioner == "chebyshev":
+        return sk.chebyshev_precond_fused(adiag, scale,
+                                          degree=params.cheb_degree,
+                                          ratio=params.cheb_ratio)
+    if params.preconditioner == "multigrid":
+        return mg.mg_preconditioner_packed(fluid, solid, dt, params.rho,
+                                           params.dx, apply_a, adiag)
+    fluid_a = adiag > 0
+    safe = torch.where(fluid_a, adiag, 1.0)
+    return lambda r: torch.where(fluid_a, r / safe, 0.0)
+
+
 def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
-    """Pressure projection of channel-major (3,N,N,N) grid velocity: the
-    reference's do-while — one pass always, then more while the relative
-    divergence change exceeds ``outer_tol`` and fewer than ``max_outer``
-    passes ran.  Each pass solves with PCG (K3 apply, K4 Chebyshev steps),
-    warm-started from the previous pass (the first from ``p0`` masked to
-    fluid cells).
+    """Pressure projection of channel-major (3,N,N,N) grid velocity.
+
+    ``compat_projection=True``: the reference's do-while — one pass always,
+    then more while the relative divergence change exceeds ``outer_tol``
+    and fewer than ``max_outer`` passes ran.  Each pass solves with PCG (K3
+    applies and ``params.preconditioner``), warm-started from the previous
+    pass (the first from ``p0`` masked to fluid cells).
+
+    ``compat_projection=False``: the textbook projection — gravity added
+    once on fluid cells, one solve, the full-strength gradient, and the
+    error ``|b2| / |b|`` of the divergence left after it.
 
     Returns (velg', err, n_outer, cg_iters_total, div_rms, pressure), with
     ``n_outer`` and ``cg_iters_total`` Python ints.
@@ -164,25 +217,44 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
     adiag = pr.laplacian_diag(fluid, solid, dt, rho, dx, dtype=velg.dtype)
     scale = float(dt / (rho * dx * dx))     # f32 value, read once per frame
     apply_a = lambda q: sk.apply_laplacian(q, adiag, scale)
-    precond = sk.chebyshev_precond_fused(adiag, scale)
+    precond = _preconditioner(params, adiag, scale, fluid, solid, dt, apply_a)
 
-    def one_pass(velg, x0):
-        rhs = pr.set_rhs(velg, fluid, solid, g, dt, dx)
-        b = pr.divergence_rhs(velg, rhs, fluid, solid, dx)
-        res = pcg(apply_a, b, x0=x0, precond=precond, rtol=pcg_rtol,
-                  maxiter=params.pcg_maxiter)
-        velg2 = pr.vel_update(velg, res.x, fluid, solid, g, dt, rho, dx)
-        rhs2 = pr.set_rhs(velg2, fluid, solid, g, dt, dx)
-        b2 = pr.divergence_rhs(velg2, rhs2, fluid, solid, dx)
+    def solve(b, x0):
+        return pcg(apply_a, b, x0=x0, precond=precond, rtol=pcg_rtol,
+                   maxiter=params.pcg_maxiter)
+
+    def rel_norm(num, b):
         bn = _norm(b)
         pos_bn = bn > 0
-        err = torch.where(pos_bn, _norm(b - b2) / torch.where(pos_bn, bn, 1.0),
-                          0.0)
-        return velg2, err, res.iters, b2, res.x
+        return torch.where(pos_bn, _norm(num) / torch.where(pos_bn, bn, 1.0),
+                           0.0)
 
     nfluid = torch.clamp(torch.sum(fluid), min=1)
     p = (torch.zeros(fluid.shape, dtype=velg.dtype, device=velg.device)
          if p0 is None else torch.where(fluid, p0, 0.0))
+
+    if not params.compat_projection:
+        no_g = (0.0, 0.0, 0.0)
+        gv = torch.tensor(g, dtype=velg.dtype, device=velg.device)
+        velg = velg + gv[:, None, None, None] * dt * fluid.to(velg.dtype)[None]
+        b = pr.divergence_rhs(velg, pr.set_rhs(velg, fluid, solid, no_g, dt,
+                                               dx), fluid, solid, dx)
+        res = solve(b, p)
+        velg = pr.vel_update(velg, res.x, fluid, solid, g, dt, rho, dx,
+                             gradient_scale=1.0, add_gravity=False)
+        b2 = pr.divergence_rhs(velg, pr.set_rhs(velg, fluid, solid, no_g, dt,
+                                                dx), fluid, solid, dx)
+        div_rms = _norm(b2) / torch.sqrt(nfluid.to(torch.float32))
+        return velg, rel_norm(b2, b), 1, res.iters, div_rms, res.x
+
+    def one_pass(velg, x0):
+        rhs = pr.set_rhs(velg, fluid, solid, g, dt, dx)
+        b = pr.divergence_rhs(velg, rhs, fluid, solid, dx)
+        res = solve(b, x0)
+        velg2 = pr.vel_update(velg, res.x, fluid, solid, g, dt, rho, dx)
+        rhs2 = pr.set_rhs(velg2, fluid, solid, g, dt, dx)
+        b2 = pr.divergence_rhs(velg2, rhs2, fluid, solid, dx)
+        return velg2, rel_norm(b - b2, b), res.iters, b2, res.x
 
     velg, err, cg_tot, b2, p = one_pass(velg, p)
     n = 1
@@ -206,13 +278,13 @@ def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
         pos, vel, flat, aff_flat = tk.sort_by_cell(
             state.pos, state.vel, B, extra=aff.reshape(-1, 9), method=sort)
         aff = aff_flat.reshape(-1, 3, 3)
-        w27t = tk.masked_weights_cm(pos, B)   # shared by P2G and G2P
+        w27t = tk.masked_weights_cm(pos, B, params.kernel)   # P2G and G2P
         weights, mom, occ = apic.p2g_apic(w27t, pos, vel, aff, flat, solid,
                                           B, fused_scatter=fused)
     else:
         pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B,
                                          method=sort)
-        w27t = tk.masked_weights_cm(pos, B)
+        w27t = tk.masked_weights_cm(pos, B, params.kernel)
         weights, mom, occ = tk.p2g(w27t, vel, flat, solid, B,
                                    fused_scatter=fused)
     velg = normalize_velocity_cm(weights, mom)
@@ -264,6 +336,19 @@ def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
     return new_state, metrics
 
 
+def require_f32(dtype) -> None:
+    """Raise unless ``dtype`` (a torch or numpy dtype, or its name) is
+    float32: the port's frames and kernels are f32 only."""
+    if dtype is torch.float32:
+        return
+    try:
+        ok = np.dtype(dtype) == np.float32
+    except TypeError:
+        ok = False
+    if not ok:
+        raise ValueError(f"dtype {dtype!r}: the port runs in float32 only")
+
+
 def _auto_params(scene: Scene, params: FlipParams | None,
                  mode: str | None = None) -> FlipParams:
     """The scene's default parameters (``mode``, when given, replaces the
@@ -290,21 +375,27 @@ class FlipSim:
 
     ``device`` is "cuda" unless the caller asks for another (the tests pass
     "cpu"); without a card the default raises.  ``mode`` ("flip", "pic" or
-    "apic"), when given, replaces the mode of ``params``.
+    "apic"), when given, replaces the mode of ``params``.  ``seeder`` places
+    the particles (``seeding.seed_particles``, or
+    ``compat.scatter.seed_particles_compat`` for the reference's own
+    stream).
 
-    f32 throughout.  TF32 is switched off for matmuls and cuDNN (both
-    process-wide PyTorch flags) when a sim is built, so no f32 product on
-    the card runs at reduced precision; the frame itself has no matmul.
+    f32 throughout: ``dtype`` accepts float32 only.  TF32 is switched off
+    for matmuls and cuDNN (both process-wide PyTorch flags) when a sim is
+    built, so no f32 product on the card runs at reduced precision; the
+    frame itself has no matmul.
     """
 
     def __init__(self, scene: Scene | str = "water_cube_drop",
-                 params: FlipParams | None = None, seed: int = 0, *,
+                 params: FlipParams | None = None, seed: int = 0,
+                 dtype=torch.float32, seeder=seed_particles, *,
                  device="cuda", mode: str | None = None, **scene_kwargs):
+        require_f32(dtype)
         if isinstance(scene, str):
             scene = get_scene(scene, **scene_kwargs)
         params = _auto_params(scene, params, mode)
         device = torch.device(device)
-        pos, vel = seed_particles(scene, seed=seed)
+        pos, vel = seeder(scene, seed=seed, dtype="float32")
         f32 = dict(dtype=torch.float32, device=device)
         state = FlipState(
             pos=torch.as_tensor(pos, **f32), vel=torch.as_tensor(vel, **f32),

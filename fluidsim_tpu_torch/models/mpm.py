@@ -8,7 +8,8 @@ One ``mpm_step`` is
   momentum P2G (K1) -> density (K2; sets the volumes at frame 0) ->
   hardening -> explicit force (K1 fg) -> implicit velocity solve (CG on
   ``A v = v - beta dt^2 dforce(v) / m``, each apply a K2 gw gather and a
-  K1 fg scatter) -> velocity gradient (K2 gw) -> deformation-gradient
+  K1 fg scatter; with ``precond="jacobi"`` preconditioned by a stiffness
+  diagonal scattered through one more K1) -> velocity gradient (K2 gw) -> deformation-gradient
   update with the singular-value clamp -> FLIP delta (K2) -> CFL dt ->
   advection with solid bounce (restitution 0, ``cround_out``)
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
-from fluidsim_tpu_torch.models.flip import advect_bounce
+from fluidsim_tpu_torch.models.flip import advect_bounce, require_f32
 from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.ops.pcg import pcg
@@ -40,10 +41,11 @@ from fluidsim_tpu_torch.utils.profiling import check_finite
 
 @dataclasses.dataclass(frozen=True)
 class MpmParams:
-    """Solver configuration, with the JAX package's defaults: the
-    reference's material and step constants, walls at ``|c| > 13``, and two
-    stabilisers beyond the reference (``hardening_max`` caps the hardening
-    exponent, ``max_gradv_dt`` the per-step deformation increment).
+    """Solver configuration: the JAX package's fields with its defaults —
+    the reference's material and step constants, walls at ``|c| > 13``,
+    and two stabilisers beyond the reference (``hardening_max`` caps the
+    hardening exponent, ``max_gradv_dt`` the per-step deformation
+    increment).
 
     ``hessian`` selects the implicit operator: "full" (the exact corotated
     Hessian), "spd" (its positive-semidefinite Gauss-Newton part),
@@ -51,6 +53,17 @@ class MpmParams:
     re-solve if that did not converge) or "auto" ("full" up to bound 15,
     else "hybrid"; ``MpmSim`` resolves it).  ``cg_rtol`` must stay tight:
     an under-converged implicit elasticity injects energy after impact.
+
+    ``precond`` is "none" or "jacobi": the mass-lumped stiffness diagonal
+    ``1 + beta dt^2 precond_gamma (2 mu0 + lam0) rho / m``, with ``rho``
+    the P2G of ``volume * mu / mu0`` (one more K1 launch a frame).
+
+    ``kernel`` must be "mpm": the JAX package's kernel path (its Pallas
+    transfers) always uses the MPM spline, and so does the port.
+    ``fast_transfer``, ``pallas_transfer``, ``pallas_interpret`` and
+    ``sort_particles`` choose among the JAX package's XLA and Pallas
+    schedules; the port accepts and keeps them, but they change nothing on
+    its path.  ``walls_only_solid`` is set by ``MpmSim``.
     """
 
     bound: int = 15
@@ -69,15 +82,28 @@ class MpmParams:
     max_gradv_dt: float = 0.5
     cg_rtol: float = 1e-6
     cg_maxiter: int = 1000
+    precond: str = "none"            # "none" | "jacobi"
+    precond_gamma: float = 1.0
     hessian: str = "auto"            # "auto" | "full" | "spd" | "hybrid"
     cg_hybrid_cap: int = 150
-    walls_only_solid: bool = False   # solid == box walls exactly: analytic
-                                     # bounce probe (auto-detected by MpmSim)
+    kernel: str = "mpm"
+    fast_transfer: bool = False
+    pallas_transfer: bool | None = None
+    pallas_interpret: bool = False
+    sort_particles: bool = True
+    walls_only_solid: bool = False
 
     def __post_init__(self):
         if self.hessian not in ("auto", "full", "spd", "hybrid"):
             raise ValueError(f"hessian {self.hessian!r}: expected 'auto', "
                              "'full', 'spd' or 'hybrid'")
+        if self.precond not in ("none", "jacobi"):
+            raise ValueError(f"precond {self.precond!r}: expected 'none' or "
+                             "'jacobi'")
+        if self.kernel != "mpm":
+            raise ValueError(f"kernel {self.kernel!r}: the MPM frame uses "
+                             "the MPM spline only, as the JAX package's "
+                             "kernel path does")
 
     @property
     def mu0(self) -> float:
@@ -156,10 +182,21 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
             return torch.where(active[None], out, wv)
         return matvec
 
+    precond = None
+    if params.precond == "jacobi":
+        # the stiffness density rides in the first velocity channel of K1
+        s = volume * (mu / params.mu0)
+        zero = torch.zeros_like(s)
+        _, mom_d = mk.p2g_mpm(w27t, torch.stack([s, zero, zero], dim=-1),
+                              cell_start, solid, B, plan)
+        dscale = params.precond_gamma * (2.0 * params.mu0 + params.lam0)
+        diag = 1.0 + beta_dt2 * dscale * mom_d[0] / mass_safe[0]
+        precond = lambda r: torch.where(active[None], r / diag[None], r)
+
     # CG starts at x0 = b: A = I + O(beta dt^2), so b is near the solution
     if hess == "hybrid":
-        res_f = pcg(matvec_of(fns[1]), b, x0=b, rtol=params.cg_rtol,
-                    maxiter=params.cg_hybrid_cap)
+        res_f = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
+                    rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap)
         bnorm2 = torch.sum((b * b).to(torch.float32))
         rtol32 = torch.tensor(params.cg_rtol, dtype=torch.float32,
                               device=b.device)
@@ -167,14 +204,14 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
         if ok:
             solve_x, cg_iters, cg_resid = res_f.x, res_f.iters, res_f.residual
         else:
-            res = pcg(matvec_of(fns[2]), b, x0=b, rtol=params.cg_rtol,
-                      maxiter=params.cg_maxiter)
+            res = pcg(matvec_of(fns[2]), b, x0=b, precond=precond,
+                      rtol=params.cg_rtol, maxiter=params.cg_maxiter)
             solve_x, cg_iters, cg_resid = res.x, res_f.iters + res.iters, \
                 res.residual
         spd_used = 0 if ok else 1
     else:
-        res = pcg(matvec_of(fns[1]), b, x0=b, rtol=params.cg_rtol,
-                  maxiter=params.cg_maxiter)
+        res = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
+                  rtol=params.cg_rtol, maxiter=params.cg_maxiter)
         solve_x, cg_iters, cg_resid = res.x, res.iters, res.residual
         spd_used = 1 if hess == "spd" else 0
     velg = torch.where(active[None], solve_x, 0.0)
@@ -232,12 +269,15 @@ class MpmSim:
     tests pass "cpu"); without a card the default raises.
 
     The scene's default parameters detect a walls-only solid (the analytic
-    bounce probe) and resolve ``hessian="auto"``.  f32 throughout, TF32
-    switched off as in ``FlipSim``."""
+    bounce probe) and resolve ``hessian="auto"``.  ``seeder`` and ``dtype``
+    (float32 only) as in ``FlipSim``; f32 throughout, TF32 switched off as
+    there."""
 
     def __init__(self, scene: Scene | str = "mpm_cone",
-                 params: MpmParams | None = None, seed: int = 0, *,
+                 params: MpmParams | None = None, seed: int = 0,
+                 dtype=torch.float32, seeder=seed_particles, *,
                  device="cuda", **scene_kwargs):
+        require_f32(dtype)
         if isinstance(scene, str):
             scene = get_scene(scene, **scene_kwargs)
         if params is None:
@@ -253,7 +293,7 @@ class MpmSim:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         device = torch.device(device)
-        pos, vel = seed_particles(scene, seed=seed)
+        pos, vel = seeder(scene, seed=seed, dtype="float32")
         p = pos.shape[0]
         f32 = dict(dtype=torch.float32, device=device)
         eye = torch.eye(3, **f32).expand(p, 3, 3)

@@ -9,7 +9,8 @@
   masked divergence, with the reference's quirk of dropping a whole axis
   term where the plus-neighbour is solid;
 * the velocity update applies the gradient at 1/10 strength and re-adds
-  gravity on every outer pass — quirks of the reference kept on purpose.
+  gravity on every outer pass — quirks of the reference kept on purpose
+  (the clean projection applies it at full strength, without gravity).
 """
 
 from __future__ import annotations
@@ -71,22 +72,39 @@ def apply_laplacian(p, adiag, fluid, dt, rho, dx):
                                  dt / (rho * dx * dx))
 
 
-def vel_update(vel, p, fluid, solid, gravity, dt, rho, dx,
-               gradient_scale: float = 0.1):
-    """Pressure gradient + gravity + solid boundary update of channel-major
-    velocity (the reference's ``velUpdate`` called with ``dt/10``).
+def apply_laplacian_dense(p, adiag, fluid, dt, rho, dx):
+    """Matrix-free ``A @ p`` in the JAX package's dense order
+    (``pressure.apply_laplacian``): ``adiag*p``, then minus
+    ``scale*(x+ + x-)``, ``scale*(y+ + y-)`` and ``scale*(z+ + z-)``, masked
+    to ``fluid``.  The multigrid coarse levels use it; K3 sums in another
+    order."""
+    scale = dt / (rho * dx * dx)
+    pf = torch.where(fluid, p, 0.0)
+    acc = adiag * pf
+    for d in range(3):
+        acc = acc - scale * (shift_to_plus(pf, d) + shift_to_minus(pf, d))
+    return torch.where(fluid, acc, 0.0)
 
-    Per fluid cell c: all three components at c get ``-= scale*p(c)`` and
-    ``+= g*dt``; component d at ``c+e_d`` gets ``+= scale*p(c)``.  Then
-    component d is zeroed at solid cells and at cells whose minus-d
-    neighbour is solid."""
+
+def vel_update(vel, p, fluid, solid, gravity, dt, rho, dx,
+               gradient_scale: float = 0.1, add_gravity: bool = True):
+    """Pressure gradient + gravity + solid boundary update of channel-major
+    velocity (the reference's ``velUpdate`` called with ``dt/10``).  The
+    clean projection calls it with ``gradient_scale=1.0,
+    add_gravity=False``.
+
+    Per fluid cell c: all three components at c get ``-= scale*p(c)`` (and
+    ``+= g*dt`` with ``add_gravity``); component d at ``c+e_d`` gets
+    ``+= scale*p(c)``.  Then component d is zeroed at solid cells and at
+    cells whose minus-d neighbour is solid."""
     scale = (dt * gradient_scale) / (rho * dx)
     pf = torch.where(fluid, p, 0.0) * scale
     fl = fluid.to(vel.dtype)
     out = []
     for d in range(3):
         vd = vel[d] - pf + shift_to_minus(pf, d)
-        vd = vd + gravity[d] * dt * fl
+        if add_gravity:
+            vd = vd + gravity[d] * dt * fl
         blocked = solid | shift_to_minus(solid, d)
         out.append(torch.where(blocked, 0.0, vd))
     return torch.stack(out, dim=0)

@@ -114,17 +114,14 @@ def cheb_step(z: torch.Tensor, adiag: torch.Tensor, r: torch.Tensor,
 cheb_step.launches = 0
 
 
-CHEB_DEGREE = 3   # polynomial degree of the frame's preconditioner:
-                  # CHEB_DEGREE - 1 fused steps per application
-
-
 def chebyshev_precond_fused(adiag: torch.Tensor, scale: float,
-                            degree: int = CHEB_DEGREE, lam_max: float = 2.0,
+                            degree: int = 3, lam_max: float = 2.0,
                             ratio: float = 30.0):
     """Chebyshev-Jacobi preconditioner with fused inner steps (K4): the
     polynomial of ``ops.pcg.chebyshev_preconditioner`` with each inner step
-    one ``cheb_step``.  The rho recurrence is Python float arithmetic, so
-    every step's (c1, c2) is a constant of the call."""
+    one ``cheb_step``, so an application launches ``degree - 1`` of them.
+    The rho recurrence is Python float arithmetic, so every step's (c1, c2)
+    is a constant of the call."""
     a, b = lam_max / ratio, lam_max
     theta = 0.5 * (b + a)
     delta = 0.5 * (b - a)

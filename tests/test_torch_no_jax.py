@@ -5,7 +5,9 @@ and of the MPM cone, two FLIP frames on the bucket path, and the
 materialised G2P (``fused_table=False``) and ``ops/shift.py`` after a
 FLIP frame, the row-layout transfers of ``utils/transfer_parts.py``, and
 the synthetic K5, K1 and K8b inputs of ``utils/synthetic.py`` with the K1
-chunk plan, the order of the three K1 modes and K8b's tile plan."""
+chunk plan, the order of the three K1 modes and K8b's tile plan, and a
+``config.make_sim`` run (multigrid, compat seeding) with ``extrapolate``
+and a Jacobi-preconditioned MPM frame."""
 
 import subprocess
 import sys
@@ -79,6 +81,23 @@ elif sys.argv[1] == "synthetic":
     out = out + rw.scatter_rows_cm(u_rows, flat, 12 ** 3).sum()
     assert rw.scatter_tile_starts_plain(flat, 12 ** 3)[-1] == flat.shape[0]
     m = {"kinetic_energy": out + kf.shape[0]}
+elif sys.argv[1] == "config":
+    from fluidsim_tpu_torch import MpmParams, config
+    from fluidsim_tpu_torch.compat.scatter import seed_particles_compat
+    from fluidsim_tpu_torch.ops import extrapolate
+    sim = config.make_sim({"kind": "flip", "bound": 8, "density": 2,
+                           "seed": [{"box": [[-3, -3, -3], [3, 3, 3]]}],
+                           "solid": [{"box": [[-2, -6, -2], [2, -5, 2]]}],
+                           "params": {"preconditioner": "multigrid"}},
+                          device="cpu", seeder=seed_particles_compat)
+    m = sim.step()
+    assert m["cg_iters"] >= 1 and not sim.params.walls_only_solid
+    vel = torch.ones((17, 17, 17, 3))
+    v, d = extrapolate.extrapolate(vel, m["occupancy"] > 0)
+    assert bool(d.all()) and torch.equal(v, vel)
+    mm = MpmSim("mpm_cone", density=10.0, device="cpu",
+                params=MpmParams(precond="jacobi")).step()
+    assert mm["cg_iters"] >= 1
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -91,7 +110,8 @@ print("ke", float(m["kinetic_energy"]))
 
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
-                                  "flip-table", "rows", "synthetic"])
+                                  "flip-table", "rows", "synthetic",
+                                  "config"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
