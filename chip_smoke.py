@@ -7,6 +7,9 @@ projection, MPM Jacobi) on one NVIDIA GPU and check them.
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
 
+and the run-time layer: the command line with export, checkpoints,
+resume, metrics, the particle surface and a trace, and ``steps(k)``.
+
 Phases, each of which raises on failure (nonzero exit):
 
 1. require a CUDA device; print the card's name and power limit;
@@ -127,7 +130,30 @@ Phases, each of which raises on failure (nonzero exit):
    Jacobi and multigrid preconditioners, the clean projection and the MPM
    spline, as phase 9; ``mpm_cone`` at bound 15 with ``precond="jacobi"``,
    as phase 13; ``extrapolate`` of phase 23's last grid velocity and fluid
-   mask at 129^3, within 1e-6 x max|v|.
+   mask at 129^3, within 1e-6 x max|v|;
+27. the command line, ``fluid`` at 129^3 (``cli.run``, as ``python -m
+   fluidsim_tpu_torch.cli fluid --bound 64 --density 25`` runs it): 12
+   frames with ``--no-vdb``, then 12 with export, a checkpoint every 6
+   and ``--metrics`` (the launch counts of this run, checked against its
+   metrics as in phase 4), then export on and off again; ms/frame of
+   frames 2-11 of each run beside phase 4's; the exporter's counters (no
+   dense fallback, no Python writer); each ``mygrids<i>.vdb`` read back bit for bit equal to
+   ``occupancy * ~solid`` of frame i of a direct ``FlipSim`` rerun;
+   ``mygrids.vdb`` holding 12 grids; ``pack_active`` on the card equal to
+   the CPU's buffer for the same grid; ``--resume ckpt_5.npz --frames 6``
+   into a second directory writing frames 6-11 bit for bit as the first
+   run did;
+28. ``mpm`` at 127^3 (473,798 particles), 6 frames with ``--no-vdb``, then
+   6 with export and ``--metrics`` (launch counts checked as in phase
+   11), then export on and off again; each file equal to the MPM persistence rule (cells > 0.1, kept
+   across frames) recomputed in numpy from a direct ``MpmSim`` rerun;
+29. ``FlipSim.steps(4)`` at 129^3 and ``MpmSim.steps(2)`` at 127^3 bit for
+   bit equal to as many ``step()`` calls (state and stacked metrics);
+   ``run(6, chunk=3)`` calling back once per chunk;
+30. last, since a process runs slower after a profile: ``fluid --surface
+   --trace-dir`` for 2 frames at 129^3, the fog grids within 1e-6 of
+   ``sdf_to_fog(particles_to_levelset(pos))`` on the CPU for the same
+   positions, and a Chrome trace holding the frames' kernels.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  An entry's ``ms`` is its
@@ -141,6 +167,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -165,6 +192,8 @@ SEED = 0
 # uncut, with the scene's density of 400 particles per seeded voxel
 MPM_BOUND = 63      # a 127^3 grid, 473,798 particles; "hybrid" operator
 MPM_SMALL = dict(bound=15, density=40.0)   # phase 13's reference scene
+CLI_FRAMES = 12     # phase 27's frames, a checkpoint every CLI_FRAMES // 2
+MPM_CLI_FRAMES = 6  # phase 28's
 # phase 17's reference scene: more than one 512-row chunk of particles, so
 # the bucket order differs from the cell order
 BUCKET_SMALL = dict(bound=16, density=8.0)
@@ -1366,6 +1395,360 @@ def _config_phases(dev, counted, torch, flip_particles, flip_ms, flip_cg,
             "mpm_jacobi": jac_launches}
 
 
+def _cli(argv, dev, counted, torch):
+    """Run the port's command line on ``argv`` and ``--device dev``
+    (``cli.run``, what ``cli.main`` runs for ``fluid`` and ``mpm``) with
+    every launch count set to 0 just before.  Returns (summary, launches,
+    K1 plans built, the JSONL metrics it wrote, seconds)."""
+    from fluidsim_tpu_torch import cli
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    args = cli.build_parser().parse_args(argv + ["--device", str(dev)])
+    for fn in counted:
+        fn.launches = 0
+    tk.chunk_plan.builds = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = cli.run("flip" if argv[0] == "fluid" else "mpm", args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    lines = []
+    if args.metrics:
+        with open(args.metrics) as f:
+            lines = [json.loads(ln) for ln in f]
+    return summary, launches, tk.chunk_plan.builds, lines, secs
+
+
+def _on_box(path, bound, read_vdb, np):
+    """The one grid of a frame file on the sim's (n, n, n) box (the file
+    holds a leaf-aligned block around the active cells)."""
+    (g,) = read_vdb(path)
+    n = 2 * bound + 1
+    out = np.zeros((n, n, n), np.float32)
+    lo = [int(o) + bound for o in g.origin]
+    src = tuple(slice(max(0, -lo[d]), min(g.values.shape[d], n - lo[d]))
+                for d in range(3))
+    dst = tuple(slice(lo[d] + src[d].start, lo[d] + src[d].stop)
+                for d in range(3))
+    out[dst] = g.values[src]
+    return out
+
+
+def _frame_ms(summary, first=2):
+    """Mean host ms of the run's frames from ``first`` on (step, metrics
+    and export submit; checkpoints apart)."""
+    return statistics.mean(summary["frame_ms"][first:])
+
+
+def _export_cost(label, off, on, argv, tmp, dev, counted, torch):
+    """Export off, on (the path's run, given), then on and off again: the
+    host ms/frame of each run from frame 2 on, and on minus off for each
+    adjacent pair (a run's time moves with the host, so pairs compare)."""
+    out = os.path.join(tmp, label.replace(" ", "_"))
+    on2 = _cli(argv + ["--out", out + "_on2", "--no-accum"], dev, counted,
+               torch)[0]
+    off2 = _cli(argv + ["--out", out + "_off2", "--no-vdb"], dev, counted,
+                torch)[0]
+    ms = [_frame_ms(r) for r in (off, on, on2, off2)]
+    print(f"{label}: ms/frame from frame 2 (host clock: step, metrics, "
+          f"export submit) off {ms[0]:.3f}, on {ms[1]:.3f}, on {ms[2]:.3f}, "
+          f"off {ms[3]:.3f}; on - off {ms[1] - ms[0]:+.3f}, "
+          f"{ms[2] - ms[3]:+.3f}")
+    for name, r in zip(("off", "on", "on", "off"), (off, on, on2, off2)):
+        print(f"{label}: frame ms export {name} {r['frame_ms']}")
+    ex = on2["exporter"]
+    print(f"{label}: second export run's exporter", json.dumps(ex))
+    if ex["python_fallbacks"] or ex["fallback_frames"] or ex["tail_fetches"]:
+        raise AssertionError(f"{label}: the exporter fell back")
+
+
+def _same_bits(a, b, np) -> bool:
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint32),
+        np.ascontiguousarray(b).view(np.uint32))
+
+
+def _flip_cli_phase(dev, counted, torch, np, tmp, flip_particles, flip_ms):
+    """Phase 27; returns the export run's launch counts and ms/frame."""
+    from fluidsim_tpu_torch.io.export import pack_active
+    from fluidsim_tpu_torch.io.vdb import open_vdb, read_vdb
+    from fluidsim_tpu_torch.models.flip import FlipSim
+    from fluidsim_tpu_torch.scenes import get_scene
+
+    t_phase = time.perf_counter()
+    base = ["fluid", "--bound", str(BOUND), "--density", str(DENSITY),
+            "--seed", str(SEED), "--echo-every", "1000"]
+    out = os.path.join(tmp, "fluid")
+    every = CLI_FRAMES // 2
+    frames = ["--frames", str(CLI_FRAMES)]
+    off = _cli(base + frames + ["--out", os.path.join(tmp, "fluid_off"),
+                                "--no-vdb"], dev, counted, torch)[0]
+    on, launches, builds, lines, secs = _cli(
+        base + frames + ["--out", out, "--checkpoint-every", str(every),
+                         "--metrics", os.path.join(tmp, "fluid.jsonl")],
+        dev, counted, torch)
+    _export_cost("cli fluid", off, on, base + frames, tmp, dev, counted,
+                 torch)
+    print("cli fluid: launches:", json.dumps(launches),
+          f"K1 chunk plans built: {builds}")
+    if on["particles"] != flip_particles or len(lines) != CLI_FRAMES:
+        raise AssertionError(f"cli fluid: {on['particles']} particles, "
+                             f"{len(lines)} metrics lines")
+    # the launches the frames' CG iterations call for, as in phase 4
+    sim = FlipSim(get_scene("water_cube_drop", bound=BOUND, density=DENSITY),
+                  seed=SEED, device=dev)
+    solves = sum(m["cg_iters"] + m["outer_iters"] for m in lines)
+    k3, k4 = _stencil_launches(sim.params)
+    want = {name: 0 for name in launches}
+    want.update({"p2g_scatter": CLI_FRAMES, "chunk_fill": CLI_FRAMES,
+                 "g2p_gather": CLI_FRAMES, "apply_laplacian": k3 * solves,
+                 "cheb_step": k4 * solves})
+    _require_launches("cli fluid", launches, want, builds, CLI_FRAMES)
+    ex = on["exporter"]
+    print("cli fluid: exporter", json.dumps(ex))
+    if ex["python_fallbacks"] or ex["fallback_frames"] or ex["tail_fetches"]:
+        raise AssertionError("cli fluid: the exporter fell back")
+    print(f"cli fluid: phase 4 {flip_ms:.3f} ms/frame; checkpoints "
+          f"{on['checkpoint_s']:.3f} s for {CLI_FRAMES // every}; the export "
+          f"run {secs:.2f} s in all with the flush and mygrids.vdb")
+
+    # each frame file against a direct rerun's occupancy * ~solid
+    cap = max(1, sim.solid.numel() // 4)       # the exporter's default cap
+    want_grids = []
+    for i in range(CLI_FRAMES):
+        occ = sim.step()["occupancy"]
+        want_grids.append(torch.where(sim.solid, 0.0, occ).cpu().numpy())
+    card = pack_active(occ, sim.solid.reshape(-1), cap).cpu()
+    host = pack_active(occ.cpu(), sim.solid.reshape(-1).cpu(), cap)
+    if not torch.equal(card, host):
+        raise AssertionError("pack_active: card and cpu buffers differ")
+    print(f"bitwise pack_active card vs cpu: equal ({card.numel()} B, "
+          f"{int(host[:4].view(torch.int32))} active cells, cap {cap})")
+    del sim, occ, card, host
+    for i, grid in enumerate(want_grids):
+        got = _on_box(os.path.join(out, f"mygrids{i}.vdb"), BOUND, read_vdb,
+                      np)
+        if not _same_bits(got, grid, np):
+            raise AssertionError(f"cli fluid: mygrids{i}.vdb differs from "
+                                 "occupancy * ~solid of a direct rerun")
+    accum = open_vdb(os.path.join(out, "mygrids.vdb"))
+    if len(accum) != CLI_FRAMES:
+        raise AssertionError(f"mygrids.vdb holds {len(accum)} grids")
+    print(f"cli fluid: mygrids0-{CLI_FRAMES - 1}.vdb bit for bit equal to a "
+          f"direct rerun's occupancy * ~solid; mygrids.vdb holds "
+          f"{len(accum)} grids")
+    del want_grids, accum
+
+    # resume from the middle checkpoint into a second directory
+    ck = os.path.join(out, f"ckpt_{every - 1}.npz")
+    out2 = os.path.join(tmp, "fluid_resumed")
+    res, *_ = _cli(base + ["--frames", str(CLI_FRAMES - every), "--out",
+                           out2, "--resume", ck, "--no-accum"],
+                   dev, counted, torch)
+    if res["first_frame"] != every:
+        raise AssertionError(f"resume started at frame {res['first_frame']}")
+    for i in range(every, CLI_FRAMES):
+        a = read_vdb(os.path.join(out, f"mygrids{i}.vdb"))[0]
+        b = read_vdb(os.path.join(out2, f"mygrids{i}.vdb"))[0]
+        if (a.origin != b.origin or not _same_bits(a.values, b.values, np)
+                or not np.array_equal(a.active, b.active)):
+            raise AssertionError(f"resume: mygrids{i}.vdb differs")
+    print(f"cli fluid: --resume {os.path.basename(ck)} --frames "
+          f"{CLI_FRAMES - every}: mygrids{every}-{CLI_FRAMES - 1}.vdb bit for "
+          "bit equal to the first run's")
+    print(f"phase 27: {time.perf_counter() - t_phase:.2f} s")
+    return launches, _frame_ms(on)
+
+
+def _mpm_cli_phase(dev, counted, torch, np, tmp, mpm_particles):
+    """Phase 28; returns the export run's launch counts."""
+    from fluidsim_tpu_torch.io.vdb import read_vdb
+    from fluidsim_tpu_torch.models.mpm import MpmSim
+    from fluidsim_tpu_torch.scenes import get_scene
+
+    t_phase = time.perf_counter()
+    base = ["mpm", "--bound", str(MPM_BOUND), "--seed", str(SEED),
+            "--echo-every", "1000", "--frames", str(MPM_CLI_FRAMES)]
+    out = os.path.join(tmp, "mpm")
+    off = _cli(base + ["--out", os.path.join(tmp, "mpm_off"), "--no-vdb"],
+               dev, counted, torch)[0]
+    on, launches, builds, lines, secs = _cli(
+        base + ["--out", out, "--metrics", os.path.join(tmp, "mpm.jsonl")],
+        dev, counted, torch)
+    _export_cost("cli mpm", off, on, base, tmp, dev, counted, torch)
+    print("cli mpm: launches:", json.dumps(launches),
+          f"K1 chunk plans built: {builds}")
+    sim = MpmSim(get_scene("mpm_cone", bound=MPM_BOUND), seed=SEED,
+                 device=dev)
+    if on["particles"] != mpm_particles or len(lines) != MPM_CLI_FRAMES:
+        raise AssertionError(f"cli mpm: {on['particles']} particles, "
+                             f"{len(lines)} metrics lines")
+    applies = sum(m["cg_iters"] + _mpm_solves(m, sim.params)[0]
+                  for m in lines)
+    want = {name: 0 for name in launches}
+    want.update({"p2g_scatter": MPM_CLI_FRAMES,
+                 "g2p_gather": 2 * MPM_CLI_FRAMES,
+                 "p2g_scatter_force": MPM_CLI_FRAMES + applies,
+                 "g2p_gather_gw": applies + MPM_CLI_FRAMES,
+                 "chunk_fill": MPM_CLI_FRAMES})
+    _require_launches("cli mpm", launches, want, builds, MPM_CLI_FRAMES)
+    ex = on["exporter"]
+    print("cli mpm: exporter", json.dumps(ex))
+    if ex["python_fallbacks"] or ex["fallback_frames"] or ex["tail_fetches"]:
+        raise AssertionError("cli mpm: the exporter fell back")
+    print(f"cli mpm: the export run {secs:.2f} s in all; CG iterations "
+          f"{[m['cg_iters'] for m in lines]}")
+    solid = sim.solid.cpu().numpy()
+    persistent = np.zeros(solid.shape, np.float32)
+    for i in range(MPM_CLI_FRAMES):
+        mass = sim.step()["occupancy"].cpu().numpy()
+        upd = ~solid & (mass > 0.1)
+        persistent[upd] = mass[upd]
+        got = _on_box(os.path.join(out, f"mygrids{i}.vdb"), MPM_BOUND,
+                      read_vdb, np)
+        if not _same_bits(got, persistent, np):
+            raise AssertionError(f"cli mpm: mygrids{i}.vdb differs from the "
+                                 "persistence rule on a direct rerun")
+    print(f"cli mpm: mygrids0-{MPM_CLI_FRAMES - 1}.vdb bit for bit equal to "
+          "the persistence rule (cells > 0.1 kept across frames) on a direct "
+          "rerun")
+    print(f"phase 28: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def _require_same_bits(name, a, b, torch):
+    """Raise unless tensors ``a`` and ``b`` have one shape, one dtype and
+    the same bytes."""
+    if (a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+            a.contiguous().reshape(-1).view(torch.uint8),
+            b.contiguous().reshape(-1).view(torch.uint8))):
+        raise AssertionError(f"{name}: not bit for bit equal")
+
+
+def _require_same_frames(label, stacked, frames, a, b, torch):
+    """``stacked`` (``steps(k)``'s metrics) against the per-frame metrics
+    ``frames``, and state ``a`` against state ``b``, bit for bit."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is not None or y is not None:
+            _require_same_bits(f"{label} state.{f.name}", x, y, torch)
+    if set(stacked) != set(frames[0]) - {"occupancy"}:
+        raise AssertionError(f"{label}: keys {sorted(stacked)}")
+    for key, v in stacked.items():
+        want = [m[key] for m in frames]
+        if isinstance(want[0], torch.Tensor):
+            _require_same_bits(f"{label} {key}", v, torch.stack(want), torch)
+        elif v.dtype != torch.int32 or v.tolist() != want:
+            raise AssertionError(f"{label}: stacked {key} differs")
+    print(f"bitwise {label}: state and {len(stacked)} stacked metrics equal")
+
+
+def _require_launches(label, launches, want, builds, frames):
+    """Raise unless a run's launch counts are ``want`` and it built one K1
+    chunk plan a frame."""
+    if launches != want or builds != frames:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want}; {builds} K1 chunk plans in {frames} "
+                             "frames")
+
+
+def _steps_phase(dev, torch):
+    """Phase 29."""
+    from fluidsim_tpu_torch.models.flip import FlipSim
+    from fluidsim_tpu_torch.models.mpm import MpmSim
+
+    t_phase = time.perf_counter()
+    a, b = (FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+                    seed=SEED, device=dev) for _ in range(2))
+    stacked = a.steps(4)
+    _require_same_frames("FlipSim.steps(4) vs 4 step()", stacked,
+                         [b.step() for _ in range(4)], a.state, b.state,
+                         torch)
+    del b
+    calls = []
+    a.run(6, callback=lambda fr, st, m: calls.append(
+        (fr, int(st.frame), tuple(m["kinetic_energy"].shape))), chunk=3)
+    if calls != [(6, 7, (3,)), (9, 10, (3,))]:
+        raise AssertionError(f"run(6, chunk=3): callbacks {calls}")
+    print(f"FlipSim.run(6, chunk=3): one callback per chunk {calls}")
+    del a
+    a, b = (MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED, device=dev)
+            for _ in range(2))
+    stacked = a.steps(2)
+    _require_same_frames("MpmSim.steps(2) vs 2 step()", stacked,
+                         [b.step() for _ in range(2)], a.state, b.state,
+                         torch)
+    print(f"phase 29: {time.perf_counter() - t_phase:.2f} s")
+
+
+def _surface_trace_phase(dev, counted, torch, np, tmp, on_ms):
+    """Phase 30: ``--surface`` and ``--trace-dir``, the run's last phase."""
+    from fluidsim_tpu_torch.io.vdb import read_vdb
+    from fluidsim_tpu_torch.models.flip import FlipSim
+    from fluidsim_tpu_torch.ops.levelset import (particles_to_levelset,
+                                                 sdf_to_fog)
+    from fluidsim_tpu_torch.scenes import get_scene
+    from fluidsim_tpu_torch.utils.profiling import TRACE_FILE
+
+    t_phase = time.perf_counter()
+    out, trace_dir = os.path.join(tmp, "surface"), os.path.join(tmp, "trace")
+    run, *_ = _cli(["fluid", "--bound", str(BOUND), "--density", str(DENSITY),
+                    "--seed", str(SEED), "--echo-every", "1000", "--frames",
+                    "2", "--out", out, "--no-accum", "--surface",
+                    "--trace-dir", trace_dir], dev, counted, torch)
+    print(f"cli fluid --surface --trace-dir: frame ms {run['frame_ms']} "
+          f"(traced; phase 27's export run: {on_ms:.3f} ms/frame)")
+    sim = FlipSim(get_scene("water_cube_drop", bound=BOUND, density=DENSITY),
+                  seed=SEED, device=dev)
+    solid = sim.solid.cpu()
+    worst = 0.0
+    for i in range(2):
+        sim.step()
+        fog = sdf_to_fog(particles_to_levelset(sim.state.pos.cpu(), BOUND))
+        want = torch.where(solid, 0.0, fog).numpy()
+        got = _on_box(os.path.join(out, f"mygrids{i}.vdb"), BOUND, read_vdb,
+                      np)
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        worst = max(worst, err)
+        if err > 1e-6:
+            raise AssertionError(f"--surface frame {i}: max |card - cpu| "
+                                 f"{err:.3e} > 1e-6")
+    print(f"cli fluid --surface: 2 fog grids within {worst:.3e} (<= 1e-6) of "
+          "sdf_to_fog(particles_to_levelset(pos)) on the CPU")
+    path = os.path.join(trace_dir, TRACE_FILE)
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"trace: {path} {size} B, {len(events)} events, {kernels} kernel "
+          "events")
+    if size == 0 or kernels == 0:
+        raise AssertionError("--trace-dir: no kernel in the trace")
+    print(f"phase 30: {time.perf_counter() - t_phase:.2f} s")
+
+
+def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
+                    mpm_particles):
+    """Phases 27-30, in a scratch directory inside the checkout that is
+    removed afterwards; returns the CLI runs' launch counts by path."""
+    import tempfile
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root,
+                                     prefix="_runtime_smoke_") as tmp:
+        fluid, on_ms = _flip_cli_phase(dev, counted, torch, np, tmp,
+                                       flip_particles, flip_ms)
+        mpm = _mpm_cli_phase(dev, counted, torch, np, tmp, mpm_particles)
+        _steps_phase(dev, torch)
+        _surface_trace_phase(dev, counted, torch, np, tmp, on_ms)
+    return {"cli_fluid": fluid, "cli_mpm": mpm}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1739,6 +2122,11 @@ def main() -> int:
                                      flip_ms, flip_cg, mpm_particles,
                                      mpm_launches, mpm_cg)
 
+    # ---- 27-30. the run-time layer: the command line, steps(k), the
+    # particle surface and a trace (last: a profile slows what follows) --
+    runtime_launches = _runtime_phases(dev, counted, torch, flip_particles,
+                                       flip_ms, mpm_particles)
+
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
         "p2g_scatter": ("transfer.cu", "pallas_transfer.py:1064", flip_launches),
@@ -1783,7 +2171,8 @@ def main() -> int:
              "flip_bucket": bucket_launches,
              "g2p_materialised": table_launches,
              "shift_entry_points": entry_launches,
-             "row_transfers": row_launches, **config_launches}
+             "row_transfers": row_launches, **config_launches,
+             **runtime_launches}
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
                 "launches": launches[name], **results[name],

@@ -443,16 +443,59 @@ class FlipSim:
         self.state, metrics = flip_step(self.params, self.solid, self.state)
         return metrics
 
-    def run(self, frames: int, callback=None, check: bool = True):
+    def steps(self, k: int) -> Dict[str, Any]:
+        """Run ``k`` frames back to back; returns their metrics stacked on a
+        leading (k,) axis on the device, without the grid-sized
+        ``occupancy`` (use ``step()`` where a frame's grid is needed, as for
+        per-frame export).  The frames are ``k`` calls of ``step()``, bit
+        for bit; the stacking adds no read of the device."""
+        return stack_metrics([self.step() for _ in range(k)])
+
+    def run(self, frames: int, callback=None, check: bool = True,
+            chunk: int = 1):
         """Frame loop; ``callback(frame, state, metrics)`` runs after each
-        frame.  Returns the last frame's metrics."""
-        out = None
-        for _ in range(frames):
-            metrics = self.step()
-            frame = int(self.state.frame) - 1
-            if check:
-                check_finite(metrics, frame)
-            if callback is not None:
-                callback(frame, self.state, metrics)
-            out = metrics
-        return out
+        frame, or with ``chunk`` > 1 once per ``steps(chunk)`` with the
+        stacked metrics and the chunk's last state.  Returns the last
+        frame's (or chunk's) metrics."""
+        return run_frames(self, frames, callback, check, chunk)
+
+
+def stack_metrics(frames) -> Dict[str, torch.Tensor]:
+    """Per-frame metrics stacked on a leading (k,) axis, ``occupancy``
+    left out.  Python numbers (the host-side iteration counts) become one
+    int32 tensor on the frames' device, as the JAX package's stacked
+    counts are int32; nothing is read from the device."""
+    device = next(v.device for v in frames[0].values()
+                  if isinstance(v, torch.Tensor))
+    out = {}
+    for key, v in frames[0].items():
+        if key == "occupancy":
+            continue
+        if isinstance(v, torch.Tensor):
+            out[key] = torch.stack([f[key] for f in frames])
+        else:
+            out[key] = torch.tensor([f[key] for f in frames],
+                                    dtype=torch.int32, device=device)
+    return out
+
+
+def run_frames(sim, frames: int, callback, check: bool, chunk: int):
+    """``FlipSim.run`` and ``MpmSim.run``: the JAX package's frame-loop
+    contract."""
+    out = None
+    done = 0
+    while done < frames:
+        k = min(max(chunk, 1), frames - done)
+        if chunk > 1:
+            metrics = sim.steps(k)
+            last = {m: v[-1] for m, v in metrics.items()}
+        else:
+            metrics = last = sim.step()
+        done += k
+        frame = int(sim.state.frame) - 1
+        if check:
+            check_finite(last, frame)
+        if callback is not None:
+            callback(frame, sim.state, metrics)
+        out = metrics
+    return out

@@ -29,14 +29,14 @@ import numpy as np
 import torch
 
 from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
-from fluidsim_tpu_torch.models.flip import advect_bounce, require_f32
+from fluidsim_tpu_torch.models.flip import (advect_bounce, require_f32,
+                                            run_frames, stack_metrics)
 from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.ops.pcg import pcg
 from fluidsim_tpu_torch.ops.svd3 import clamp_singular, det3, hardening, mm3
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
-from fluidsim_tpu_torch.utils.profiling import check_finite
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,16 +315,12 @@ class MpmSim:
         self.state, metrics = mpm_step(self.params, self.solid, self.state)
         return metrics
 
-    def run(self, frames: int, callback=None, check: bool = True):
-        """Frame loop; ``callback(frame, state, metrics)`` runs after each
-        frame.  Returns the last frame's metrics."""
-        out = None
-        for _ in range(frames):
-            metrics = self.step()
-            frame = int(self.state.frame) - 1
-            if check:
-                check_finite(metrics, frame)
-            if callback is not None:
-                callback(frame, self.state, metrics)
-            out = metrics
-        return out
+    def steps(self, k: int) -> Dict[str, Any]:
+        """``k`` frames back to back, metrics stacked as
+        ``FlipSim.steps``."""
+        return stack_metrics([self.step() for _ in range(k)])
+
+    def run(self, frames: int, callback=None, check: bool = True,
+            chunk: int = 1):
+        """Frame loop, as ``FlipSim.run``."""
+        return run_frames(self, frames, callback, check, chunk)

@@ -98,6 +98,25 @@ elif sys.argv[1] == "config":
     mm = MpmSim("mpm_cone", density=10.0, device="cpu",
                 params=MpmParams(precond="jacobi")).step()
     assert mm["cg_iters"] >= 1
+elif sys.argv[1] == "cli":
+    import os
+    import tempfile
+    from fluidsim_tpu_torch import cli
+    from fluidsim_tpu_torch.io import native
+    from fluidsim_tpu_torch.io.vdb import read_vdb
+    assert native.available()          # the native writer builds
+    with tempfile.TemporaryDirectory() as out:
+        base = ["fluid", "--device", "cpu", "--bound", "6", "--density", "2",
+                "--echo-every", "100"]
+        args = cli.build_parser().parse_args(
+            base + ["--frames", "2", "--out", out, "--checkpoint-every", "1"])
+        summary = cli.run("flip", args)
+        assert summary["exporter"]["python_fallbacks"] == 0
+        assert cli.main(base + ["--frames", "1", "--out", out, "--resume",
+                                os.path.join(out, "ckpt_0.npz")]) == 0
+        assert len(read_vdb(os.path.join(out, "mygrids.vdb"))) == 1
+        m = {"kinetic_energy": float(read_vdb(
+            os.path.join(out, "mygrids1.vdb"))[0].values.sum())}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -111,7 +130,7 @@ print("ke", float(m["kinetic_energy"]))
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
                                   "flip-table", "rows", "synthetic",
-                                  "config"])
+                                  "config", "cli"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
