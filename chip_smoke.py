@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths, the
 materialised G2P, the span and unhaloed shift entry points, the
-row-layout transfers and config-driven runs (multigrid, the clean
-projection, MPM Jacobi) on one NVIDIA GPU and check them.
+row-layout transfers, config-driven runs (multigrid, the clean
+projection, MPM Jacobi) and the slab-sharded FLIP and MPM on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
@@ -155,8 +156,42 @@ Phases, each of which raises on failure (nonzero exit):
    ``sdf_to_fog(particles_to_levelset(pos))`` on the CPU for the same
    positions, and a Chrome trace holding the frames' kernels.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  An entry's ``ms`` is its
+Phases 31-34, run after phase 29 and before phase 30, each in a process
+group of this process alone (NCCL, a ``file://`` store, destroyed after):
+
+31. the slab shapes of the sharded paths: K1 and K2 on the FLIP scene's
+   transfer slab of world size 1 (133 rows at 129^3) and of rank 1 of a
+   4-way cut (37 rows, its 1,062,973 particles alive and the rest of the
+   slots dead), K3 and K4 on their solve slabs (131 and 35 rows), K1 fg
+   and K2 gw on the cone's (131 and 36 rows at 127^3); each against its
+   plain version as in phase 3 (timed, with the bound of the slab's
+   bytes: the live particles' inputs, the whole output), then bit for bit
+   against its order function (K1: ``p2g_scatter_chunked``, K1 fg:
+   ``p2g_scatter_force_chunked``, K2 gw: ``g2p_gather_gw_ordered``) or
+   plain version (K2, K3, K4);
+32. ``ShardedFlipSim`` at world size 1 on ``water_cube_drop`` at 129^3
+   (1,987,675 particles), 2 warm-up and 10 timed frames against
+   ``FlipSim`` on the card frame by frame: kinetic energy within rtol
+   1e-4, the same outer and CG counts, fluid cells and particles, none
+   lost, and after the 12 frames the state bit for bit ``FlipSim``'s; per
+   timed frame one K1, one plan, one K2 and K3/K4 as in phase 4; ms/frame
+   beside phase 4's;
+33. ``ShardedMpmSim`` at world size 1 on ``mpm_cone`` at 127^3 (473,798
+   particles), 2 warm-up and 6 timed frames against ``MpmSim``: kinetic
+   energy within rtol 1e-4, CG iterations within one per solve, det FP >
+   0, none lost, the state bit for bit ``MpmSim``'s; the launch counts
+   of phase 11; ms/frame beside phase 11's;
+34. card against CPU: the sharded FLIP at bound 8 and the sharded MPM at
+   bound 15 (density 40), world size 1, 3 frames on the card against 3 on
+   the CPU (a gloo group of the same process), as phases 9 and 13.
+
+The line before the last is a JSON object with one entry per kernel (and
+one per slab shape of phase 31, ``<kernel>_slab<rows>``, with the
+launches of the sharded path at world size 1 and the slab in ``slab``:
+"rank 0 of 1" is the shape that path launches, "rank 1 of 4" one rank's
+of a 4-way run, which ``python -m fluidsim_tpu_torch.parallel.dryrun
+--full`` drives on four cards); the last line is
+``{"ok": true, "device": {...}}``.  An entry's ``ms`` is its
 wrapper's time, except for K9a and K9b: theirs is the time of their kernels
 alone (``*_launch``), without the wrapper's wait on the host for the order
 flag, which their ``wrapper_ms`` includes.  K8b's ``ms`` still includes
@@ -165,6 +200,7 @@ its wrapper's copy of the end ids to the host and its wait on it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -194,6 +230,7 @@ MPM_BOUND = 63      # a 127^3 grid, 473,798 particles; "hybrid" operator
 MPM_SMALL = dict(bound=15, density=40.0)   # phase 13's reference scene
 CLI_FRAMES = 12     # phase 27's frames, a checkpoint every CLI_FRAMES // 2
 MPM_CLI_FRAMES = 6  # phase 28's
+MPM_SHARD_FRAMES = 6   # phase 33's timed frames, after 2 warm-up frames
 # phase 17's reference scene: more than one 512-row chunk of particles, so
 # the bucket order differs from the cell order
 BUCKET_SMALL = dict(bound=16, density=8.0)
@@ -641,7 +678,7 @@ def _run_mpm_frames(sim, counted, torch, label="mpm"):
     print(f"{label}: ms/frame {1e3 * wall_s / FRAMES:.3f}  steps/s "
           f"{FRAMES / wall_s:.3f}  CG iterations/frame {sum(cg) / FRAMES:.1f} "
           f"({FRAMES} frames, host clock, synchronised)")
-    return ke, launches, cg
+    return ke, launches, cg, 1e3 * wall_s / FRAMES
 
 
 def _mpm_small_scene(hessian, dev, precond="none"):
@@ -1351,8 +1388,8 @@ def _config_phases(dev, counted, torch, flip_particles, flip_ms, flip_cg,
                              f"phase 10 had {mpm_particles}")
     for _ in range(2):
         sim.step()
-    _, jac_launches, jac_cg = _run_mpm_frames(sim, counted, torch,
-                                              "mpm-jacobi")
+    _, jac_launches, jac_cg, _ = _run_mpm_frames(sim, counted, torch,
+                                                 "mpm-jacobi")
     if jac_launches["p2g_scatter"] != mpm_launches["p2g_scatter"] + FRAMES:
         raise AssertionError("mpm-jacobi: not one more K1 launch a frame "
                              "than phase 11")
@@ -1730,10 +1767,417 @@ def _surface_trace_phase(dev, counted, torch, np, tmp, on_ms):
     print(f"phase 30: {time.perf_counter() - t_phase:.2f} s")
 
 
+# ---- phases 31-34: the slab-sharded sims (run before phase 30) -----------
+
+SLAB_WORLD = 4      # phase 31's cut: one rank's arrays of a 4-way run
+SLAB_RANK = 1
+SHARD_SMALL = dict(bound=8, density=3.0)   # phase 34's FLIP scene
+
+
+@contextlib.contextmanager
+def _one_rank_group():
+    """A process group of this process alone: NCCL on a ``file://`` store
+    in a scratch directory of the checkout, every collective limited to
+    300 s; destroyed on leaving."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root,
+                                     prefix="_runtime_smoke_group_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "store"),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _rank_arrays(scene, bound, rank, size, rng, dev, torch, np):
+    """Rank ``rank``'s sorted slots in a ``size``-way cut of the scene's
+    seeded particles with random velocities: its own particles alive,
+    every other slot dead, as the rank holds them in a frame.  Returns
+    (slab, pos, vel, flat, live count)."""
+    from fluidsim_tpu_torch.parallel import flip_sharded as fs
+    from fluidsim_tpu_torch.seeding import seed_particles
+
+    slab = fs.Slab.build(np.asarray(scene.solid), bound, None, dev,
+                         rank=rank, size=size)
+    pos, _ = seed_particles(scene, seed=SEED, dtype="float32")
+    vel = torch.as_tensor(rng.normal(scale=3.0, size=pos.shape)
+                          .astype(np.float32), device=dev)
+    pos = torch.as_tensor(pos, device=dev)
+    alive = fs.owners(slab, pos) == rank
+    pos = torch.where(alive[:, None], pos, fs.SENTINEL)
+    vel = torch.where(alive[:, None], vel, 0.0)
+    pos_s, vel_s, _, flat = fs.sort_slab(slab, pos, vel, alive)
+    return slab, pos_s, vel_s, flat, int(alive.sum())
+
+
+def _slab_kernels(where, results, cases, torch):
+    """``_compare`` each case (key, label, kernel, plain, tolerance,
+    inputs, ops, order function or None) and hold it bit for bit to its
+    order function, or with None to its plain version."""
+    for key, label, kernel, plain, tol, inputs, ops, order in cases:
+        results[key] = _compare(f"{label} ({where})", kernel, plain, tol,
+                                inputs, ops, torch)
+        results[key]["slab"] = where
+        _require_bitwise(f"{label} ({where}): against its "
+                         f"{'order function' if order else 'plain version'}",
+                         kernel(), (order or plain)(), torch)
+
+
+def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
+    """K1, K2 on one rank's FLIP transfer slab and K3, K4 on its solve
+    slab, whose fluid cells are the K1 occupancy's."""
+    from fluidsim_tpu_torch.core.gridspec import (cell_center_velocity_cm,
+                                                  shift_to_minus,
+                                                  shift_to_plus)
+    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
+    from fluidsim_tpu_torch.parallel.flip_sharded import W
+
+    n = 2 * BOUND + 1
+    slab, pos_s, vel_s, flat, a = _rank_arrays(scene, BOUND, rank, size, rng,
+                                               dev, torch, np)
+    w27t = tk.masked_weights_cm(pos_s, BOUND)
+    cs = tk.cell_starts(flat, n, slab.rows)
+    count = cs[-1:]
+    plan = tk.chunk_plan(cs, flat.shape[0])
+    acc = tk.p2g_scatter(w27t, vel_s, cs, n, plan)
+    within = slab.within_ext(scene.spec.wall)
+    vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
+    fm = torch.stack([torch.where(within, vc[d], 0.0) for d in range(3)]
+                     + [within.to(torch.float32)])
+    # the solve slab: rows [W - 1, W + nl + 1) of the transfer slab
+    fluid = (acc[0][W - 1:W + slab.nl + 1] > 0) & ~slab.solid_ext1
+    ns = (~slab.solid_ext1).to(torch.float32)
+    nb = torch.zeros_like(ns)
+    for d in range(3):
+        nb = nb + shift_to_plus(ns, d) + shift_to_minus(ns, d)
+    scale = 0.0421
+    adiag = torch.where(fluid, scale * nb, 0.0)
+    z = torch.where(fluid, torch.randn(adiag.shape, generator=g, device=dev),
+                    0.0)
+    r = torch.randn(adiag.shape, generator=g, device=dev)
+    d_ = 0.5 * z
+    cells = adiag.numel()
+    tag, tag1 = f"slab{slab.rows}", f"slab{adiag.shape[0]}"
+    print(f"{scene.name}, rank {rank} of {size}: transfer slab "
+          f"{tuple(acc.shape[1:])}, {a} of {flat.shape[0]} slots alive; "
+          f"solve slab {tuple(adiag.shape)}, {int(fluid.sum())} fluid cells")
+    live = (w27t[:, :a], vel_s[:a], flat[:a])
+    return [
+        (f"p2g_scatter_{tag}", f"K1 p2g_scatter {tag}",
+         lambda: tk.p2g_scatter(w27t, vel_s, cs, n, plan),
+         lambda: tk.p2g_scatter_plain(w27t, vel_s, cs, n), 1e-5,
+         (live[0], live[1], cs), 27 * 7 * a,
+         lambda: tk.p2g_scatter_chunked(w27t, vel_s, plan, n)),
+        (f"g2p_gather_{tag}", f"K2 g2p_gather {tag}",
+         lambda: tk.g2p_gather(fm, w27t, flat, count),
+         lambda: tk.g2p_gather_plain(fm, w27t, flat, count), 1e-5,
+         (fm, live[0], live[2], count), 27 * 8 * a, None),
+        (f"apply_laplacian_{tag1}", f"K3 apply_laplacian {tag1}",
+         lambda: sk.apply_laplacian(z, adiag, scale),
+         lambda: sk.apply_laplacian_plain(z, adiag, scale), 1e-6,
+         (z, adiag), 9 * cells, None),
+        (f"cheb_step_{tag1}", f"K4 cheb_step {tag1}",
+         lambda: sk.cheb_step(z, adiag, r, d_, scale, 0.61, 1.07),
+         lambda: sk.cheb_step_plain(z, adiag, r, d_, scale, 0.61, 1.07),
+         1e-6, (z, adiag, r, d_), 15 * cells, None)]
+
+
+def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
+    """K1 fg and K2 gw on one rank's transfer slab of the cone."""
+    from fluidsim_tpu_torch.ops import mpm_kernels as mk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    n = 2 * MPM_BOUND + 1
+    slab, pos_s, vel_s, flat, a = _rank_arrays(scene, MPM_BOUND, rank, size,
+                                               rng, dev, torch, np)
+    w27t, gradw = mk.mpm_stencil(pos_s, MPM_BOUND)
+    cs = tk.cell_starts(flat, n, slab.rows)
+    count = cs[-1:]
+    p = flat.shape[0]
+    plan = tk.chunk_plan(cs, p)
+    m9 = torch.randn((p, 9), generator=g, device=dev)
+    acc = tk.p2g_scatter(w27t, vel_s, cs, n, plan)
+    heavy = acc[0] > 0.1
+    velg = torch.where(heavy[None],
+                       acc[1:4] / torch.where(heavy, acc[0], 1.0)[None], 0.0)
+    fm3 = torch.where(~slab.solid_ext[None], velg, 0.0).contiguous()
+    tag = f"slab{slab.rows}"
+    print(f"{scene.name}, rank {rank} of {size}: transfer slab "
+          f"{tuple(acc.shape[1:])}, {a} of {p} slots alive")
+    return [
+        (f"p2g_scatter_force_{tag}", f"K1 fg p2g_scatter_force {tag}",
+         lambda: tk.p2g_scatter_force(gradw, m9, cs, n, plan),
+         lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
+         (gradw[:, :a], m9[:a], cs), 27 * 18 * a,
+         lambda: tk.p2g_scatter_force_chunked(gradw, m9, plan, n)),
+        (f"g2p_gather_gw_{tag}", f"K2 gw g2p_gather_gw {tag}",
+         lambda: tk.g2p_gather_gw(fm3, gradw, flat, count),
+         lambda: tk.g2p_gather_gw_plain(fm3, gradw, flat, count), 1e-5,
+         (fm3, gradw[:, :a], flat[:a], count), 27 * 18 * a,
+         lambda: tk.g2p_gather_gw_ordered(fm3, gradw, flat, count))]
+
+
+def _slab_phase(dev, torch, np):
+    """Phase 31 (see the module docstring).  Returns the kernels' numbers
+    by ``<kernel>_slab<rows>``."""
+    from fluidsim_tpu_torch.scenes import get_scene
+
+    t_phase = time.perf_counter()
+    results = {}
+    rng = np.random.default_rng(SEED)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    flip_scene = get_scene("water_cube_drop", bound=BOUND, density=DENSITY)
+    cone = get_scene("mpm_cone", bound=MPM_BOUND)
+    with _one_rank_group():
+        for size in (1, SLAB_WORLD):
+            rank = 0 if size == 1 else SLAB_RANK
+            for cases in (_flip_slab_cases, _cone_slab_cases):
+                scene = flip_scene if cases is _flip_slab_cases else cone
+                _slab_kernels(f"rank {rank} of {size}", results,
+                              cases(scene, rank, size, rng, g, dev, torch,
+                                    np), torch)
+    print(f"phase 31: {time.perf_counter() - t_phase:.2f} s")
+    return results
+
+
+def _zero_counts(counted):
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    for fn in counted:
+        fn.launches = 0
+    tk.chunk_plan.builds = 0
+
+
+def _sharded_flip_phase(dev, counted, torch, flip_ms):
+    """Phase 32: the sharded FLIP at world size 1 on NCCL, ``water_cube_drop``
+    at 129^3, 2 warm-up and ``FRAMES`` timed frames, against ``FlipSim`` on
+    the card frame by frame.  Returns the timed frames' launches."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
+
+    t_phase = time.perf_counter()
+    with _one_rank_group():
+        ref = _flip_sim(dev)
+        sim = ShardedFlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+                             seed=SEED)
+        p = sim.num_particles
+        if p != ref.num_particles:
+            raise AssertionError(f"sharded flip: {p} particles, FlipSim "
+                                 f"{ref.num_particles}")
+        print(f"sharded flip: world 1, slab {sim.slab.rows} rows (solve "
+              f"operands {sim.slab.nl + 2}), cap "
+              f"{sim.cap}, mig_cap {sim.mig_cap}, tail_insert "
+              f"{sim.tail_insert}, {p} particles, device {sim.device}")
+        want = [ref.step() for _ in range(2 + FRAMES)]
+        got = [sim.step() for _ in range(2)]
+        _zero_counts(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got += [sim.step() for _ in range(FRAMES)]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        builds = tk.chunk_plan.builds
+        for f, (m, r) in enumerate(zip(got, want)):
+            kg, kr = float(m["kinetic_energy"]), float(r["kinetic_energy"])
+            print(f"sharded flip frame {f}: ke {kg:.7g} outer "
+                  f"{m['outer_iters']} cg {m['cg_iters']} fluid "
+                  f"{int(m['num_fluid_cells'])} | FlipSim ke {kr:.7g} outer "
+                  f"{r['outer_iters']} cg {r['cg_iters']} fluid "
+                  f"{int(r['num_fluid_cells'])}")
+            if (abs(kg - kr) > 1e-4 * abs(kr)
+                    or m["outer_iters"] != r["outer_iters"]
+                    or m["cg_iters"] != r["cg_iters"]
+                    or int(m["num_fluid_cells"]) != int(r["num_fluid_cells"])
+                    or int(m["num_alive"]) != p or int(m["lost"]) != 0):
+                raise AssertionError(f"sharded flip frame {f}: differs from "
+                                     "FlipSim or lost particles")
+        timed = got[2:]
+        solves = sum(m["cg_iters"] + m["outer_iters"] for m in timed)
+        k3, k4 = _stencil_launches(sim.params)
+        want_l = {name: 0 for name in launches}
+        want_l.update({"p2g_scatter": FRAMES, "chunk_fill": FRAMES,
+                       "g2p_gather": FRAMES, "apply_laplacian": k3 * solves,
+                       "cheb_step": k4 * solves})
+        print("sharded flip: launches in the timed frames:",
+              json.dumps(launches), f"K1 chunk plans built: {builds}")
+        if launches != want_l or builds != FRAMES:
+            raise AssertionError(f"sharded flip: launches {launches}, "
+                                 f"expected {want_l}")
+        pos = sim.state.pos[sim.state.alive]
+        if not bool(torch.isfinite(pos).all()) or float(pos.abs().max()) >= BOUND:
+            raise AssertionError("sharded flip: particles left the box")
+        # one rank holds the box: its alive prefix is FlipSim's state
+        for field in ("pos", "vel"):
+            _require_bitwise(f"sharded flip: {field} after {2 + FRAMES} "
+                             "frames against FlipSim's",
+                             getattr(sim.state, field)[:p],
+                             getattr(ref.state, field), torch)
+        _require_bitwise("sharded flip: pressure against FlipSim's",
+                         sim.state.pressure, ref.state.pressure, torch)
+        ms = 1e3 * wall_s / FRAMES
+        print(f"sharded flip: ms/frame {ms:.3f} against phase 4's "
+              f"{flip_ms:.3f} (FlipSim), CG iterations/frame "
+              f"{sum(m['cg_iters'] for m in timed) / FRAMES:.1f} ({FRAMES} "
+              "frames, host clock, synchronised)")
+        del ref, sim, want, got
+    print(f"phase 32: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def _sharded_mpm_phase(dev, counted, torch, mpm_ms):
+    """Phase 33: the sharded MPM at world size 1 on NCCL, ``mpm_cone`` at
+    127^3, 2 warm-up and ``MPM_SHARD_FRAMES`` timed frames, against
+    ``MpmSim`` on the card.  Returns the timed frames' launches."""
+    from fluidsim_tpu_torch.models.mpm import MpmSim
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
+
+    t_phase = time.perf_counter()
+    frames = MPM_SHARD_FRAMES
+    with _one_rank_group():
+        ref = MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED, device=dev)
+        sim = ShardedMpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED)
+        p = sim.num_particles
+        if p != ref.num_particles:
+            raise AssertionError(f"sharded mpm: {p} particles, MpmSim "
+                                 f"{ref.num_particles}")
+        print(f"sharded mpm: world 1, slab {sim.slab.rows} rows, cap "
+              f"{sim.cap}, mig_cap {sim.mig_cap}, {p} particles, operator "
+              f"{sim.params.hessian}")
+        want = [ref.step() for _ in range(2 + frames)]
+        got = [sim.step() for _ in range(2)]
+        _zero_counts(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got += [sim.step() for _ in range(frames)]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        builds = tk.chunk_plan.builds
+        applies = 0
+        for f, (m, r) in enumerate(zip(got, want)):
+            kg, kr = float(m["kinetic_energy"]), float(r["kinetic_energy"])
+            solves, converged = _mpm_solves(m, sim.params)
+            print(f"sharded mpm frame {f}: ke {kg:.7g} cg {m['cg_iters']} "
+                  f"spd {m['spd_fallback']} min det FP "
+                  f"{float(m['min_det_fp']):.6g} | MpmSim ke {kr:.7g} cg "
+                  f"{r['cg_iters']}")
+            if (abs(kg - kr) > 1e-4 * abs(kr) or not converged
+                    or abs(m["cg_iters"] - r["cg_iters"]) > solves
+                    or float(m["min_det_fp"]) <= 0
+                    or int(m["num_alive"]) != p or int(m["lost"]) != 0):
+                raise AssertionError(f"sharded mpm frame {f}: differs from "
+                                     "MpmSim or lost particles")
+            if f >= 2:
+                applies += m["cg_iters"] + solves
+        want_l = {name: 0 for name in launches}
+        want_l.update({"p2g_scatter": frames, "chunk_fill": frames,
+                       "g2p_gather": 2 * frames,
+                       "p2g_scatter_force": frames + applies,
+                       "g2p_gather_gw": applies + frames})
+        print("sharded mpm: launches in the timed frames:",
+              json.dumps(launches), f"K1 chunk plans built: {builds}")
+        if launches != want_l or builds != frames:
+            raise AssertionError(f"sharded mpm: launches {launches}, "
+                                 f"expected {want_l}")
+        st = sim.state
+        if not all(bool(torch.isfinite(t[st.alive]).all())
+                   for t in (st.pos, st.FE, st.FP)):
+            raise AssertionError("sharded mpm: non-finite state")
+        for field in ("pos", "vel", "FE", "FP", "volume"):
+            _require_bitwise(f"sharded mpm: {field} after {2 + frames} "
+                             "frames against MpmSim's",
+                             getattr(st, field)[:p], getattr(ref.state, field),
+                             torch)
+        timed = got[2:]
+        print(f"sharded mpm: ms/frame {1e3 * wall_s / frames:.3f} against "
+              f"phase 11's {mpm_ms:.3f} (MpmSim), CG iterations/frame "
+              f"{sum(m['cg_iters'] for m in timed) / frames:.1f} ({frames} "
+              "frames, host clock, synchronised)")
+        del ref, sim, want, got
+    print(f"phase 33: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def _sharded_card_against_cpu(dev, torch):
+    """Phase 34: the sharded FLIP at bound 8 and the sharded MPM at bound
+    15 (density 40), world size 1, 3 frames on the card (NCCL) against 3 on
+    the CPU (a gloo group of the same process), as phases 9 and 13."""
+    import torch.distributed as dist
+
+    from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
+    from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
+
+    with _one_rank_group():
+        gloo = dist.new_group([0], backend="gloo")
+        for kind in ("flip", "mpm"):
+            if kind == "flip":
+                make = lambda d, grp: ShardedFlipSim(
+                    "water_cube_drop", seed=SEED, device=d, group=grp,
+                    **SHARD_SMALL)
+            else:
+                make = lambda d, grp: ShardedMpmSim(
+                    "mpm_cone", seed=SEED, device=d, group=grp, **MPM_SMALL)
+            gpu_sim, cpu_sim = make(dev, None), make("cpu", gloo)
+            for f in range(3):
+                mg, mc = gpu_sim.step(), cpu_sim.step()
+                kg, kc = (float(mg["kinetic_energy"]),
+                          float(mc["kinetic_energy"]))
+                outer = mc.get("outer_iters", 1)
+                print(f"reference sharded {kind} frame {f}: card ke {kg:.7g} "
+                      f"cg {mg['cg_iters']} | cpu ke {kc:.7g} cg "
+                      f"{mc['cg_iters']}")
+                if (abs(kg - kc) > 1e-4 * abs(kc)
+                        or mg.get("outer_iters") != mc.get("outer_iters")
+                        or abs(mg["cg_iters"] - mc["cg_iters"]) > outer
+                        or int(mg["lost"]) != 0 or int(mc["lost"]) != 0):
+                    raise AssertionError(f"sharded {kind} frame {f}: card "
+                                         "and cpu differ")
+            alive = cpu_sim.state.alive
+            if not torch.equal(gpu_sim.state.alive.cpu(), alive):
+                raise AssertionError(f"sharded {kind}: alive slots differ")
+            pos_err = _max_err(gpu_sim.state.pos.cpu()[alive],
+                               cpu_sim.state.pos[alive])
+            tol = 1e-3 if kind == "flip" else 1e-4
+            msg = f"max pos diff card vs cpu {pos_err:.3e}"
+            if pos_err > tol:
+                raise AssertionError(f"sharded {kind}: positions differ by "
+                                     f"{pos_err}")
+            if kind == "mpm":
+                fe_err = _max_err(gpu_sim.state.FE.cpu()[alive],
+                                  cpu_sim.state.FE[alive])
+                if fe_err > 1e-5:
+                    raise AssertionError(f"sharded mpm: FE differs by {fe_err}")
+                msg += f", max FE diff {fe_err:.3e}"
+            print(f"reference sharded {kind}: world 1, {int(alive.sum())} "
+                  f"particles, 3 frames, {msg}")
+
+
+def _sharded_phases(dev, counted, torch, np, flip_ms, mpm_ms):
+    """Phases 31-34; returns (the slab kernels' numbers, launches of the
+    sharded FLIP and MPM paths)."""
+    results = _slab_phase(dev, torch, np)
+    flip = _sharded_flip_phase(dev, counted, torch, flip_ms)
+    mpm = _sharded_mpm_phase(dev, counted, torch, mpm_ms)
+    _sharded_card_against_cpu(dev, torch)
+    return results, {"sharded_flip": flip, "sharded_mpm": mpm}
+
+
 def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
-                    mpm_particles):
+                    mpm_particles, before_last):
     """Phases 27-30, in a scratch directory inside the checkout that is
-    removed afterwards; returns the CLI runs' launch counts by path."""
+    removed afterwards, with ``before_last()`` run before phase 30;
+    returns the CLI runs' launch counts by path."""
     import tempfile
 
     import numpy as np
@@ -1745,6 +2189,7 @@ def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
                                        flip_particles, flip_ms)
         mpm = _mpm_cli_phase(dev, counted, torch, np, tmp, mpm_particles)
         _steps_phase(dev, torch)
+        before_last()
         _surface_trace_phase(dev, counted, torch, np, tmp, on_ms)
     return {"cli_fluid": fluid, "cli_mpm": mpm}
 
@@ -2011,7 +2456,7 @@ def main() -> int:
     del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
-    ke, mpm_launches, mpm_cg = _run_mpm_frames(sim, counted, torch)
+    ke, mpm_launches, mpm_cg, mpm_ms = _run_mpm_frames(sim, counted, torch)
     kes += ke
     del sim
 
@@ -2123,9 +2568,17 @@ def main() -> int:
                                      mpm_launches, mpm_cg)
 
     # ---- 27-30. the run-time layer: the command line, steps(k), the
-    # particle surface and a trace (last: a profile slows what follows) --
+    # particle surface and a trace (last: a profile slows what follows),
+    # and before phase 30 phases 31-34, the slab-sharded sims -------------
+    sharded = {}
+
+    def sharded_phases():
+        sharded["results"], sharded["launches"] = _sharded_phases(
+            dev, counted, torch, np, flip_ms, mpm_ms)
+
     runtime_launches = _runtime_phases(dev, counted, torch, flip_particles,
-                                       flip_ms, mpm_particles)
+                                       flip_ms, mpm_particles, sharded_phases)
+    results.update(sharded["results"])
 
     csrc = "fluidsim_tpu_torch/csrc/"
     sources = {
@@ -2167,16 +2620,26 @@ def main() -> int:
                                entry_launches),
         "gather_rows_cm": ("rows.cu", "pallas_transfer.py:225", row_launches),
         "scatter_rows_cm": ("rows.cu", "pallas_transfer.py:332", row_launches)}
+    # the slab shapes of phase 31, by the sharded path that runs each
+    shard_flip = sharded["launches"]["sharded_flip"]
+    shard_mpm = sharded["launches"]["sharded_mpm"]
+    for key in sorted(k for k in results if "_slab" in k):
+        name = key.rsplit("_slab", 1)[0]
+        src, rep, _ = sources[name]
+        sources[key] = (src, rep, shard_mpm if "force" in name
+                        or "gw" in name else shard_flip)
     paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches,
              "flip_bucket": bucket_launches,
              "g2p_materialised": table_launches,
              "shift_entry_points": entry_launches,
              "row_transfers": row_launches, **config_launches,
-             **runtime_launches}
+             **runtime_launches, **sharded["launches"]}
+    base = lambda key: key.rsplit("_slab", 1)[0]
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
-                "launches": launches[name], **results[name],
-                "launches_by_path": {k: v[name] for k, v in paths.items()}}
+                "launches": launches[base(name)], **results[name],
+                "launches_by_path": {k: v[base(name)]
+                                     for k, v in paths.items()}}
                for name, (src, rep, launches) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

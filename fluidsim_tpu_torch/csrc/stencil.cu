@@ -6,7 +6,11 @@
 //
 // All arrays are dense (n, n, n) f32, z fastest.  A cell is fluid exactly
 // where adiag > 0; every operand is read through that mask (q = adiag > 0 ?
-// p : 0) and neighbours outside the box read 0.
+// p : 0) and neighbours outside the box read 0.  K3 and K4 also take an
+// (nx, n, n) slab (the x extent nx beside n): a rank's pressure solve in
+// fluidsim_tpu_torch/parallel/flip_sharded.py, on (nl + 2, n, n) with its
+// two ghost rows, which the kernels compute like any row and the caller
+// clears; neighbours past the slab's x ends read 0.
 //
 // K3 fs_apply_laplacian replaces fluidsim_tpu/ops/pallas_stencil.py:
 //   apply_laplacian_padded (_kernel) and apply_laplacian_padded_lh
@@ -118,15 +122,16 @@ __device__ __forceinline__ float masked(const float* __restrict__ p,
 }
 
 // adiag*q - scale*(sum of the 6 masked neighbours), for an interior-or-edge
-// cell c = (x, y, z) whose own adiag is am and masked value mid.
+// cell c = (x, y, z) of an (nx, n, n) grid whose own adiag is am and masked
+// value mid.
 __device__ __forceinline__ float laplacian_at(const float* __restrict__ p,
                                               const float* __restrict__ a,
                                               long long c, int x, int y, int z,
-                                              int n, float am, float mid,
-                                              float scale) {
+                                              int nx, int n, float am,
+                                              float mid, float scale) {
   const long long sx = (long long)n * n;
   const float xm = x > 0 ? masked(p, a, c - sx) : 0.f;
-  const float xp = x < n - 1 ? masked(p, a, c + sx) : 0.f;
+  const float xp = x < nx - 1 ? masked(p, a, c + sx) : 0.f;
   const float ym = y > 0 ? masked(p, a, c - n) : 0.f;
   const float yp = y < n - 1 ? masked(p, a, c + n) : 0.f;
   const float zm = z > 0 ? masked(p, a, c - 1) : 0.f;
@@ -138,8 +143,8 @@ __device__ __forceinline__ float laplacian_at(const float* __restrict__ p,
 __global__ void apply_laplacian_kernel(const float* __restrict__ p,
                                        const float* __restrict__ a,
                                        float* __restrict__ out, float scale,
-                                       int n) {
-  const long long ncell = (long long)n * n * n;
+                                       int nx, int n) {
+  const long long ncell = (long long)nx * n * n;
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncell) return;
   const float am = a[c];
@@ -150,7 +155,7 @@ __global__ void apply_laplacian_kernel(const float* __restrict__ p,
   const int x = (int)(c / ((long long)n * n));
   const int y = (int)((c / n) % n);
   const int z = (int)(c % n);
-  out[c] = laplacian_at(p, a, c, x, y, z, n, am, p[c], scale);
+  out[c] = laplacian_at(p, a, c, x, y, z, nx, n, am, p[c], scale);
 }
 
 __global__ void cheb_step_kernel(const float* __restrict__ zv,
@@ -159,8 +164,8 @@ __global__ void cheb_step_kernel(const float* __restrict__ zv,
                                  const float* __restrict__ d,
                                  float* __restrict__ dn,
                                  float* __restrict__ zn, float scale, float c1,
-                                 float c2, int n) {
-  const long long ncell = (long long)n * n * n;
+                                 float c2, int nx, int n) {
+  const long long ncell = (long long)nx * n * n;
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncell) return;
   const float am = a[c];
@@ -171,7 +176,7 @@ __global__ void cheb_step_kernel(const float* __restrict__ zv,
     const int x = (int)(c / ((long long)n * n));
     const int y = (int)((c / n) % n);
     const int z = (int)(c % n);
-    az = laplacian_at(zv, a, c, x, y, z, n, am, mid, scale);
+    az = laplacian_at(zv, a, c, x, y, z, nx, n, am, mid, scale);
   }
   const float resid = r[c] - az;
   const float pd = fluid ? resid / am : 0.f;
@@ -303,23 +308,25 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
-                                  float* out, float scale, int n,
+                                  float* out, float scale, int nx, int n,
                                   void* stream) {
-  const long long ncell = (long long)n * n * n;
+  const long long ncell = (long long)nx * n * n;
+  if (ncell == 0) return 0;
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
   apply_laplacian_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      p, adiag, out, scale, n);
+      p, adiag, out, scale, nx, n);
   return (int)cudaGetLastError();
 }
 
 extern "C" int fs_cheb_step(const float* z, const float* adiag,
                             const float* r, const float* d, float* dn,
-                            float* zn, float scale, float c1, float c2, int n,
-                            void* stream) {
-  const long long ncell = (long long)n * n * n;
+                            float* zn, float scale, float c1, float c2,
+                            int nx, int n, void* stream) {
+  const long long ncell = (long long)nx * n * n;
+  if (ncell == 0) return 0;
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
   cheb_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      z, adiag, r, d, dn, zn, scale, c1, c2, n);
+      z, adiag, r, d, dn, zn, scale, c1, c2, nx, n);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,22 @@
 // w27t (27, P) f32, zero for particles whose base cell is outside the box.
 // Offset o is (o/9 - 1, (o/3)%3 - 1, o%3 - 1).
 //
+// Slabs.  The K1 modes, K2, K2 moments, K2 gw and K7a take the grid's x
+// extent nx beside n: the grid is (nx, n, n), the cube when nx = n, or the
+// x-slab of one rank of the sharded sims (fluidsim_tpu_torch/parallel/,
+// the counterpart of fluidsim_tpu/parallel/flip_sharded.py:144-216 and
+// mpm_sharded.py:143-258, whose slab is (nl + 4, n, n)).  Ids and
+// neighbours are then x in [0, nx): a cell outside the slab reads 0 and
+// takes nothing, as a cell outside the box does.  A rank's slots end with
+// dead ones, whose id nx n^2 sorts them last; cell_start[nx n^2] is then
+// the live count.  K1 never reaches them (its plan covers the cell ranges
+// only); the gathers take that count as `count`, a device int read by the
+// kernel (nullptr: all P rows), and write zeros to the rows past it, so a
+// dead slot's id, which decodes to row nx, reads no real cell and no host
+// read sizes the launch.  A cube call (nx = n, count nullptr) launches the
+// gathers built without the count test (kCount false), bit for bit as
+// before the slabs.
+//
 // K1 fs_p2g_scatter, fs_p2g_scatter_affine and fs_p2g_scatter_force replace
 //   fluidsim_tpu/ops/pallas_transfer.py:1064 scatter_wv_fused
 //   (_scatter_wv_fused_kernel) in its three modes, the 27-offset scatter
@@ -26,6 +42,7 @@
 //         u(p, o)[c] = M[p,c,0]*gW[p,o,0] + M[p,c,1]*gW[p,o,1]
 //                      + M[p,c,2]*gW[p,o,2], the k-sum in that order, with
 //         M = -V sigma (P, 9) row-major and gradW (81, P), row 3o + k.
+//   Output (nc, nx, n, n) on a slab.
 //   Bound on the H100: memory.  Compulsory traffic, each input read once
 //   and the output written once: per particle w27t 108 B and v 12 B (wv),
 //   + C 36 B (aff), or gradW 324 B and M 36 B (fg); per cell cell_start
@@ -226,13 +243,14 @@ constexpr int kMoments = 22;
 // started at +0 unchanged to the bit, so K2 and K7a agree bit for bit.
 struct NeighbourFields {
   const float* fm;
+  int nx;                         // the grid's x extent (n for the cube)
   __device__ __forceinline__ bool load(int o, int f, int x, int y, int z,
                                        int n, long long ncell,
                                        float v[4]) const {
     const int cx = x + (o / 9 - 1);
     const int cy = y + ((o / 3) % 3 - 1);
     const int cz = z + (o % 3 - 1);
-    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n)
+    if (cx < 0 || cx >= nx || cy < 0 || cy >= n || cz < 0 || cz >= n)
       return false;
     const long long c = ((long long)cx * n + cy) * n + cz;
     v[0] = __ldg(fm + c);
@@ -281,8 +299,8 @@ template <class Src>
 __device__ __forceinline__ void moment_rows(const Src& src,
                                             const float* __restrict__ w27t,
                                             float* __restrict__ out, int f,
-                                            int n, long long p, long long np) {
-  const long long ncell = (long long)n * n * n;
+                                            int n, long long ncell,
+                                            long long p, long long np) {
   const int x = f / (n * n);
   const int y = (f / n) % n;
   const int z = f % n;
@@ -321,8 +339,8 @@ template <class Src>
 __device__ __forceinline__ void gather_rows(const Src& src,
                                             const float* __restrict__ w27t,
                                             float* __restrict__ out, int f,
-                                            int n, long long p, long long np) {
-  const long long ncell = (long long)n * n * n;
+                                            int n, long long ncell,
+                                            long long p, long long np) {
   const int x = f / (n * n);
   const int y = (f / n) % n;
   const int z = f % n;
@@ -346,32 +364,43 @@ template <bool kMom, class Src>
 __device__ __forceinline__ void contract_rows(const Src& src,
                                               const float* __restrict__ w27t,
                                               float* __restrict__ out, int f,
-                                              int n, long long p,
-                                              long long np) {
+                                              int n, long long ncell,
+                                              long long p, long long np) {
   if constexpr (kMom)
-    moment_rows(src, w27t, out, f, n, p, np);
+    moment_rows(src, w27t, out, f, n, ncell, p, np);
   else
-    gather_rows(src, w27t, out, f, n, p, np);
+    gather_rows(src, w27t, out, f, n, ncell, p, np);
 }
 
-template <class Src>
-__global__ void g2p_moments_kernel(Src src, const float* __restrict__ w27t,
-                                   const int* __restrict__ flat,
-                                   float* __restrict__ out, int n,
-                                   long long np) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= np) return;
-  moment_rows(src, w27t, out, flat[p], n, p, np);
+// The particles a gather reads: the first *count of the np rows when the
+// launch has a count (kCount: a device int, the alive prefix that a slab's
+// cell_start ends with), else all np.  Each row past them gets zeros in every
+// output row instead.  A launch without a count compiles the test away.
+template <bool kCount>
+__device__ __forceinline__ bool dead_row(const int* __restrict__ count,
+                                         float* __restrict__ out, int rows,
+                                         long long p, long long np) {
+  if constexpr (!kCount) {
+    return false;
+  } else {
+    if (p < (long long)__ldg(count)) return false;
+    for (int r = 0; r < rows; ++r) out[r * np + p] = 0.f;
+    return true;
+  }
 }
 
-template <class Src>
-__global__ void g2p_gather_kernel(Src src, const float* __restrict__ w27t,
-                                  const int* __restrict__ flat,
-                                  float* __restrict__ out, int n,
-                                  long long np) {
+// K2 (kMom false, 4 rows) and K2 moments (22 rows) on an (nx, n, n) grid, and
+// K7a on the table (kMom as K2's): a thread per sorted particle.
+template <bool kMom, bool kCount, class Src>
+__global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
+                                const int* __restrict__ flat,
+                                const int* __restrict__ count,
+                                float* __restrict__ out, int n,
+                                long long ncell, long long np) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= np) return;
-  gather_rows(src, w27t, out, flat[p], n, p, np);
+  if (p >= np || dead_row<kCount>(count, out, kMom ? kMoments : 4, p, np))
+    return;
+  contract_rows<kMom>(src, w27t, out, flat[p], n, ncell, p, np);
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -554,14 +583,15 @@ __global__ void chunk_combine_kernel(float* __restrict__ sums,
   store_group<kNc>(sums + 27LL * kNc * k + kNc * o, t);
 }
 
-// Stage B: one thread per target cell adds the records of its source cells
-// in offset order; a target whose 27 sources hold no chunk writes zeros
-// after 18 reads of chunk_start.  n^3 < 2^31 (checked by the caller).
+// Stage B: one thread per target cell of the (nx, n, n) grid adds the
+// records of its source cells in offset order; a target whose 27 sources
+// hold no chunk writes zeros after 18 reads of chunk_start.  nx n^2 < 2^31
+// (checked by the caller).
 template <int kNc>
 __global__ void chunk_pull_kernel(const float* __restrict__ rec,
                                   const int* __restrict__ chunk_start,
-                                  float* __restrict__ out, int n) {
-  const int ncell = n * n * n;
+                                  float* __restrict__ out, int nx, int n) {
+  const int ncell = nx * n * n;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= ncell) return;
   const int x = c / (n * n);
@@ -573,7 +603,7 @@ __global__ void chunk_pull_kernel(const float* __restrict__ rec,
 #pragma unroll
   for (int r = 0; r < 9; ++r) {
     const int bx = x - (r / 3 - 1), by = y - (r % 3 - 1);
-    if (bx >= 0 && bx < n && by >= 0 && by < n) {
+    if (bx >= 0 && bx < nx && by >= 0 && by < n) {
       const int row = (bx * n + by) * n;
       any |= __ldg(chunk_start + row + zend) > __ldg(chunk_start + row + zlo);
     }
@@ -587,7 +617,8 @@ __global__ void chunk_pull_kernel(const float* __restrict__ rec,
       const int bx = x - (o / 9 - 1);
       const int by = y - ((o / 3) % 3 - 1);
       const int bz = z - (o % 3 - 1);
-      if (bx < 0 || bx >= n || by < 0 || by >= n || bz < 0 || bz >= n) continue;
+      if (bx < 0 || bx >= nx || by < 0 || by >= n || bz < 0 || bz >= n)
+        continue;
       const int b = (bx * n + by) * n + bz;
       const int k0 = __ldg(chunk_start + b);
       if (__ldg(chunk_start + b + 1) > k0) {
@@ -622,14 +653,15 @@ __global__ void chunk_fill_kernel(const int* __restrict__ cell_start,
   }
 }
 
-// The three kernels of a K1 launch.  sums: (nch, 27 * nc) scratch, nch the
-// plan's chunk count chunk_start[n^3] (chunk_plan reads it once per frame);
-// the warps of stage A stride over the chunks.
+// The three kernels of a K1 launch on an (nx, n, n) grid.  sums: (nch,
+// 27 * nc) scratch, nch the plan's chunk count chunk_start[nx n^2]
+// (chunk_plan reads it once per frame); the warps of stage A stride over the
+// chunks.
 template <class V>
 int chunked_scatter(V vals, const int* chunk_first, const int* chunk_cell,
-                    const int* chunk_start, float* sums, float* out, int n,
-                    long long np, int nch, cudaStream_t st) {
-  const long long ncell = (long long)n * n * n;
+                    const int* chunk_start, float* sums, float* out, int nx,
+                    int n, long long np, int nch, cudaStream_t st) {
+  const long long ncell = (long long)nx * n * n;
   if (nch > 0) {
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
@@ -646,18 +678,20 @@ int chunked_scatter(V vals, const int* chunk_first, const int* chunk_cell,
   }
   const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
   chunk_pull_kernel<V::kNc><<<blocks, kThreads, 0, st>>>(sums, chunk_start,
-                                                         out, n);
+                                                         out, nx, n);
   return (int)cudaGetLastError();
 }
 
+template <bool kCount>
 __global__ void g2p_gather_gw_kernel(const float* __restrict__ fm,
                                      const float* __restrict__ gradw,
                                      const int* __restrict__ flat,
-                                     float* __restrict__ out, int n,
+                                     const int* __restrict__ count,
+                                     float* __restrict__ out, int nx, int n,
                                      long long np) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= np) return;
-  const long long ncell = (long long)n * n * n;
+  if (p >= np || dead_row<kCount>(count, out, 9, p, np)) return;
+  const long long ncell = (long long)nx * n * n;
   const int f = flat[p];
   const int x = f / (n * n);
   const int y = (f / n) % n;
@@ -670,7 +704,8 @@ __global__ void g2p_gather_gw_kernel(const float* __restrict__ fm,
     const int cx = x + (o / 9 - 1);
     const int cy = y + ((o / 3) % 3 - 1);
     const int cz = z + (o % 3 - 1);
-    if (cx < 0 || cx >= n || cy < 0 || cy >= n || cz < 0 || cz >= n) continue;
+    if (cx < 0 || cx >= nx || cy < 0 || cy >= n || cz < 0 || cz >= n)
+      continue;
     const long long c = ((long long)cx * n + cy) * n + cz;
     const float fv[3] = {fm[c], fm[ncell + c], fm[2 * ncell + c]};
     const float gv[3] = {gradw[3LL * o * np + p], gradw[(3LL * o + 1) * np + p],
@@ -1198,10 +1233,11 @@ __global__ void __launch_bounds__(kThreads)
   // an id out of order or outside the box is clamped into the arrays
   if (staged) {
     const int d = min(max(f - f0, 0), m - 1);
-    contract_rows<kMom>(StagedColumn{cols + d, m}, w27t, out, f, n, p, np);
+    contract_rows<kMom>(StagedColumn{cols + d, m}, w27t, out, f, n, ncell, p,
+                        np);
   } else {
     const int fc = (int)min(max((long long)f, 0LL), ncell - 1);
-    contract_rows<kMom>(TableColumn{table}, w27t, out, fc, n, p, np);
+    contract_rows<kMom>(TableColumn{table}, w27t, out, fc, n, ncell, p, np);
   }
 }
 
@@ -1210,9 +1246,10 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int fs_p2g_scatter(const float* w27t, const float* vel,
                               const int* chunk_first, const int* chunk_cell,
                               const int* chunk_start, float* sums, float* out,
-                              int n, long long np, int nch, void* stream) {
+                              int nx, int n, long long np, int nch,
+                              void* stream) {
   return chunked_scatter(WvValues{w27t, vel}, chunk_first, chunk_cell,
-                         chunk_start, sums, out, n, np, nch,
+                         chunk_start, sums, out, nx, n, np, nch,
                          (cudaStream_t)stream);
 }
 
@@ -1220,10 +1257,10 @@ extern "C" int fs_p2g_scatter_affine(const float* w27t, const float* veff,
                                      const float* aff, const int* chunk_first,
                                      const int* chunk_cell,
                                      const int* chunk_start, float* sums,
-                                     float* out, int n, long long np, int nch,
-                                     void* stream) {
+                                     float* out, int nx, int n, long long np,
+                                     int nch, void* stream) {
   return chunked_scatter(AffValues{w27t, veff, aff}, chunk_first, chunk_cell,
-                         chunk_start, sums, out, n, np, nch,
+                         chunk_start, sums, out, nx, n, np, nch,
                          (cudaStream_t)stream);
 }
 
@@ -1231,10 +1268,10 @@ extern "C" int fs_p2g_scatter_force(const float* gradw, const float* m9,
                                     const int* chunk_first,
                                     const int* chunk_cell,
                                     const int* chunk_start, float* sums,
-                                    float* out, int n, long long np, int nch,
-                                    void* stream) {
+                                    float* out, int nx, int n, long long np,
+                                    int nch, void* stream) {
   return chunked_scatter(ForceValues{gradw, m9}, chunk_first, chunk_cell,
-                         chunk_start, sums, out, n, np, nch,
+                         chunk_start, sums, out, nx, n, np, nch,
                          (cudaStream_t)stream);
 }
 
@@ -1247,53 +1284,64 @@ extern "C" int fs_chunk_fill(const int* cell_start, const int* chunk_start,
   return (int)cudaGetLastError();
 }
 
-extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
-                             const int* flat, float* out, int n, long long np,
-                             void* stream) {
+// The gathers of K2, K2 moments and K7a: fields (4, nx, n, n), or the table
+// (27, 4, nx, n, n); count as in dead_row (nullptr: every row).
+template <bool kMom, class Src>
+int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
+                float* out, int nx, int n, long long np, void* stream) {
   if (np == 0) return 0;
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
-  g2p_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      NeighbourFields{fm}, w27t, flat, out, n, np);
+  const long long ncell = (long long)nx * n * n;
+  if (count != nullptr)
+    g2p_rows_kernel<kMom, true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        src, w27t, flat, count, out, n, ncell, np);
+  else
+    g2p_rows_kernel<kMom, false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        src, w27t, flat, count, out, n, ncell, np);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
+                             const int* flat, const int* count, float* out,
+                             int nx, int n, long long np, void* stream) {
+  return launch_rows<false>(NeighbourFields{fm, nx}, w27t, flat, count, out,
+                            nx, n, np, stream);
 }
 
 extern "C" int fs_g2p_moments(const float* fm, const float* w27t,
-                              const int* flat, float* out, int n,
-                              long long np, void* stream) {
-  if (np == 0) return 0;
-  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
-  g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      NeighbourFields{fm}, w27t, flat, out, n, np);
-  return (int)cudaGetLastError();
+                              const int* flat, const int* count, float* out,
+                              int nx, int n, long long np, void* stream) {
+  return launch_rows<true>(NeighbourFields{fm, nx}, w27t, flat, count, out,
+                           nx, n, np, stream);
 }
 
 extern "C" int fs_g2p_gather_table(const float* table, const float* w27t,
-                                   const int* flat, float* out, int n,
-                                   long long np, void* stream) {
-  if (np == 0) return 0;
-  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
-  g2p_gather_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      TableColumn{table}, w27t, flat, out, n, np);
-  return (int)cudaGetLastError();
+                                   const int* flat, const int* count,
+                                   float* out, int nx, int n, long long np,
+                                   void* stream) {
+  return launch_rows<false>(TableColumn{table}, w27t, flat, count, out, nx, n,
+                            np, stream);
 }
 
 extern "C" int fs_g2p_moments_table(const float* table, const float* w27t,
-                                    const int* flat, float* out, int n,
-                                    long long np, void* stream) {
-  if (np == 0) return 0;
-  const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
-  g2p_moments_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      TableColumn{table}, w27t, flat, out, n, np);
-  return (int)cudaGetLastError();
+                                    const int* flat, const int* count,
+                                    float* out, int nx, int n, long long np,
+                                    void* stream) {
+  return launch_rows<true>(TableColumn{table}, w27t, flat, count, out, nx, n,
+                           np, stream);
 }
 
 extern "C" int fs_g2p_gather_gw(const float* fm, const float* gradw,
-                                const int* flat, float* out, int n,
-                                long long np, void* stream) {
+                                const int* flat, const int* count, float* out,
+                                int nx, int n, long long np, void* stream) {
   if (np == 0) return 0;
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
-  g2p_gather_gw_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      fm, gradw, flat, out, n, np);
+  if (count != nullptr)
+    g2p_gather_gw_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        fm, gradw, flat, count, out, nx, n, np);
+  else
+    g2p_gather_gw_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        fm, gradw, flat, count, out, nx, n, np);
   return (int)cudaGetLastError();
 }
 

@@ -33,20 +33,28 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as void*, sizes as int64)
-    "fs_p2g_scatter": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+    # the K1 modes, the K2 gathers and K3/K4 take the grid's x extent nx
+    # before n: an (nx, n, n) slab, or the cube with nx = n
+    "fs_p2g_scatter": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int, _P),
     "fs_p2g_scatter_affine": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_int, _P),
+                              ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                              _P),
     "fs_p2g_scatter_force": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                             ctypes.c_longlong, ctypes.c_int, _P),
-    "fs_chunk_fill": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P),
-    "fs_g2p_gather": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
-    "fs_g2p_moments": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
-    "fs_g2p_gather_gw": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P),
-    "fs_g2p_gather_table": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
-                            _P),
-    "fs_g2p_moments_table": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                              _P),
+    "fs_chunk_fill": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P),
+    # the gathers: src, weights, ids, live count (or None), out, nx, n, P
+    "fs_g2p_gather": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_longlong, _P),
+    "fs_g2p_moments": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, _P),
+    "fs_g2p_gather_gw": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_longlong, _P),
+    "fs_g2p_gather_table": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, _P),
+    "fs_g2p_moments_table": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_longlong, _P),
     "fs_p2g_scatter_base": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                             ctypes.c_longlong, _P),
     "fs_p2g_scatter_spans": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
@@ -66,9 +74,10 @@ _SIGNATURES = {
     "fs_bucket_move": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, _P),
-    "fs_apply_laplacian": (_P, _P, _P, ctypes.c_float, ctypes.c_int, _P),
+    "fs_apply_laplacian": (_P, _P, _P, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_int, _P),
     "fs_cheb_step": (_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
-                     ctypes.c_float, ctypes.c_int, _P),
+                     ctypes.c_float, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -5,6 +5,14 @@ The JAX solver runs in a ``lax.while_loop``; here the loop runs on the host
 with the same predicate, ``(rr > tol2) & (k < maxiter)``, tested before every
 iteration, so the iteration count matches.  Testing it reads one scalar
 back from the device per iteration.
+
+``reduce_fn`` makes the solve distributed, as the JAX ``reduce_fn`` does
+under ``shard_map``: every dot product is the reduction of the local sums
+(an all-reduce over the slab ranks, ``parallel/``), and the two of an
+iteration go through one reduction as a stacked pair.  The loop's test
+reads the reduced ``rr``, the same value on every rank, so all ranks leave
+the loop together; a rank that tested its own sums could leave while
+another waits in the next iteration's collective.
 """
 
 from __future__ import annotations
@@ -32,30 +40,40 @@ def _safe_ratio(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
         precond: Callable | None = None, rtol: float = 1e-5,
-        maxiter: int = 200) -> PCGResult:
+        maxiter: int = 200, reduce_fn: Callable | None = None) -> PCGResult:
     """Solve ``A x = b`` with preconditioned CG (``b`` already masked to the
-    operator's range)."""
+    operator's range).  ``reduce_fn`` maps a tensor of local f32 sums to
+    the global ones (None: the sums are global; with it, the local sums are
+    taken as without it and then reduced)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if precond is None:
         precond = lambda r: r
+    if reduce_fn is None:
+        dot, dot2 = _dot, lambda a1, c1, a2, c2: (_dot(a1, c1), _dot(a2, c2))
+    else:
+        dot = lambda a, c: reduce_fn(_dot(a, c))
 
-    bnorm2 = _dot(b, b)
+        def dot2(a1, c1, a2, c2):
+            s = reduce_fn(torch.stack([_dot(a1, c1), _dot(a2, c2)]))
+            return s[0], s[1]
+
+    bnorm2 = dot(b, b)
     tol2 = rtol * rtol * bnorm2
 
     x = x0
     r = b - apply_a(x0)
     z = precond(r)
     p = z
-    rz, rr = _dot(r, z), _dot(r, r)
+    rz, rr = dot2(r, z, r, r)
     k = 0
     while k < maxiter and bool(rr > tol2):
         ap = apply_a(p)
-        alpha = _safe_ratio(rz, _dot(p, ap))
+        alpha = _safe_ratio(rz, dot(p, ap))
         x = x + alpha * p
         r = r - alpha * ap
         z = precond(r)
-        rz_new, rr = _dot(r, z), _dot(r, r)
+        rz_new, rr = dot2(r, z, r, r)
         beta = _safe_ratio(rz_new, rz)
         p = z + beta * p
         rz = rz_new

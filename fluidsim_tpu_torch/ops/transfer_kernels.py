@@ -24,9 +24,21 @@ by cell.
 
 Particles are sorted by the plain flat id ``(x*n + y)*n + z`` of their
 clipped base cell; ``cell_start`` (n^3 + 1 offsets into the sorted arrays)
-gives each cell's particle range.  The (27, P) stencil weights are computed
-once per frame and shared by both directions.  The TPU path's window layout
-(haloed ids, packed columns, one-hot matmuls) is not needed here.
+gives each cell's particle range.
+
+The grid of K1 (every mode), K2, K2 gw and K2 moments may also be an
+(nx, n, n) slab of the box, as a shard of ``parallel/`` holds: ids are
+``(x*n + y)*n + z`` with x in [0, nx), K1's x extent is that of its
+``cell_start`` (nx n^2 + 1 offsets) and K2's that of its fields.  Cells
+outside the slab read 0 and take nothing, as cells outside the box do.  A
+slab's particles may end with dead slots, whose id nx n^2 sorts them last:
+``cell_start[nx n^2]`` is then the live count, K1 never reaches the dead
+slots, and the gathers take that count as ``count`` (a (1,) device tensor,
+e.g. ``cell_start[-1:]``) and write zeros for the rows past it.
+
+The (27, P) stencil weights are computed once per frame and shared by both
+directions.  The TPU path's window layout (haloed ids, packed columns,
+one-hot matmuls) is not needed here.
 
 The three K1 modes run one chunked pull: ``chunk_plan`` cuts the cells'
 particle ranges into chunks once per frame (``chunk_fill`` writes its
@@ -102,10 +114,24 @@ def sort_by_cell(pos: torch.Tensor, vel: torch.Tensor, bound: int,
     return pos[perm], vel[perm], flat_s, extra[perm]
 
 
-def cell_starts(flat_s: torch.Tensor, n: int) -> torch.Tensor:
-    """(n^3 + 1,) int32: first sorted index of every cell id, plus P."""
-    ids = torch.arange(n ** 3 + 1, dtype=torch.int32, device=flat_s.device)
+def cell_starts(flat_s: torch.Tensor, n: int,
+                nx: int | None = None) -> torch.Tensor:
+    """(nx n^2 + 1,) int32: first sorted index of every cell id of the
+    (nx, n, n) grid (``nx`` defaults to n, the cube), plus the number of
+    particles whose id is below nx n^2 (P when none is dead)."""
+    ncells = (n if nx is None else nx) * n * n
+    ids = torch.arange(ncells + 1, dtype=torch.int32, device=flat_s.device)
     return torch.searchsorted(flat_s, ids, out_int32=True)
+
+
+def slab_rows(cell_start: torch.Tensor, n: int) -> int:
+    """The x extent nx of the (nx, n, n) grid that ``cell_start`` (nx n^2 + 1
+    offsets) ranges."""
+    ncells = cell_start.shape[0] - 1
+    if cell_start.dim() != 1 or ncells <= 0 or ncells % (n * n):
+        raise ValueError(f"cell_start of shape {tuple(cell_start.shape)} does "
+                         f"not range an (nx, {n}, {n}) grid")
+    return ncells // (n * n)
 
 
 def window_starts(flat_s: torch.Tensor, n: int) -> torch.Tensor:
@@ -168,25 +194,30 @@ def _wv_values(w27t: torch.Tensor, vel_s: torch.Tensor,
 
 
 def _base_cell_sums(u: torch.Tensor, flat_s: torch.Tensor,
-                    n: int) -> torch.Tensor:
+                    n: int, nx: int | None = None) -> torch.Tensor:
     """One ``index_add_`` of the (P, 27, C) values onto the particles' base
-    cells: a (27, C, n, n, n) view, each cell's sum taken over its particles
-    in array order on the CPU."""
+    cells of the (nx, n, n) grid (nx defaults to n): a (27, C, nx, n, n)
+    view, each cell's sum taken over its particles in array order on the
+    CPU."""
     p, _, c = u.shape
-    d = torch.zeros((n ** 3, 27 * c), dtype=u.dtype, device=u.device)
+    nx = n if nx is None else nx
+    d = torch.zeros((nx * n * n, 27 * c), dtype=u.dtype, device=u.device)
     d.index_add_(0, flat_s.to(torch.int64), u.reshape(p, 27 * c))
-    return d.T.reshape(27, c, n, n, n)
+    return d.T.reshape(27, c, nx, n, n)
 
 
 def _scatter27_plain(u: torch.Tensor, cell_start: torch.Tensor,
                      n: int) -> torch.Tensor:
     """The plain schedule of the K1 modes (``transfer_fast.p2g_fused``):
     the base-cell sums of the (P, 27, C) values (``_base_cell_sums``), then
-    the 27 shifted adds (``shift_reduce_plain``).  Returns (C, n, n, n)."""
+    the 27 shifted adds (``shift_reduce_plain``), on the (nx, n, n) grid
+    that ``cell_start`` ranges; the particles past ``cell_start[-1]`` (dead
+    slots) take no part.  Returns (C, nx, n, n)."""
+    nx = slab_rows(cell_start, n)
     counts = (cell_start[1:] - cell_start[:-1]).to(torch.int64)
     flat = torch.repeat_interleave(
-        torch.arange(n ** 3, device=u.device), counts)
-    return shift_reduce_plain(_base_cell_sums(u, flat, n))
+        torch.arange(nx * n * n, device=u.device), counts)
+    return shift_reduce_plain(_base_cell_sums(u[:flat.shape[0]], flat, n, nx))
 
 
 # ---- the chunk plan and the chunked pull of every K1 mode -----------------
@@ -204,7 +235,7 @@ class ChunkPlan(NamedTuple):
     (n^3 + 1,) int32 is each cell's first chunk, its last entry the number
     of chunks ``nch``; ``chunk_first`` and ``chunk_cell`` (nch + 1,) int32
     are each chunk's first particle and its cell, with P and n^3 in their
-    last entry."""
+    last entry (on a slab with dead slots: the live count and nx n^2)."""
     cell_start: torch.Tensor
     chunk_start: torch.Tensor
     chunk_first: torch.Tensor
@@ -215,19 +246,24 @@ def chunk_fill_plain(cell_start: torch.Tensor, chunk_start: torch.Tensor,
                      p: int):
     """Plain PyTorch chunk lists of a plan: ``(chunk_first, chunk_cell)``,
     (p + 1,) int32 each, entries ``0..nch`` as ``ChunkPlan`` holds them and
-    the rest (P, n^3)."""
+    the rest (P, n^3).  Particles past ``cell_start[-1]`` (dead slots) are
+    in no chunk: the closing entry ``chunk_first[nch]`` is
+    ``cell_start[-1]``."""
     dev = cell_start.device
     i32 = dict(dtype=torch.int32, device=dev)
     ncell = cell_start.shape[0] - 1
     idx = torch.arange(p, **i32)
     cell = torch.searchsorted(cell_start, idx, right=True, out_int32=True) - 1
+    cell = torch.clamp(cell, max=ncell - 1)
     r = idx - cell_start[cell]
-    head = r % CHUNK == 0
+    head = (r % CHUNK == 0) & (idx < cell_start[ncell])
     slot = torch.where(head, chunk_start[cell] + r // CHUNK, p).to(torch.int64)
     chunk_first = torch.full((p + 1,), p, **i32)
     chunk_first.scatter_(0, slot, torch.where(head, idx, p))
     chunk_cell = torch.full((p + 1,), ncell, **i32)
     chunk_cell.scatter_(0, slot, torch.where(head, cell, ncell))
+    # the closing entry: one past the last live particle
+    chunk_first[chunk_start[-1:].to(torch.int64)] = cell_start[-1:]
     return chunk_first, chunk_cell
 
 
@@ -297,7 +333,8 @@ def _scatter27_chunked(u: torch.Tensor, plan: ChunkPlan,
     the sum of its chunks' in chunk order, then the 27 shifted adds of the
     records in offset order (``shift_reduce_plain``).  It differs from
     ``_scatter27_plain`` only in the order of the sums.  Reads the longest
-    chunk and chunk run on the host.  Returns (C, n, n, n)."""
+    chunk and chunk run on the host.  Returns (C, nx, n, n) for the grid
+    that the plan's ``cell_start`` ranges."""
     p, _, c = u.shape
     w = 27 * c
     u = torch.cat([u.reshape(p, w), u.new_zeros((1, w))])    # row p: zeros
@@ -310,10 +347,11 @@ def _scatter27_chunked(u: torch.Tensor, plan: ChunkPlan,
     sums = torch.cat([sums, u.new_zeros((1, w))])            # row nch: zeros
     start = plan.chunk_start.to(torch.int64)
     count = start[1:] - start[:-1]
-    rec = u.new_zeros((n ** 3, w))
+    nx = slab_rows(plan.chunk_start, n)
+    rec = u.new_zeros((nx * n * n, w))
     for j in range(int(count.max()) if nch else 0):
         rec = rec + sums[torch.where(j < count, start[:-1] + j, nch)]
-    return shift_reduce_plain(rec.T.reshape(27, c, n, n, n))
+    return shift_reduce_plain(rec.T.reshape(27, c, nx, n, n))
 
 
 def _launch_chunked(name: str, entry: str, values: tuple, nc: int,
@@ -324,10 +362,14 @@ def _launch_chunked(name: str, entry: str, values: tuple, nc: int,
     (nch, 27 nc) scratch.  A plan given is checked and refused when built
     from another tensor than ``cell_start``; with None one is built here,
     after everything else the launch needs, so that only the scratch and
-    the launch follow its host read.  Returns (nc, n, n, n)."""
+    the launch follow its host read.  The grid is the (nx, n, n) one that
+    ``cell_start`` ranges.  Returns (nc, nx, n, n)."""
     dev = cell_start.device
-    native.check_tensor("cell_start", cell_start, torch.int32, (n ** 3 + 1,), dev)
-    if p >= 2 ** 31 or n ** 3 >= 2 ** 31:
+    nx = slab_rows(cell_start, n)
+    ncells = nx * n * n
+    native.check_tensor("cell_start", cell_start, torch.int32, (ncells + 1,),
+                        dev)
+    if p >= 2 ** 31 or ncells >= 2 ** 31:
         raise ValueError(f"{name}: more than 2^31 - 1 particles or cells")
     if plan is not None:
         if (plan.cell_start.data_ptr() != cell_start.data_ptr()
@@ -336,11 +378,11 @@ def _launch_chunked(name: str, entry: str, values: tuple, nc: int,
                              "cell_start")
         nch = plan.chunk_first.shape[0] - 1
         native.check_tensor("plan.chunk_start", plan.chunk_start,
-                            torch.int32, (n ** 3 + 1,), dev)
+                            torch.int32, (ncells + 1,), dev)
         for field in ("chunk_first", "chunk_cell"):
             native.check_tensor(f"plan.{field}", getattr(plan, field),
                                 torch.int32, (nch + 1,), dev)
-    out = torch.empty((nc, n, n, n), dtype=torch.float32, device=dev)
+    out = torch.empty((nc, nx, n, n), dtype=torch.float32, device=dev)
     launch = getattr(native.library(), entry)
     args = [t.data_ptr() for t in values]
     with torch.cuda.device(dev):
@@ -351,7 +393,7 @@ def _launch_chunked(name: str, entry: str, values: tuple, nc: int,
         sums = torch.empty((nch, 27 * nc), dtype=torch.float32, device=dev)
         rc = launch(*args, plan.chunk_first.data_ptr(),
                     plan.chunk_cell.data_ptr(), plan.chunk_start.data_ptr(),
-                    sums.data_ptr(), out.data_ptr(), n, p, nch, stream)
+                    sums.data_ptr(), out.data_ptr(), nx, n, p, nch, stream)
     native.check_launch(name, rc)
     return out
 
@@ -377,7 +419,8 @@ def p2g_scatter(w27t: torch.Tensor, vel_s: torch.Tensor,
                 plan: ChunkPlan | None = None) -> torch.Tensor:
     """K1: ``out[g, c] = sum_o sum_{p: base(p) = c - off_o} w27t[o, p] *
     [1, v_p][g]`` over sorted particles, dropping contributions outside the
-    box.  ``plan``: the ``chunk_plan`` of ``cell_start``, built here when
+    box (or the (nx, n, n) slab that ``cell_start`` ranges; (4, nx, n, n)
+    then).  ``plan``: the ``chunk_plan`` of ``cell_start``, built here when
     not given.  (4, n, n, n) f32.  CUDA tensors launch ``fs_p2g_scatter``
     (``csrc/transfer.cu``: the chunk sums and the cells' records, then the
     pull), equal to ``p2g_scatter_chunked`` bit for bit; CPU tensors take
@@ -444,17 +487,29 @@ p2g_scatter_affine.launches = 0
 
 # ---- K2 and K7a: G2P gathers, fused and from the table ---------------------
 
-def _neighbour_fields(fm: torch.Tensor, flat_s: torch.Tensor):
+def _live(flat_s: torch.Tensor, count: torch.Tensor | None):
+    """(P,) bool: the rows a gather reads, the first ``count[0]`` (all when
+    ``count`` is None)."""
+    if count is None:
+        return torch.ones(flat_s.shape, dtype=torch.bool, device=flat_s.device)
+    return torch.arange(flat_s.shape[0], device=flat_s.device) < count[0]
+
+
+def _neighbour_fields(fm: torch.Tensor, flat_s: torch.Tensor,
+                      count: torch.Tensor | None = None):
     """Yield ``(o, vals)`` for the 27 offsets in order: the (C, P) values of
-    the (C, n, n, n) ``fm`` at ``base(p) + off_o``, 0 where that cell is
-    outside the box."""
-    n = fm.shape[1]
+    the (C, nx, n, n) ``fm`` at ``base(p) + off_o``, 0 where that cell is
+    outside the grid or the row is past ``count``."""
+    nx, n = fm.shape[1], fm.shape[-1]
     bc = torch.stack([flat_s // (n * n), (flat_s // n) % n, flat_s % n], -1)
+    ext = torch.as_tensor((nx, n, n), device=fm.device)
+    live = _live(flat_s, count)
     fm_flat = fm.reshape(fm.shape[0], -1)
     for o in range(27):
         cell = bc + torch.as_tensor(_OFFSETS[o], device=fm.device)
-        inb = torch.all((cell >= 0) & (cell < n), dim=-1)
-        ids = ((cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]).clamp(0, n ** 3 - 1)
+        inb = torch.all((cell >= 0) & (cell < ext), dim=-1) & live
+        ids = ((cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]).clamp(
+            0, nx * n * n - 1)
         yield o, torch.where(inb[None], fm_flat[:, ids], 0.0)
 
 
@@ -477,9 +532,10 @@ def _gather_sums(neighbours, w27t: torch.Tensor) -> torch.Tensor:
 
 
 def g2p_gather_plain(fm: torch.Tensor, w27t: torch.Tensor,
-                     flat_s: torch.Tensor) -> torch.Tensor:
+                     flat_s: torch.Tensor,
+                     count: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch K2: 27 masked gathers of the 4 channels.  (4, P)."""
-    return _gather_sums(_neighbour_fields(fm, flat_s), w27t)
+    return _gather_sums(_neighbour_fields(fm, flat_s, count), w27t)
 
 
 def g2p_gather_table_plain(table: torch.Tensor, w27t: torch.Tensor,
@@ -489,40 +545,50 @@ def g2p_gather_table_plain(table: torch.Tensor, w27t: torch.Tensor,
     return _gather_sums(_table_columns(table, flat_s), w27t)
 
 
+def _check_count(count: torch.Tensor | None, dev):
+    if count is not None:
+        native.check_tensor("count", count, torch.int32, (1,), dev)
+
+
 def _launch_gather(name: str, entry: str, src: torch.Tensor, lead: tuple,
                    w27t: torch.Tensor, flat_s: torch.Tensor,
-                   rows: int) -> torch.Tensor:
+                   rows: int, count: torch.Tensor | None = None) -> torch.Tensor:
     """Launch a gather of ``csrc/transfer.cu`` that reads ``src`` of shape
-    ``lead + (4, n, n, n)`` (the fields, or with ``lead = (27,)`` the
+    ``lead + (4, nx, n, n)`` (the fields, or with ``lead = (27,)`` the
     table), (27, P) weights and (P,) sorted ids, and writes ``rows`` rows
-    of P."""
+    of P (zeros past ``count[0]`` when ``count`` is given)."""
     native.require_cuda(src, name)
     dev = src.device
-    n = src.shape[-1]
+    nx, n = src.shape[-3], src.shape[-1]
     p = flat_s.shape[0]
-    native.check_tensor("src", src, torch.float32, lead + (4, n, n, n), dev)
+    native.check_tensor("src", src, torch.float32, lead + (4, nx, n, n), dev)
     native.check_tensor("w27t", w27t, torch.float32, (27, p), dev)
     native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    _check_count(count, dev)
     out = torch.empty((rows, p), dtype=torch.float32, device=dev)
     lib = native.library()
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(src.data_ptr(), w27t.data_ptr(),
-                                 flat_s.data_ptr(), out.data_ptr(), n, p,
+                                 flat_s.data_ptr(),
+                                 None if count is None else count.data_ptr(),
+                                 out.data_ptr(), nx, n, p,
                                  native.stream_ptr(dev))
     native.check_launch(name, rc)
     return out
 
 
-def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor,
-               flat_s: torch.Tensor) -> torch.Tensor:
+def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor, flat_s: torch.Tensor,
+               count: torch.Tensor | None = None) -> torch.Tensor:
     """K2: ``out[c, p] = sum_o w27t[o, p] * fm[c, base(p) + off_o]`` with
-    neighbours outside the box reading 0; ``fm`` is (4, n, n, n).  (4, P)
-    f32.  CUDA tensors launch ``fs_g2p_gather`` (``csrc/transfer.cu``); CPU
-    tensors take ``g2p_gather_plain``."""
+    neighbours outside the grid reading 0; ``fm`` is (4, n, n, n), or
+    (4, nx, n, n) on a slab.  ``count`` (a (1,) int32 tensor on the same
+    device, read there): only the first ``count[0]`` rows are gathered, the
+    rest are 0.  (4, P) f32.  CUDA tensors launch ``fs_g2p_gather``
+    (``csrc/transfer.cu``); CPU tensors take ``g2p_gather_plain``."""
     if fm.device.type == "cpu":
-        return g2p_gather_plain(fm, w27t, flat_s)
+        return g2p_gather_plain(fm, w27t, flat_s, count)
     out = _launch_gather("g2p_gather", "fs_g2p_gather", fm, (), w27t,
-                         flat_s, 4)
+                         flat_s, 4, count)
     g2p_gather.launches += 1
     return out
 
@@ -684,42 +750,65 @@ p2g_scatter_force.launches = 0
 # ---- K2 gw: MPM gradW gather -----------------------------------------------
 
 def g2p_gather_gw_plain(fm: torch.Tensor, gradw: torch.Tensor,
-                        flat_s: torch.Tensor) -> torch.Tensor:
+                        flat_s: torch.Tensor,
+                        count: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch K2 gw: the (P, 27, 3) neighbour values of ``fm``
     (27 masked gathers through ``_neighbour_fields``) contracted with
     gradW over the offsets (``outer_sum27``).  Returns (9, P), row
     ``3c + k``."""
-    vals = torch.stack([v.T for _, v in _neighbour_fields(fm, flat_s)],
+    vals = torch.stack([v.T for _, v in _neighbour_fields(fm, flat_s, count)],
                        dim=1)                                  # (P, 27, 3)
     g = outer_sum27(vals, _gradw_p27(gradw))                   # (P, 3, 3)
     return g.reshape(-1, 9).T.contiguous()
 
 
+def g2p_gather_gw_ordered(fm: torch.Tensor, gradw: torch.Tensor,
+                          flat_s: torch.Tensor,
+                          count: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 gw in the order of its CUDA kernel, which equals it bit for bit:
+    each of the 9 rows a sequential f32 sum over the 27 offsets in order
+    from +0 (a neighbour outside the grid, or a row past ``count``, adds
+    0).  (9, P)."""
+    out = [torch.zeros(flat_s.shape, dtype=fm.dtype, device=fm.device)
+           for _ in range(9)]
+    for o, vals in _neighbour_fields(fm, flat_s, count):
+        g = gradw[3 * o:3 * o + 3]
+        for c in range(3):
+            for k in range(3):
+                out[3 * c + k] = out[3 * c + k] + vals[c] * g[k]
+    return torch.stack(out)
+
+
 def g2p_gather_gw(fm: torch.Tensor, gradw: torch.Tensor,
-                  flat_s: torch.Tensor) -> torch.Tensor:
+                  flat_s: torch.Tensor,
+                  count: torch.Tensor | None = None) -> torch.Tensor:
     """K2 gw: ``out[3c + k, p] = sum_o gradW_k(p, o) * fm[c, base(p) +
     off_o]`` for c, k < 3, neighbours outside the box reading 0; ``fm`` is
     (3, n, n, n), ``gradw`` (81, P) with row ``3o + k``.  These are the 9
     live rows of the TPU kernel's ``contract='gw'`` output (its rows
     ``4k + c``; its rows ``4k + 3`` contract the mask channel, which every
     caller drops).  ``out.reshape(3, 3, P).permute(2, 0, 1)`` is the
-    (P, 3, 3) ``g[p, c, k]``.  (9, P) f32.  CUDA tensors launch
+    (P, 3, 3) ``g[p, c, k]``.  ``fm`` may be (3, nx, n, n) and ``count``
+    limits the rows as in ``g2p_gather``.  (9, P) f32.  CUDA tensors launch
     ``fs_g2p_gather_gw`` (``csrc/transfer.cu``); CPU tensors take
     ``g2p_gather_gw_plain``."""
     if fm.device.type == "cpu":
-        return g2p_gather_gw_plain(fm, gradw, flat_s)
+        return g2p_gather_gw_plain(fm, gradw, flat_s, count)
     native.require_cuda(fm, "g2p_gather_gw")
     dev = fm.device
-    n = fm.shape[1]
+    nx, n = fm.shape[1], fm.shape[-1]
     p = flat_s.shape[0]
-    native.check_tensor("fm", fm, torch.float32, (3, n, n, n), dev)
+    native.check_tensor("fm", fm, torch.float32, (3, nx, n, n), dev)
     native.check_tensor("gradw", gradw, torch.float32, (81, p), dev)
     native.check_tensor("flat_s", flat_s, torch.int32, (p,), dev)
+    _check_count(count, dev)
     out = torch.empty((9, p), dtype=torch.float32, device=dev)
     lib = native.library()
     with torch.cuda.device(dev):
         rc = lib.fs_g2p_gather_gw(fm.data_ptr(), gradw.data_ptr(),
-                                  flat_s.data_ptr(), out.data_ptr(), n, p,
+                                  flat_s.data_ptr(),
+                                  None if count is None else count.data_ptr(),
+                                  out.data_ptr(), nx, n, p,
                                   native.stream_ptr(dev))
     native.check_launch("g2p_gather_gw", rc)
     g2p_gather_gw.launches += 1
@@ -817,7 +906,7 @@ p2g_scatter_base.launches = 0
 
 def shift_reduce_plain(d: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K6b: ``acc = sum_o shift(d[o], off_o)``, 27 shifted
-    adds in offset order from zero.  (27, C, n, n, n) -> (C, n, n, n)."""
+    adds in offset order from zero.  (27, C, nx, n, n) -> (C, nx, n, n)."""
     acc = torch.zeros(d.shape[1:], dtype=d.dtype, device=d.device)
     for o in range(27):
         acc = acc + _shift3(d[o], _OFFSETS[o])

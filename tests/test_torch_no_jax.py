@@ -7,7 +7,8 @@ FLIP frame, the row-layout transfers of ``utils/transfer_parts.py``, and
 the synthetic K5, K1 and K8b inputs of ``utils/synthetic.py`` with the K1
 chunk plan, the order of the three K1 modes and K8b's tile plan, and a
 ``config.make_sim`` run (multigrid, compat seeding) with ``extrapolate``
-and a Jacobi-preconditioned MPM frame."""
+and a Jacobi-preconditioned MPM frame, and a sharded FLIP and MPM frame
+on a one-rank gloo group."""
 
 import subprocess
 import sys
@@ -98,6 +99,23 @@ elif sys.argv[1] == "config":
     mm = MpmSim("mpm_cone", density=10.0, device="cpu",
                 params=MpmParams(precond="jacobi")).step()
     assert mm["cg_iters"] >= 1
+elif sys.argv[1] == "sharded":
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
+    from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            f = ShardedFlipSim("water_cube_drop", bound=6, density=2.0,
+                               device="cpu").step()
+            m = ShardedMpmSim("mpm_cone", density=10.0, device="cpu").step()
+        finally:
+            dist.destroy_process_group()
+    assert int(f["lost"]) == 0 == int(m["lost"]) and m["cg_iters"] >= 1
 elif sys.argv[1] == "cli":
     import os
     import tempfile
@@ -130,7 +148,7 @@ print("ke", float(m["kinetic_energy"]))
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
                                   "flip-table", "rows", "synthetic",
-                                  "config", "cli"])
+                                  "config", "cli", "sharded"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
