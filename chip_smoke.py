@@ -9,7 +9,9 @@ GPU and check them.
                             # mpm_cone at 127^3 (473,798 particles)
 
 and the run-time layer: the command line with export, checkpoints,
-resume, metrics, the particle surface and a trace, and ``steps(k)``.
+resume, metrics, the particle surface and a trace, and ``steps(k)``;
+and the tools suite: ray tracing, the ``raytrace`` and ``view`` commands,
+the grid operators, the level-set tools and meshes.
 
 Phases, each of which raises on failure (nonzero exit):
 
@@ -184,6 +186,25 @@ group of this process alone (NCCL, a ``file://`` store, destroyed after):
 34. card against CPU: the sharded FLIP at bound 8 and the sharded MPM at
    bound 15 (density 40), world size 1, 3 frames on the card against 3 on
    the CPU (a gloo group of the same process), as phases 9 and 13.
+
+Phase 35, run after phase 34 and before phase 30: the tools suite (no
+kernel of its own: plain PyTorch on the card) on the level set of phase
+4's final FLIP state at 129^3 (``particles_to_levelset`` of its 1,987,675
+particles): ``raytrace_levelset`` at the CLI's 512x512, in perspective and
+orthographic with 4 samples, against the same call on the CPU under the
+image rule of ``tests/test_torch_raytrace.py``; ``redistance`` (20
+iterations, within 1e-4 of the field's scale), ``filter_median``,
+``signed_flood_fill``, ``dilate``/``erode``, ``histogram`` and
+``partition_by_cell`` of the positions bit for bit the CPU's, ``stats``,
+``volume_to_mesh`` (equal counts, the quads bit for bit) and
+``fill_with_spheres`` of the redistanced field; ``mesh_to_sdf`` of a
+512-triangle ``icosphere`` and ``platonic_sdf`` (icosahedron) against the
+CPU at bound 16 and timed at 129^3; the level set written as a ``.vdb``
+and ``cli raytrace`` / ``cli view --orbit 4`` run on it with the default
+device, each PNG bit for bit the direct call's.  Each tool's median
+host-clock ms of 3 synchronised calls is printed on a ``tool`` line, with
+the PyTorch operators that the tracer, the flood fill and
+``mesh_to_sdf`` dispatch per call.
 
 The line before the last is a JSON object with one entry per kernel (and
 one per slab shape of phase 31, ``<kernel>_slab<rows>``, with the
@@ -2173,6 +2194,257 @@ def _sharded_phases(dev, counted, torch, np, flip_ms, mpm_ms):
     return results, {"sharded_flip": flip, "sharded_mpm": mpm}
 
 
+# ---- phase 35: the tools suite at the main path's width (before phase 30) -
+
+TOOL_RUNS = 3          # host-clock runs per tool, after one warm-up
+TOOL_MESH_BOUND = 16   # mesh_to_sdf's card-against-CPU size (129^3 is timed)
+IMG_TOL = 1e-3         # the image rule of tests/test_torch_raytrace.py
+DEPTH_TOL = 0.02
+
+
+def _host_ms(fn, torch):
+    """Median host-clock ms of a synchronised ``fn()`` over ``TOOL_RUNS``
+    runs after a warm-up, and its last result."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TOOL_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), out
+
+
+def _aten_ops(fn):
+    """The PyTorch operators one call of ``fn`` dispatches (each one or a
+    few kernel launches on the card), counted by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _same_image(name, got, want, np):
+    """The card's (img, hit, depth) against the CPU's under the image rule
+    of ``tests/test_torch_raytrace.py``: at most 0.5% of the pixels (at
+    least 2) differ in hit or by more than ``IMG_TOL`` in colour; depths
+    of the other rays that both hit within ``DEPTH_TOL``."""
+    img, hit, depth = (x.cpu().numpy() for x in got)
+    cimg, chit, cdepth = (x.numpy() for x in want)
+    bad = (hit != chit) | (np.abs(img - cimg).max(axis=-1) > IMG_TOL)
+    flips = max(2, hit.size // 200)
+    both = hit & chit & ~bad
+    derr = float(np.abs(depth[both] - cdepth[both]).max()) if both.any() else 0
+    print(f"{name}: card vs CPU {int(bad.sum())} of {hit.size} pixels apart "
+          f"(<= {flips}), max depth diff {derr:.3e} (<= {DEPTH_TOL}), "
+          f"coverage {hit.mean():.1%}")
+    if bad.sum() > flips or derr > DEPTH_TOL:
+        raise AssertionError(f"{name}: card and CPU images differ")
+
+
+def _require_close(name, got, want, tol, torch):
+    """``got`` (card) within ``tol`` times ``want``'s (CPU) scale, or bit
+    for bit with ``tol`` 0."""
+    got = got.cpu()
+    if tol == 0:
+        _require_same_bits(name, got, want, torch)
+        print(f"{name}: card equals the CPU bit for bit")
+        return
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.double() - want.double()).abs().max())
+    print(f"{name}: max |card - CPU| {err:.3e} (<= {tol * scale:.3e})")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: card differs from the CPU by {err}")
+
+
+def _tools_phase(dev, torch, np, flip_pos):
+    """Phase 35: the tools on phase 4's final FLIP state at 129^3, each
+    against the CPU and timed on the card; the ``raytrace`` and ``view``
+    commands on its ``.vdb``."""
+    import tempfile
+
+    from fluidsim_tpu_torch import cli
+    from fluidsim_tpu_torch.io.render import write_image
+    from fluidsim_tpu_torch.io.vdb import VdbGrid, read_vdb, write_vdb
+    from fluidsim_tpu_torch.ops import (composite, levelset_tools, mesh,
+                                        morphology, partition, platonic,
+                                        statistics as st, volume_to_mesh,
+                                        volume_to_spheres)
+    from fluidsim_tpu_torch.ops.levelset import particles_to_levelset
+    from fluidsim_tpu_torch.ops.raytrace import raytrace_levelset
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    b = BOUND
+    sdf = particles_to_levelset(flip_pos, b)
+    sdf_c, pos_c = sdf.cpu(), flip_pos.cpu()
+    print(f"tools: the level set of phase 4's final state, {flip_pos.shape[0]} "
+          f"particles, {2 * b + 1}^3, {int((sdf_c < 0).sum())} cells inside")
+    ms, ops = {}, {}   # host-clock ms, PyTorch operators a call
+
+    # the sphere tracer at the CLI's 512x512 and default camera
+    eye, look = (0.0, 0.3 * b, -2.2 * b), (0.0, 0.0, 0.0)
+    cams = {"raytrace": dict(width=512, height=512),
+            "raytrace_ortho_ss4": dict(width=512, height=512,
+                                       camera="orthographic", samples=4)}
+    for name, kw in cams.items():
+        ms[name], got = _host_ms(
+            lambda: raytrace_levelset(sdf, b, eye, look, **kw), torch)
+        ops[name] = _aten_ops(
+            lambda: raytrace_levelset(sdf, b, eye, look, **kw))
+        _same_image(name, got, raytrace_levelset(sdf_c, b, eye, look, **kw),
+                    np)
+
+    # the grid tools, each against the same call on the CPU; the flood
+    # fill's input keeps the band |phi| < 0.5 and loses the signs beyond
+    def flood(g):
+        return composite.signed_flood_fill(
+            torch.where(g.abs() < 0.5, g, 0.5), 0.5)
+
+    cases = (
+        ("redistance", lambda g: levelset_tools.redistance(g, 20), 1e-4),
+        ("filter_median", levelset_tools.filter_median, 0),
+        ("signed_flood_fill", flood, 0),
+        ("dilate", lambda g: morphology.dilate(g < 0, 2,
+                                               morphology.NN_FACE_EDGE), 0),
+        ("erode", lambda g: morphology.erode(g < 0, 2, morphology.NN_FACE),
+         0),
+        ("histogram", lambda g: st.histogram(g, 64, -3.0, 3.0), 0))
+    for name, fn, tol in cases:
+        ms[name], got = _host_ms(lambda: fn(sdf), torch)
+        _require_close(name, got, fn(sdf_c), tol, torch)
+    ops["signed_flood_fill"] = _aten_ops(lambda: flood(sdf))
+    ms["stats"], got = _host_ms(lambda: st.stats(sdf), torch)
+    want = st.stats(sdf_c)
+    for key, a, c in zip(want._fields, got, want):
+        # the variance is E[v^2] - mean^2: its noise scales with E[v^2]
+        tol = {"min": 0, "max": 0, "count": 0, "mean": 1e-5}.get(key, 1e-4)
+        _require_close(f"stats.{key}", a.reshape(1).double(),
+                       c.reshape(1).double(), tol, torch)
+    ms["partition_by_cell"], part = _host_ms(
+        lambda: partition.partition_by_cell(flip_pos, b), torch)
+    for key, a, c in zip(part._fields, part,
+                         partition.partition_by_cell(pos_c, b)):
+        _require_close(f"partition_by_cell.{key}", a, c, 0, torch)
+
+    ms["volume_to_mesh"], (verts, quads) = _host_ms(
+        lambda: volume_to_mesh.volume_to_mesh(sdf, bound=b), torch)
+    cverts, cquads = volume_to_mesh.volume_to_mesh(sdf_c, bound=b)
+    if verts.shape != cverts.shape or not np.array_equal(quads, cquads):
+        raise AssertionError("volume_to_mesh: card and CPU meshes differ")
+    verr = float(np.abs(verts - cverts).max())
+    print(f"volume_to_mesh: {len(verts)} vertices, {len(quads)} quads, the "
+          f"quads bit for bit the CPU's, vertices within {verr:.3e} (<= 1e-5)")
+    if verr > 1e-5:
+        raise AssertionError("volume_to_mesh: vertices differ")
+
+    # spheres in the redistanced level set (the particles' union of unit
+    # spheres is at most one cell deep): the card's field on both sides
+    count = 16
+    deep = levelset_tools.redistance(sdf, 20)
+    deep_c = deep.cpu()
+    ms["fill_with_spheres"], (ctr, rad) = _host_ms(
+        lambda: volume_to_spheres.fill_with_spheres(deep, count, b, 0.5),
+        torch)
+    cctr, crad = volume_to_spheres.fill_with_spheres(deep_c, count, b, 0.5)
+    rerr = float((rad.cpu() - crad).abs().max())
+    moved = int(((ctr.cpu() != cctr).any(dim=1) & (crad > 0)).sum())
+    print(f"fill_with_spheres: {int((rad > 0).sum())} of {count} placed, max "
+          f"radius {float(rad.max()):.4g}, radii within {rerr:.3e} (<= 1e-4) "
+          f"of the CPU's, {moved} centres elsewhere (a tie of clearances)")
+    if rerr > 1e-4 or not torch.equal(torch.isnan(ctr.cpu()),
+                                      torch.isnan(cctr)):
+        raise AssertionError("fill_with_spheres: card and CPU differ")
+
+    # meshes -> SDF: card against CPU at a small bound, timed at 129^3
+    v, t = mesh.icosphere((0.0, 0.0, 0.0), 0.6 * b, subdivisions=3)
+    for name, fn in (
+            ("mesh_to_sdf", lambda bb, d: mesh.mesh_to_sdf(
+                v * bb / b, t, bb, device=d)),
+            ("platonic_sdf", lambda bb, d: platonic.platonic_sdf(
+                20, bb, 0.7 * bb, device=d))):
+        got = fn(TOOL_MESH_BOUND, dev).cpu()
+        want = fn(TOOL_MESH_BOUND, cpu)
+        err = float((got.abs() - want.abs()).abs().max())
+        # a sign may differ only on the surface, where |d| is f32 noise
+        flips = int(((torch.sign(got) != torch.sign(want))
+                     & (want.abs() > 1e-4)).sum())
+        print(f"{name} at bound {TOOL_MESH_BOUND}: |d| within {err:.3e} "
+              f"(<= 1e-5) of the CPU's, {flips} signs apart off the surface")
+        if err > 1e-5 or flips > 0:
+            raise AssertionError(f"{name}: card and CPU differ")
+        ms[name], out = _host_ms(lambda: fn(b, dev), torch)
+        if not bool(torch.isfinite(out).all()) or float(out.min()) >= 0:
+            raise AssertionError(f"{name}: no interior at 129^3")
+    ops["mesh_to_sdf"] = _aten_ops(lambda: mesh.mesh_to_sdf(v, t, b,
+                                                            device=dev))
+    print(f"mesh_to_sdf: {len(t)} triangles at {2 * b + 1}^3")
+
+    # the level set as a .vdb; the commands on it with the default device
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix="_tools_smoke_") as tmp:
+        path = os.path.join(tmp, "levelset.vdb")
+        write_vdb(path, [VdbGrid(values=sdf_c.numpy(), origin=(-b,) * 3,
+                                 background=3.0)])
+        g = read_vdb(path)[0]
+        lo = [-b - o for o in g.origin]
+        block = g.values[lo[0]:lo[0] + 2 * b + 1, lo[1]:lo[1] + 2 * b + 1,
+                         lo[2]:lo[2] + 2 * b + 1]
+        if not np.array_equal(block, sdf_c.numpy()):
+            raise AssertionError("levelset.vdb: read back differs")
+        cube, cb, off = cli._levelset_cube(g)
+        cube = torch.as_tensor(cube, device=dev)
+
+        def direct(png, size, eye):
+            img, _, _ = raytrace_levelset(
+                cube, cb, tuple(np.asarray(eye) - off), tuple(-off),
+                width=size, height=size)
+            write_image(png, img.cpu().numpy() * 255.0)
+            with open(png, "rb") as f:
+                return f.read()
+
+        ray = os.path.join(tmp, "ray.png")
+        t0 = time.perf_counter()
+        if cli.main(["raytrace", path, "-o", ray]) != 0:
+            raise AssertionError("cli raytrace failed")
+        ms["cli_raytrace"] = 1e3 * (time.perf_counter() - t0)
+        pairs = [(ray, direct(os.path.join(tmp, "d.png"), 512,
+                              (0.0, 0.3 * cb, -2.2 * cb)))]
+        t0 = time.perf_counter()
+        if cli.main(["view", path, "--orbit", "4", "-o",
+                     os.path.join(tmp, "v.png")]) != 0:
+            raise AssertionError("cli view failed")
+        ms["cli_view_orbit4"] = 1e3 * (time.perf_counter() - t0)
+        for k in range(4):
+            th = 2.0 * np.pi * k / 4
+            r = 2.2 * cb
+            pairs.append((os.path.join(tmp, f"v_{k:04d}.png"), direct(
+                os.path.join(tmp, f"d{k}.png"), 384,
+                [r * np.sin(th), 0.4 * cb, -r * np.cos(th)])))
+        for png, want in pairs:
+            with open(png, "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"{os.path.basename(png)}: the "
+                                         "command's PNG differs from the "
+                                         "direct call's")
+        print(f"cli raytrace and view --orbit 4: {len(pairs)} PNGs bit for "
+              f"bit the direct calls' ({2 * cb + 1}^3 cube from the .vdb)")
+    for name, val in ms.items():
+        extra = f", {ops[name]} aten ops a call" if name in ops else ""
+        print(f"tool {name}: {val:.3f} ms (host clock){extra}")
+    print(f"phase 35: {time.perf_counter() - t_phase:.2f} s")
+
+
 def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
                     mpm_particles, before_last):
     """Phases 27-30, in a scratch directory inside the checkout that is
@@ -2317,6 +2589,7 @@ def main() -> int:
                rw.gather_rows_cm, rw.scatter_rows_cm)
     ke, flip_launches, flip_ms, flip_cg, _ = _run_frames(sim, counted, torch)
     kes += ke
+    flip_pos = sim.state.pos.clone()   # phase 35's particles
     del sim
 
     # ---- 5. FLIP determinism ----------------------------------------------
@@ -2575,6 +2848,8 @@ def main() -> int:
     def sharded_phases():
         sharded["results"], sharded["launches"] = _sharded_phases(
             dev, counted, torch, np, flip_ms, mpm_ms)
+        # ---- 35. the tools suite on phase 4's final state --------------
+        _tools_phase(dev, torch, np, flip_pos)
 
     runtime_launches = _runtime_phases(dev, counted, torch, flip_particles,
                                        flip_ms, mpm_particles, sharded_phases)

@@ -15,3 +15,21 @@ from fluidsim_tpu_torch.scenes import get_scene
 
 __all__ = ["FlipParams", "FlipSim", "FlipState", "MpmParams", "MpmSim",
            "MpmState", "get_scene"]
+
+
+def __getattr__(name):
+    # the sharded sim and the tools load on first use, as the JAX
+    # package's lazy names do
+    if name == "ShardedFlipSim":
+        from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
+        return ShardedFlipSim
+    if name == "mesh_to_sdf":
+        from fluidsim_tpu_torch.ops.mesh import mesh_to_sdf
+        return mesh_to_sdf
+    if name == "raytrace_levelset":
+        from fluidsim_tpu_torch.ops.raytrace import raytrace_levelset
+        return raytrace_levelset
+    if name == "volume_to_mesh":
+        from fluidsim_tpu_torch.ops.volume_to_mesh import volume_to_mesh
+        return volume_to_mesh
+    raise AttributeError(name)

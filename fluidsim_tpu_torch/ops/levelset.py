@@ -26,7 +26,7 @@ def _coords(bound: int, dtype, device) -> torch.Tensor:
 
 
 def sphere_sdf(spec_shape, bound: int, center, radius: float,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
     """Dense SDF of a sphere (``tools::createLevelSetSphere``)."""
     c = _coords(bound, dtype, device)
     x = c[:, None, None] - center[0]
@@ -36,7 +36,7 @@ def sphere_sdf(spec_shape, bound: int, center, radius: float,
 
 
 def box_sdf(spec_shape, bound: int, lo, hi, dtype=torch.float32,
-            device="cpu"):
+            device="cuda"):
     """Dense SDF of an axis-aligned box."""
     c = _coords(bound, dtype, device)
     grids = torch.stack(torch.meshgrid(c, c, c, indexing="ij"), dim=-1)

@@ -38,9 +38,9 @@ def test_particles_to_levelset_and_fog(bound, npart, spread):
 def test_sdfs_and_csg():
     bound = 7
     n = 2 * bound + 1
-    s = ls.sphere_sdf((n,) * 3, bound, (1.0, -2.0, 0.5), 4.0)
+    s = ls.sphere_sdf((n,) * 3, bound, (1.0, -2.0, 0.5), 4.0, device="cpu")
     js = jls.sphere_sdf((n,) * 3, bound, (1.0, -2.0, 0.5), 4.0)
-    b = ls.box_sdf((n,) * 3, bound, (-3, -2, -4), (2, 5, 1))
+    b = ls.box_sdf((n,) * 3, bound, (-3, -2, -4), (2, 5, 1), device="cpu")
     jb = jls.box_sdf((n,) * 3, bound, (-3, -2, -4), (2, 5, 1))
     _close(s, js)
     _close(b, jb)

@@ -7,8 +7,10 @@ FLIP frame, the row-layout transfers of ``utils/transfer_parts.py``, and
 the synthetic K5, K1 and K8b inputs of ``utils/synthetic.py`` with the K1
 chunk plan, the order of the three K1 modes and K8b's tile plan, and a
 ``config.make_sim`` run (multigrid, compat seeding) with ``extrapolate``
-and a Jacobi-preconditioned MPM frame, and a sharded FLIP and MPM frame
-on a one-rank gloo group."""
+and a Jacobi-preconditioned MPM frame, a sharded FLIP and MPM frame
+on a one-rank gloo group, and the tools: one public function of each
+tool module, the ``raytrace`` and ``view`` commands on a small ``.vdb``
+and the package's four lazy names."""
 
 import subprocess
 import sys
@@ -135,6 +137,57 @@ elif sys.argv[1] == "cli":
         assert len(read_vdb(os.path.join(out, "mygrids.vdb"))) == 1
         m = {"kinetic_energy": float(read_vdb(
             os.path.join(out, "mygrids1.vdb"))[0].values.sum())}
+elif sys.argv[1] == "tools":
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import numpy as np
+    from fluidsim_tpu_torch import cli
+    from fluidsim_tpu_torch.io import viewer
+    from fluidsim_tpu_torch.io.vdb import VdbGrid, write_vdb
+    from fluidsim_tpu_torch.ops import (
+        advect_volume, composite, diagnostics, fd, gridops, levelset,
+        levelset_tools, mesh, morphology, partition, platonic, raytrace,
+        resample, statistics, volume_to_mesh, volume_to_spheres)
+    names = [getattr(fluidsim_tpu_torch, n) for n in (
+        "ShardedFlipSim", "mesh_to_sdf", "raytrace_levelset",
+        "volume_to_mesh")]
+    phi = levelset.sphere_sdf(None, 6, (0.0, 0.0, 0.0), 3.5, device="cpu")
+    pos = torch.rand(40, 3) * 8 - 4
+    vc = torch.zeros(13, 13, 13, 3)
+    out = [advect_volume.advect_volume(phi, vc, 1.0, 6),
+           composite.signed_flood_fill(phi, 2.0),
+           fd.d1(phi, 0, 1.0, "fd_hjweno5"),
+           gridops.mean_curvature(phi),
+           levelset_tools.filter_median(levelset_tools.redistance(phi, 3)),
+           mesh.mesh_to_sdf(*mesh.icosphere((0, 0, 0), 3.0, 1), 6,
+                            device="cpu"),
+           morphology.dilate(phi < 0, 1, morphology.NN_FACE_EDGE),
+           partition.partition_by_cell(pos, 6).counts,
+           platonic.platonic_sdf(8, 6, 4.0, device="cpu"),
+           raytrace.raytrace_levelset(phi, 6, (0, 0, -12), (0, 0, 0),
+                                      width=16, height=16)[0],
+           resample.affine_resample(phi, torch.eye(3), (1.0, 0.0, 0.0), 6),
+           statistics.histogram(phi, 8, -4.0, 4.0),
+           volume_to_spheres.fill_with_spheres(phi, 3, 6)[1]]
+    assert all(bool(torch.isfinite(o.float()).all()) for o in out)
+    assert not diagnostics.check_finite_grid(phi).failed
+    verts, quads = volume_to_mesh.volume_to_mesh(phi, bound=6)
+    assert len(verts) - len(quads) == 2
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        vdb = os.path.join(tmp, "s.vdb")
+        write_vdb(vdb, [VdbGrid(values=phi.numpy(), origin=(-6,) * 3,
+                                background=3.0)])
+        assert len(viewer._frame_points(vdb)) == 13 ** 3
+        assert cli.main(["raytrace", vdb, "-o", os.path.join(tmp, "r.png"),
+                         "--size", "16", "16", "--device", "cpu"]) == 0
+        assert cli.main(["view", vdb, "-o", os.path.join(tmp, "v.png"),
+                         "--orbit", "2", "--size", "8", "8",
+                         "--device", "cpu"]) == 0
+        assert os.path.exists(os.path.join(tmp, "v_0001.png"))
+    m = {"kinetic_energy": out[0].sum()}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -148,7 +201,7 @@ print("ke", float(m["kinetic_energy"]))
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
                                   "flip-table", "rows", "synthetic",
-                                  "config", "cli", "sharded"])
+                                  "config", "cli", "sharded", "tools"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
