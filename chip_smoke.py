@@ -18,8 +18,13 @@ Phases, each of which raises on failure (nonzero exit):
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from ``fluidsim_tpu_torch/csrc`` and time the build;
 3. compare each FLIP kernel (K1 P2G, K2 G2P, K3 Laplacian, K4 Chebyshev
-   step) with its plain PyTorch version on the card at the main path's
-   shapes, and time both with CUDA events (median of the runs); K1 with
+   steps) with its plain PyTorch version on the card at the main path's
+   shapes, and time both with CUDA events (median of the runs); K3 and K4
+   on a 129^3 frame's fields, bit for bit (their bound counts p, z and r at
+   the fluid cells alone, which is all they need): K4 as the preconditioner's one
+   launch at degrees 3 and 4 (2 and 3 steps from the Jacobi term) and as
+   one step from a given (z, d), and a degree-8 preconditioner split into
+   ceil(7 / S_MAX) launches; K1 with
    its chunk plan given, the plan timed apart (its device work, and the
    card's idle time after its host read), K1 bit for bit against its
    summation order in PyTorch (``p2g_scatter_chunked``) and a rerun, a
@@ -124,7 +129,7 @@ Phases, each of which raises on failure (nonzero exit):
    V-cycle's 5 fine-level sweeps and residual) and no K4 launch; ms/frame,
    CG iterations and outer passes per frame;
 24. the same config with ``compat_projection=False, cheb_degree=4,
-   cheb_ratio=50``: one outer pass a frame, 3 K4 launches per
+   cheb_ratio=50``: one outer pass a frame, one K4 launch (3 steps) per
    preconditioner application; ms/frame and CG iterations;
 25. ``mpm_cone`` at 127^3 with ``precond="jacobi"``: 10 timed frames with
    the checks of phase 11 and one more K1 launch a frame (the stiffness
@@ -164,13 +169,16 @@ group of this process alone (NCCL, a ``file://`` store, destroyed after):
 31. the slab shapes of the sharded paths: K1 and K2 on the FLIP scene's
    transfer slab of world size 1 (133 rows at 129^3) and of rank 1 of a
    4-way cut (37 rows, its 1,062,973 particles alive and the rest of the
-   slots dead), K3 and K4 on their solve slabs (131 and 35 rows), K1 fg
-   and K2 gw on the cone's (131 and 36 rows at 127^3); each against its
-   plain version as in phase 3 (timed, with the bound of the slab's
-   bytes: the live particles' inputs, the whole output), then bit for bit
-   against its order function (K1: ``p2g_scatter_chunked``, K1 fg:
+   slots dead), K3 and K4 on their solve slabs (129 rows with null edge
+   planes, and 33 rows with the neighbouring slabs' edge rows beside them,
+   cut out of phase 3's frame fields), K1 fg and K2 gw on the cone's (131
+   and 36 rows at 127^3); each against its plain version as in phase 3
+   (timed, with the bound of the slab's bytes: the live particles' inputs,
+   the edge rows read, the whole output; K3 and K4 read p, z and r only at
+   fluid cells), then bit for bit against its
+   order function (K1: ``p2g_scatter_chunked``, K1 fg:
    ``p2g_scatter_force_chunked``, K2 gw: ``g2p_gather_gw_ordered``) or
-   plain version (K2, K3, K4);
+   plain version (K2, K3, K4 at degrees 3 and 4 and one step);
 32. ``ShardedFlipSim`` at world size 1 on ``water_cube_drop`` at 129^3
    (1,987,675 particles), 2 warm-up and 10 timed frames against
    ``FlipSim`` on the card frame by frame: kinetic energy within rtol
@@ -498,11 +506,14 @@ def _flip_sim(dev, mode="flip", sort_method="full", bound=BOUND,
 def _stencil_launches(params):
     """(K3, K4) launches per CG solve start and per CG iteration of the
     frame's projection: one K3 apply, plus the preconditioner's — the
-    Chebyshev polynomial's ``cheb_degree - 1`` K4 steps, or the V-cycle's
-    pre + 1 + post = 5 fine-level K3 applies (on a grid that coarsens, as
-    every grid here does), or nothing for Jacobi."""
+    Chebyshev polynomial's ``cheb_degree - 1`` steps in launches of up to
+    ``S_MAX`` (one launch at degrees 3 and 4), or the V-cycle's pre + 1 +
+    post = 5 fine-level K3 applies (on a grid that coarsens, as every grid
+    here does), or nothing for Jacobi."""
+    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+
     if params.preconditioner == "chebyshev":
-        return 1, params.cheb_degree - 1
+        return 1, math.ceil((params.cheb_degree - 1) / sk.S_MAX)
     if params.preconditioner == "multigrid":
         return 6, 0
     return 1, 0
@@ -566,7 +577,7 @@ def _run_frames(sim, counted, torch, label=None):
         scatters = {"p2g_scatter": FRAMES, "chunk_fill": FRAMES}
     want = {name: 0 for name in launches}
     want.update({gather: FRAMES, **scatters, "apply_laplacian": k3 * solves,
-                 "cheb_step": k4 * solves})
+                 "cheb_steps": k4 * solves})
     if launches != want:
         raise AssertionError(f"{mode}: kernel launches {launches}, expected {want}")
     # one chunk plan per frame, shared by the frame's K1 launch
@@ -575,7 +586,7 @@ def _run_frames(sim, counted, torch, label=None):
                              f"built in {FRAMES} frames")
     print(f"{mode}: per CG iteration (and per solve start) "
           f"{launches['apply_laplacian'] / solves} K3 and "
-          f"{launches['cheb_step'] / solves} K4 launches")
+          f"{launches['cheb_steps'] / solves} K4 launches")
     ms = 1e3 * wall_s / FRAMES
     print(f"{mode}: ms/frame {ms:.3f}  steps/s {FRAMES / wall_s:.3f}  "
           f"CG iterations/frame {sum(cg) / FRAMES:.1f}  outer passes/frame "
@@ -1391,12 +1402,12 @@ def _config_phases(dev, counted, torch, flip_particles, flip_ms, flip_cg,
         sim, counted, torch, "flip-clean")
     if clean_outer != [1] * FRAMES:
         raise AssertionError(f"flip-clean: outer passes {clean_outer}")
-    if clean_launches["cheb_step"] != 3 * (sum(clean_cg) + FRAMES):
-        raise AssertionError("flip-clean: not 3 K4 launches per "
+    if clean_launches["cheb_steps"] != sum(clean_cg) + FRAMES:
+        raise AssertionError("flip-clean: not one K4 launch (3 steps) per "
                              "preconditioner application")
     print(f"flip-clean: ms/frame {clean_ms:.3f}, CG iterations/frame "
-          f"{sum(clean_cg) / FRAMES:.1f}, 1 outer pass a frame, 3 K4 "
-          "launches per preconditioner application")
+          f"{sum(clean_cg) / FRAMES:.1f}, 1 outer pass a frame, one K4 "
+          "launch of 3 steps per preconditioner application")
     del sim
 
     # ---- 25. MPM with the Jacobi preconditioner at full width -----------
@@ -1561,7 +1572,7 @@ def _flip_cli_phase(dev, counted, torch, np, tmp, flip_particles, flip_ms):
     want = {name: 0 for name in launches}
     want.update({"p2g_scatter": CLI_FRAMES, "chunk_fill": CLI_FRAMES,
                  "g2p_gather": CLI_FRAMES, "apply_laplacian": k3 * solves,
-                 "cheb_step": k4 * solves})
+                 "cheb_steps": k4 * solves})
     _require_launches("cli fluid", launches, want, builds, CLI_FRAMES)
     ex = on["exporter"]
     print("cli fluid: exporter", json.dumps(ex))
@@ -1852,15 +1863,10 @@ def _slab_kernels(where, results, cases, torch):
 
 
 def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
-    """K1, K2 on one rank's FLIP transfer slab and K3, K4 on its solve
-    slab, whose fluid cells are the K1 occupancy's."""
-    from fluidsim_tpu_torch.core.gridspec import (cell_center_velocity_cm,
-                                                  shift_to_minus,
-                                                  shift_to_plus)
-    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+    """K1 and K2 on one rank's FLIP transfer slab."""
+    from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
     from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
-    from fluidsim_tpu_torch.parallel.flip_sharded import W
 
     n = 2 * BOUND + 1
     slab, pos_s, vel_s, flat, a = _rank_arrays(scene, BOUND, rank, size, rng,
@@ -1874,23 +1880,9 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     vc = cell_center_velocity_cm(normalize_velocity_cm(acc[0], acc[1:4]))
     fm = torch.stack([torch.where(within, vc[d], 0.0) for d in range(3)]
                      + [within.to(torch.float32)])
-    # the solve slab: rows [W - 1, W + nl + 1) of the transfer slab
-    fluid = (acc[0][W - 1:W + slab.nl + 1] > 0) & ~slab.solid_ext1
-    ns = (~slab.solid_ext1).to(torch.float32)
-    nb = torch.zeros_like(ns)
-    for d in range(3):
-        nb = nb + shift_to_plus(ns, d) + shift_to_minus(ns, d)
-    scale = 0.0421
-    adiag = torch.where(fluid, scale * nb, 0.0)
-    z = torch.where(fluid, torch.randn(adiag.shape, generator=g, device=dev),
-                    0.0)
-    r = torch.randn(adiag.shape, generator=g, device=dev)
-    d_ = 0.5 * z
-    cells = adiag.numel()
-    tag, tag1 = f"slab{slab.rows}", f"slab{adiag.shape[0]}"
+    tag = f"slab{slab.rows}"
     print(f"{scene.name}, rank {rank} of {size}: transfer slab "
-          f"{tuple(acc.shape[1:])}, {a} of {flat.shape[0]} slots alive; "
-          f"solve slab {tuple(adiag.shape)}, {int(fluid.sum())} fluid cells")
+          f"{tuple(acc.shape[1:])}, {a} of {flat.shape[0]} slots alive")
     live = (w27t[:, :a], vel_s[:a], flat[:a])
     return [
         (f"p2g_scatter_{tag}", f"K1 p2g_scatter {tag}",
@@ -1901,15 +1893,111 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
         (f"g2p_gather_{tag}", f"K2 g2p_gather {tag}",
          lambda: tk.g2p_gather(fm, w27t, flat, count),
          lambda: tk.g2p_gather_plain(fm, w27t, flat, count), 1e-5,
-         (fm, live[0], live[2], count), 27 * 8 * a, None),
-        (f"apply_laplacian_{tag1}", f"K3 apply_laplacian {tag1}",
-         lambda: sk.apply_laplacian(z, adiag, scale),
-         lambda: sk.apply_laplacian_plain(z, adiag, scale), 1e-6,
-         (z, adiag), 9 * cells, None),
-        (f"cheb_step_{tag1}", f"K4 cheb_step {tag1}",
-         lambda: sk.cheb_step(z, adiag, r, d_, scale, 0.61, 1.07),
-         lambda: sk.cheb_step_plain(z, adiag, r, d_, scale, 0.61, 1.07),
-         1e-6, (z, adiag, r, d_), 15 * cells, None)]
+         (fm, live[0], live[2], count), 27 * 8 * a, None)]
+
+
+def _solve_slab(fields, size, rank, depth, torch):
+    """Rank ``rank``'s slab of a ``size``-way cut of the cube solve fields
+    (z, adiag, r, d) and, under ``<name>_edges``, the ``depth`` rows of the
+    neighbouring slabs on either side, None at a domain end: what the
+    sharded solve's kernels read on that rank.  The last slab runs past
+    the box on zero rows, as ``Slab`` cuts it."""
+    n = fields["r"].shape[0]
+    nl = math.ceil(n / size)
+    x0 = rank * nl
+    out = {}
+    for name in ("z", "adiag", "r", "d"):
+        t = fields[name]
+        t = torch.cat([t, t.new_zeros((size * nl - n,) + tuple(t.shape[1:]))])
+        out[name] = t[x0:x0 + nl].contiguous()
+        out[name + "_edges"] = (
+            t[x0 - depth:x0].contiguous() if rank > 0 else None,
+            t[x0 + nl:x0 + nl + depth].contiguous() if rank < size - 1
+            else None)
+    return out
+
+
+def _stencil_cases(where, fields, cut, torch):
+    """K3 and K4 on the solve ``fields`` (the cube's, or with ``cut = (size,
+    rank)`` that rank's slab and its neighbours' edge rows, as
+    ``_solve_slab`` cuts them): each against its plain version as in phase
+    3 (timed) and bit for bit.  K4 is the preconditioner's launch at degree
+    3 (2 steps from the Jacobi term, the entry's own numbers) and 4 (3
+    steps, ``degree4_*``), and one step from a given (z, d), the TPU
+    kernel's function (``one_step_*``).  Returns the entries, keyed
+    ``<kernel>`` or ``<kernel>_slab<rows>``."""
+    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+
+    size, rank = cut or (1, 0)
+    sl = _solve_slab(fields, size, rank, sk.MAX_STEPS, torch)
+    scale = fields["scale"]
+    z, a, r, d = (sl[k] for k in ("z", "adiag", "r", "d"))
+    cells = r.numel()
+    tag = "" if cut is None else f"_slab{r.shape[0]}"
+    near = lambda name, depth: tuple(
+        None if t is None else (t[-depth:] if side == 0 else t[:depth])
+        for side, t in enumerate(sl[name + "_edges"]))
+    ghost = lambda names, depth: None if cut is None else {
+        k: near(k, depth) for k in names}
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+
+    def read(depth, at_fluid, everywhere=()):
+        """(inputs read in full, bytes read at fluid cells only): adiag and
+        ``everywhere`` on the slab and its ``depth`` edge rows, and
+        ``at_fluid`` fields (p, z, r) where adiag > 0.  The kernels need
+        no other value of those fields: a cell outside the fluid reads them
+        as 0."""
+        names = ("adiag", *everywhere)
+        g = ghost(names, depth) or {}
+        full = [sl[k] for k in names] + [t for pair in g.values()
+                                         for t in pair if t is not None]
+        a_rows = [a] + [t for t in g.get("adiag", ()) if t is not None]
+        fluid = sum(int((t > 0).sum()) for t in a_rows)
+        return full, 4 * len(at_fluid) * fluid
+
+    def case(name, kernel, plain, reads, ops):
+        full, extra = reads
+        res = _compare(name, kernel, plain, 1e-6, full, ops, torch,
+                       extra_bytes=extra)
+        _require_bitwise(f"{name}: against its plain version", kernel(),
+                         plain(), torch)
+        return res
+
+    g3 = ghost(("z", "adiag"), 1)
+    g3 = None if g3 is None else tuple(None if t is None else t[0] for t in (
+        *g3["z"], *g3["adiag"]))
+    out = {"apply_laplacian" + tag: case(
+        f"K3 apply_laplacian ({where})",
+        lambda: sk.apply_laplacian(z, a, scale, ghost=g3),
+        lambda: sk.apply_laplacian_plain(z, a, scale, ghost=g3),
+        read(1, ("p",)), 9 * cells)}
+    for degree in (3, 4):
+        theta, coefs = sk.cheb_coefs(degree)
+        steps = len(coefs)
+        g = ghost(("adiag", "r"), steps)
+        res = case(f"K4 cheb_steps, degree {degree}: {steps} steps from the "
+                   f"Jacobi term ({where})",
+                   lambda: sk.cheb_steps(a, r, scale, coefs, theta, ghost=g),
+                   lambda: sk.cheb_steps_plain(a, r, scale, coefs, theta,
+                                               ghost=g),
+                   read(steps, ("r",)), (3 + 15 * steps) * cells)
+        if degree == 3:
+            entry = res
+        else:
+            entry.update({f"degree4_{k}": res[k] for k in keep})
+    g = ghost(("z", "d", "r", "adiag"), 1)
+    res = case(f"K4 cheb_steps, one step from (z, d) ({where})",
+               lambda: sk.cheb_steps(a, r, scale, [(0.61, 1.07)], z=z, d=d,
+                                     ghost=g, want_d=True),
+               lambda: sk.cheb_steps_plain(a, r, scale, [(0.61, 1.07)], z=z,
+                                           d=d, ghost=g, want_d=True),
+               read(1, ("z", "r"), ("d",)), 15 * cells)
+    entry.update({f"one_step_{k}": res[k] for k in keep})
+    out["cheb_steps" + tag] = entry
+    if cut is not None:
+        for v in out.values():
+            v["slab"] = where
+    return out
 
 
 def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
@@ -1947,7 +2035,7 @@ def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
          lambda: tk.g2p_gather_gw_ordered(fm3, gradw, flat, count))]
 
 
-def _slab_phase(dev, torch, np):
+def _slab_phase(dev, torch, np, solve_fields):
     """Phase 31 (see the module docstring).  Returns the kernels' numbers
     by ``<kernel>_slab<rows>``."""
     from fluidsim_tpu_torch.scenes import get_scene
@@ -1961,11 +2049,14 @@ def _slab_phase(dev, torch, np):
     with _one_rank_group():
         for size in (1, SLAB_WORLD):
             rank = 0 if size == 1 else SLAB_RANK
+            where = f"rank {rank} of {size}"
             for cases in (_flip_slab_cases, _cone_slab_cases):
                 scene = flip_scene if cases is _flip_slab_cases else cone
-                _slab_kernels(f"rank {rank} of {size}", results,
+                _slab_kernels(where, results,
                               cases(scene, rank, size, rng, g, dev, torch,
                                     np), torch)
+            results.update(_stencil_cases(where, solve_fields, (size, rank),
+                                          torch))
     print(f"phase 31: {time.perf_counter() - t_phase:.2f} s")
     return results
 
@@ -1995,7 +2086,7 @@ def _sharded_flip_phase(dev, counted, torch, flip_ms):
             raise AssertionError(f"sharded flip: {p} particles, FlipSim "
                                  f"{ref.num_particles}")
         print(f"sharded flip: world 1, slab {sim.slab.rows} rows (solve "
-              f"operands {sim.slab.nl + 2}), cap "
+              f"slab {sim.slab.nl} rows, null edge planes), cap "
               f"{sim.cap}, mig_cap {sim.mig_cap}, tail_insert "
               f"{sim.tail_insert}, {p} particles, device {sim.device}")
         want = [ref.step() for _ in range(2 + FRAMES)]
@@ -2028,7 +2119,7 @@ def _sharded_flip_phase(dev, counted, torch, flip_ms):
         want_l = {name: 0 for name in launches}
         want_l.update({"p2g_scatter": FRAMES, "chunk_fill": FRAMES,
                        "g2p_gather": FRAMES, "apply_laplacian": k3 * solves,
-                       "cheb_step": k4 * solves})
+                       "cheb_steps": k4 * solves})
         print("sharded flip: launches in the timed frames:",
               json.dumps(launches), f"K1 chunk plans built: {builds}")
         if launches != want_l or builds != FRAMES:
@@ -2184,10 +2275,10 @@ def _sharded_card_against_cpu(dev, torch):
                   f"particles, 3 frames, {msg}")
 
 
-def _sharded_phases(dev, counted, torch, np, flip_ms, mpm_ms):
+def _sharded_phases(dev, counted, torch, np, flip_ms, mpm_ms, solve_fields):
     """Phases 31-34; returns (the slab kernels' numbers, launches of the
     sharded FLIP and MPM paths)."""
-    results = _slab_phase(dev, torch, np)
+    results = _slab_phase(dev, torch, np, solve_fields)
     flip = _sharded_flip_phase(dev, counted, torch, flip_ms)
     mpm = _sharded_mpm_phase(dev, counted, torch, mpm_ms)
     _sharded_card_against_cpu(dev, torch)
@@ -2560,27 +2651,33 @@ def main() -> int:
     z = torch.where(fluid, sim.state.pressure, 0.0)
     r = sk.apply_laplacian_plain(z, adiag, scale)
     d = 0.5 * z
-    theta, delta = 0.5 * (2.0 + 2.0 / 30.0), 0.5 * (2.0 - 2.0 / 30.0)
-    rho = delta / theta
-    rho_new = 1.0 / (2.0 * theta / delta - rho)
-    c1, c2 = rho_new * rho, 2.0 * rho_new / delta
     print(f"frame fields: {int(fluid.sum())} fluid cells, dt {float(dt):.6g}, "
           f"max|p| {float(z.abs().max()):.4g}")
-    results["apply_laplacian"] = _compare(
-        "K3 apply_laplacian", lambda: sk.apply_laplacian(z, adiag, scale),
-        lambda: sk.apply_laplacian_plain(z, adiag, scale), 1e-6,
-        (z, adiag), 9 * n ** 3, torch)
-    results["cheb_step"] = _compare(
-        "K4 cheb_step", lambda: sk.cheb_step(z, adiag, r, d, scale, c1, c2),
-        lambda: sk.cheb_step_plain(z, adiag, r, d, scale, c1, c2), 1e-6,
-        (z, adiag, r, d), 15 * n ** 3, torch)
+    # phase 31 cuts its solve slabs out of these fields
+    solve_fields = dict(z=z, adiag=adiag, r=r, d=d, scale=scale)
+    results.update(_stencil_cases("the 129^3 frame", solve_fields, None,
+                                  torch))
+    # above S_MAX steps the preconditioner splits its launches
+    deg = 2 * sk.S_MAX
+    theta, coefs = sk.cheb_coefs(deg)
+    sk.cheb_steps.launches = 0
+    split = sk.chebyshev_precond_fused(adiag, scale, degree=deg)(r)
+    if sk.cheb_steps.launches != math.ceil((deg - 1) / sk.S_MAX):
+        raise AssertionError(f"preconditioner degree {deg}: "
+                             f"{sk.cheb_steps.launches} launches")
+    _require_bitwise(f"K4 preconditioner, degree {deg} in "
+                     f"{sk.cheb_steps.launches} launches, against its plain "
+                     "version", split,
+                     sk.cheb_steps_plain(adiag, r, scale, coefs, theta),
+                     torch)
     del acc, vc, fm, vel0, pos_s, vel_s, flat, w27t, cs, z, r, d, adiag, plan
+    del split
 
     # ---- 4. the FLIP main path: the two frames above were its warm-up ----
     counted = (tk.p2g_scatter, tk.g2p_gather, tk.p2g_scatter_affine,
                tk.g2p_moments, tk.p2g_scatter_force, tk.g2p_gather_gw,
                tk.chunk_fill,
-               sk.apply_laplacian, sk.cheb_step, bs.bucket_move,
+               sk.apply_laplacian, sk.cheb_steps, bs.bucket_move,
                tk.p2g_scatter_base, tk.shift_reduce, tk.shift_expand,
                tk.g2p_gather_table, tk.g2p_moments_table,
                tk.p2g_scatter_spans, tk.g2p_gather_spans,
@@ -2847,7 +2944,7 @@ def main() -> int:
 
     def sharded_phases():
         sharded["results"], sharded["launches"] = _sharded_phases(
-            dev, counted, torch, np, flip_ms, mpm_ms)
+            dev, counted, torch, np, flip_ms, mpm_ms, solve_fields)
         # ---- 35. the tools suite on phase 4's final state --------------
         _tools_phase(dev, torch, np, flip_pos)
 
@@ -2860,7 +2957,8 @@ def main() -> int:
         "p2g_scatter": ("transfer.cu", "pallas_transfer.py:1064", flip_launches),
         "g2p_gather": ("transfer.cu", "pallas_transfer.py:1339", flip_launches),
         "apply_laplacian": ("stencil.cu", "pallas_stencil.py:89", flip_launches),
-        "cheb_step": ("stencil.cu", "pallas_stencil.py:382", flip_launches),
+        "cheb_steps": ("stencil.cu", "pallas_stencil.py:382, :532",
+                       flip_launches),
         "p2g_scatter_affine": ("transfer.cu", "pallas_transfer.py:1064",
                                apic_launches),
         "g2p_moments": ("transfer.cu", "pallas_transfer.py:1339",

@@ -8,32 +8,70 @@
 // where adiag > 0; every operand is read through that mask (q = adiag > 0 ?
 // p : 0) and neighbours outside the box read 0.  K3 and K4 also take an
 // (nx, n, n) slab (the x extent nx beside n): a rank's pressure solve in
-// fluidsim_tpu_torch/parallel/flip_sharded.py, on (nl + 2, n, n) with its
-// two ghost rows, which the kernels compute like any row and the caller
-// clears; neighbours past the slab's x ends read 0.
+// fluidsim_tpu_torch/parallel/flip_sharded.py.  Beside each slab operand
+// they take its neighbours' edge planes where those lie (SlabField: h
+// planes before row 0 and h after row nx - 1); a null plane reads 0, a
+// domain end.  No operand with ghost rows is built and no output is cut.
 //
 // K3 fs_apply_laplacian replaces fluidsim_tpu/ops/pallas_stencil.py:
 //   apply_laplacian_padded (_kernel) and apply_laplacian_padded_lh
 //   (_kernel_lh), the masked 7-point Laplacian
-//   out = adiag > 0 ? adiag*q - scale*(x- + x+ + y- + y+ + z- + z+) : 0,
-//   summed in that order.
+//   out = adiag > 0 ? adiag*q - scale*(((((x- + x+) + y-) + y+) + z-) + z+)
+//   : 0, summed in that order, with one edge plane of p and adiag on each
+//   side (h = 1).
 //   Bound on the H100: memory.  2 reads + 1 write of 4 B per cell = 12 B per
-//   cell, 26 MB at 129^3 (~8 us at 3.35 TB/s).  The 6 neighbour reads of a
-//   cell are served by L1/L2: the y and z neighbours are in the same or an
-//   adjacent line, the x neighbours one plane (66 KB) away, well inside L2.
-//   Design: one thread per cell, consecutive threads on consecutive z, no
-//   shared-memory tiling (the TPU kernel's VMEM windows and lane rolls are
-//   layout work that the cache does here).
+//   cell, 25.8 MB at 129^3 (~7.7 us at 3.35 TB/s), 7.0 MB on a 4-way rank's
+//   33-row slab (~2.1 us).
+//   Design: a thread per cell on a 2-D grid, a block of 256 cells of one x
+//   plane (blockIdx.y), so the plane and its x neighbours' pointers (an
+//   edge plane or null at the slab's ends) are the block's, and y, z come
+//   from a 32-bit index (the port's first K3 divided a 64-bit index).  A
+//   cell outside the fluid reads only its adiag and writes 0; a fluid cell
+//   reads p and adiag at itself and its six neighbours, the y and z ones
+//   mostly from L1.  On the FLIP frame 4.2% of the cells are fluid, so the
+//   kernel moves ~8.2 B a cell.  An x-marching tile (a thread per column of
+//   a 30 x 14 tile, the plane staged and masked once in shared memory, the
+//   x neighbours in registers, loads several planes ahead) was built and
+//   held bit for bit, and was slower on the frame at 129^3 and on a 33-row
+//   slab at every prefetch depth and tile height tried: it stages p for
+//   every cell and serialises a block's planes behind a barrier each, where
+//   this kernel skips p outside the fluid and runs every cell at once.
 //
-// K4 fs_cheb_step replaces fluidsim_tpu/ops/pallas_stencil.py:
+// K4 fs_cheb_steps replaces fluidsim_tpu/ops/pallas_stencil.py:
 //   cheb_step_padded (_kernel_cheb) and cheb_step_padded_lh
 //   (_kernel_cheb_lh), one fused Chebyshev inner step
 //   az = (K3 of z); resid = r - az; pd = adiag > 0 ? resid/adiag : 0;
-//   d' = c1*d + c2*pd; z' = q + d'.
-//   Bound on the H100: memory, 4 reads + 2 writes = 24 B per cell (52 MB at
-//   129^3).  Design: the K3 thread layout with r and d read and d', z'
-//   written by the same thread, so the step is one pass instead of an apply
-//   and four elementwise sweeps.
+//   d' = c1*d + c2*pd; z' = q + d',
+//   and chebyshev_precond_fused (l.532), which chains them: here S of those
+//   steps (1 <= S <= kMaxChebSteps) run in one launch, from a given (z, d),
+//   or from the Jacobi term d0 = (adiag > 0 ? r/adiag : 0) * (1/theta), z0 =
+//   d0 computed in the kernel (no z or d read).  Every input takes h = S
+//   edge planes.  It writes z after the S steps, and d' where asked for.
+//   Bound on the H100: memory.  From the Jacobi start: r and adiag read,
+//   z written, 12 B per cell (25.8 MB at 129^3, ~7.7 us) for the whole
+//   preconditioner; from a given (z, d): 4 reads + 2 writes, 24 B per cell.
+//   The port's first preconditioner took three eager passes for the
+//   Jacobi term, then degree - 1 launches of 24 B per cell.
+//   Design: temporal blocking on the x-marching tile.  A block's tile is
+//   (32 - 2S) x (16 - 2S) output columns with an S-cell ring, and it marches
+//   over a chunk of x planes and S planes on each side of it.  At plane
+//   step i it stages level 0 (z, d, or the Jacobi term, and adiag, r) of
+//   plane i, then computes level k (the state after k steps) of plane i - k
+//   for k = 1..S: level k of a plane needs level k - 1 of that plane and its
+//   two x neighbours, which the thread keeps in registers, and of its y and
+//   z neighbours, which the previous plane step left in shared memory (two
+//   buffers a level, one barrier a plane step).  The valid region shrinks
+//   by one cell a level, so level S is right on the inner tile and the
+//   chunk: the ring's and the extra planes' cells are computed again by
+//   the blocks that own them, each with the same f32 operations in the
+//   same order as its owner, so the results are the composed steps' bit for
+//   bit.  Only level S is written to device memory.  The time hardly
+//   depends on how much of the grid is fluid: every plane step costs the
+//   block its loads, its level updates and a barrier.  A thread per cell
+//   recomputing the lower levels of its L1 ball in registers (no shared
+//   memory, nothing done outside the fluid) was built, held bit for bit,
+//   and was several times slower at S = 2 and 3.  Four steps in one launch
+//   cost more than two launches of two (S_MAX in stencil_kernels.py).
 //
 // K6b fs_shift_reduce replaces fluidsim_tpu/ops/pallas_shift.py:
 //   reduce_haloed (_reduce_kernel), the 27-offset shift-reduce of the
@@ -115,74 +153,283 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float masked(const float* __restrict__ p,
-                                        const float* __restrict__ a,
-                                        long long i) {
-  return a[i] > 0.f ? p[i] : 0.f;
-}
+// ---- K3 and K4 ---------------------------------------------------------
 
-// adiag*q - scale*(sum of the 6 masked neighbours), for an interior-or-edge
-// cell c = (x, y, z) of an (nx, n, n) grid whose own adiag is am and masked
-// value mid.
-__device__ __forceinline__ float laplacian_at(const float* __restrict__ p,
-                                              const float* __restrict__ a,
-                                              long long c, int x, int y, int z,
-                                              int nx, int n, float am,
-                                              float mid, float scale) {
-  const long long sx = (long long)n * n;
-  const float xm = x > 0 ? masked(p, a, c - sx) : 0.f;
-  const float xp = x < nx - 1 ? masked(p, a, c + sx) : 0.f;
-  const float ym = y > 0 ? masked(p, a, c - n) : 0.f;
-  const float yp = y < n - 1 ? masked(p, a, c + n) : 0.f;
-  const float zm = z > 0 ? masked(p, a, c - 1) : 0.f;
-  const float zp = z < n - 1 ? masked(p, a, c + 1) : 0.f;
-  const float s = ((((xm + xp) + ym) + yp) + zm) + zp;
-  return am * mid - scale * s;
-}
+// One field of an (nx, n, n) slab and its neighbours' edge planes: lo holds
+// the h planes before row 0 (lo[h - 1] beside it), hi the h planes after
+// row nx - 1.  A null mid, lo or hi reads 0.
+struct SlabField {
+  const float* mid;
+  const float* lo;
+  const float* hi;
+};
 
-__global__ void apply_laplacian_kernel(const float* __restrict__ p,
-                                       const float* __restrict__ a,
-                                       float* __restrict__ out, float scale,
-                                       int nx, int n) {
-  const long long ncell = (long long)nx * n * n;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncell) return;
-  const float am = a[c];
-  if (!(am > 0.f)) {
-    out[c] = 0.f;
-    return;
+// K3: a thread per cell, a block per 256 consecutive cells of one plane x
+// (blockIdx.y), so x and the plane pointers of x - 1 and x + 1 (an edge
+// plane or null at the slab's ends) are the same for the whole block and
+// the cell's y, z come from a 32-bit index.  A cell outside the fluid reads
+// only its adiag; a fluid cell reads p and adiag of itself and its six
+// neighbours, the y and z ones mostly from L1.
+constexpr int kCellThreads = 256;
+
+__global__ void __launch_bounds__(kCellThreads)
+    apply_laplacian_kernel(SlabField p, SlabField a, float* __restrict__ out,
+                           float scale, int nx, int n) {
+  const int nn = n * n;
+  const int yz = blockIdx.x * kCellThreads + threadIdx.x;
+  const int x = blockIdx.y;
+  if (yz >= nn) return;
+  const long long plane = nn;
+  const float* pc = p.mid + x * plane;
+  const float* ac = a.mid + x * plane;
+  const float am = __ldg(ac + yz);
+  float v = 0.f;
+  if (am > 0.f) {
+    const int y = yz / n, z = yz - y * n;
+    const float* pm = x > 0 ? pc - plane : p.lo;
+    const float* a_m = x > 0 ? ac - plane : a.lo;
+    const float* pp = x < nx - 1 ? pc + plane : p.hi;
+    const float* a_p = x < nx - 1 ? ac + plane : a.hi;
+    const auto q = [](const float* pq, const float* aq, int i) {
+      return __ldg(aq + i) > 0.f ? __ldg(pq + i) : 0.f;
+    };
+    const float xm = pm && a_m ? q(pm, a_m, yz) : 0.f;
+    const float xp = pp && a_p ? q(pp, a_p, yz) : 0.f;
+    const float ym = y > 0 ? q(pc, ac, yz - n) : 0.f;
+    const float yp = y < n - 1 ? q(pc, ac, yz + n) : 0.f;
+    const float zm = z > 0 ? q(pc, ac, yz - 1) : 0.f;
+    const float zp = z < n - 1 ? q(pc, ac, yz + 1) : 0.f;
+    const float s = ((((xm + xp) + ym) + yp) + zm) + zp;
+    v = am * __ldg(pc + yz) - scale * s;
   }
-  const int x = (int)(c / ((long long)n * n));
-  const int y = (int)((c / n) % n);
-  const int z = (int)(c % n);
-  out[c] = laplacian_at(p, a, c, x, y, z, nx, n, am, p[c], scale);
+  out[x * plane + yz] = v;
 }
 
-__global__ void cheb_step_kernel(const float* __restrict__ zv,
-                                 const float* __restrict__ a,
-                                 const float* __restrict__ r,
-                                 const float* __restrict__ d,
-                                 float* __restrict__ dn,
-                                 float* __restrict__ zn, float scale, float c1,
-                                 float c2, int nx, int n) {
-  const long long ncell = (long long)nx * n * n;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= ncell) return;
-  const float am = a[c];
-  const bool fluid = am > 0.f;
-  const float mid = fluid ? zv[c] : 0.f;
-  float az = 0.f;
-  if (fluid) {
-    const int x = (int)(c / ((long long)n * n));
-    const int y = (int)((c / n) % n);
-    const int z = (int)(c % n);
-    az = laplacian_at(zv, a, c, x, y, z, nx, n, am, mid, scale);
+// A block of K4 is kTileZ x kTileY threads, one per (z, y) column of its
+// tile (threadIdx.x along z: a warp is 32 consecutive cells of a row).  The
+// outer ring of S cells is computed for the inner columns, whose cells are
+// written.
+constexpr int kTileZ = 32;
+constexpr int kTileY = 16;
+constexpr int kTileThreads = kTileZ * kTileY;
+constexpr int kMaxChebSteps = 4;
+// planes whose loads are in flight ahead of the one being staged
+constexpr int kPrefetch = 2;
+
+// A thread's pointer into a field along x: its column's cell of plane x
+// (-h <= x < nx + h), or null where that plane is null or the column lies
+// outside the box (inb false), which reads 0.
+__device__ __forceinline__ const float* column(const SlabField& f, int x,
+                                               int nx, int h, long long plane,
+                                               int yz, bool inb) {
+  const float* base = x < 0 ? f.lo : x < nx ? f.mid : f.hi;
+  if (!inb || base == nullptr) return nullptr;
+  const int k = x < 0 ? x + h : x < nx ? x : x - nx;
+  return base + (long long)k * plane + yz;
+}
+
+// Move a column pointer from plane x_next - 1 to x_next.  x is the same for
+// the whole block, so only the null test is per thread.
+__device__ __forceinline__ void advance(const float*& c, const SlabField& f,
+                                        int x_next, int nx, long long plane,
+                                        int yz, bool inb) {
+  if (x_next == 0)
+    c = inb && f.mid ? f.mid + yz : nullptr;
+  else if (x_next == nx)
+    c = inb && f.hi ? f.hi + yz : nullptr;
+  else if (c)
+    c += plane;
+}
+
+__device__ __forceinline__ float load(const float* c) {
+  return c ? __ldg(c) : 0.f;
+}
+
+// The planes per block: enough chunks of x that one wave of blocks (all
+// resident at once) fills the card, but at least min_rows planes a chunk.
+// wave caches the kernel's blocks in one wave (each launcher keeps its own).
+template <typename Kernel>
+int chunk_rows(Kernel kernel, int& wave, long long tiles, int nx,
+               int min_rows) {
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  kTileThreads, 0);
+    wave = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const float resid = r[c] - az;
-  const float pd = fluid ? resid / am : 0.f;
-  const float dnew = c1 * d[c] + c2 * pd;
-  dn[c] = dnew;
-  zn[c] = mid + dnew;
+  long long chunks = wave / tiles;
+  if (chunks < 1) chunks = 1;
+  int rows = (int)((nx + chunks - 1) / chunks);
+  if (rows < min_rows) rows = min_rows;
+  return rows < nx ? rows : nx;
+}
+
+struct ChebCoefs {
+  float c1[kMaxChebSteps];
+  float c2[kMaxChebSteps];
+};
+
+// K4: S steps on rows [x0, x0 + rows).  Plane step i (from x0 - S to
+// x1 + S - 1) stages level 0 of plane i and computes level k of plane i - k
+// for k = 1..S (see the note at the top).  Per thread: aw[k], rw[k] are
+// adiag and r of plane i - k; qw[k] holds level k's masked z of planes
+// i - k - 2, i - k - 1, i - k; dw[k] level k's d of plane i - 1 - k (the
+// previous plane step's).  Level k is valid at least k cells inside the
+// tile's edge (ring >= k) and skipped elsewhere; a thread skipped at level
+// k is skipped above it too.
+template <int S, bool kJacobi>
+__global__ void __launch_bounds__(kTileThreads)
+    cheb_steps_kernel(SlabField zf, SlabField df, SlabField rf, SlabField af,
+                      float* __restrict__ zn, float* __restrict__ dn,
+                      ChebCoefs cf, float scale, float inv_theta, int nx,
+                      int n, int rows) {
+  __shared__ float sq[S][2][kTileY][kTileZ];
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int z = blockIdx.x * (kTileZ - 2 * S) - S + tz;
+  const int y = blockIdx.y * (kTileY - 2 * S) - S + ty;
+  const int x0 = blockIdx.z * rows;
+  const int x1 = min(nx, x0 + rows);
+  const bool inb = y >= 0 && y < n && z >= 0 && z < n;
+  const int ring = min(min(tz, kTileZ - 1 - tz), min(ty, kTileY - 1 - ty));
+  const bool own = inb && ring >= S;
+  const int yz = inb ? y * n + z : 0;
+  const long long plane = (long long)n * n;
+  float* oz = zn + (long long)x0 * plane + yz;
+  float* od = dn ? dn + (long long)x0 * plane + yz : nullptr;
+  const int first = x0 - S, last = x1 + S - 1;   // staged planes
+  const float* ca = column(af, first, nx, S, plane, yz, inb);
+  const float* cr = column(rf, first, nx, S, plane, yz, inb);
+  const float* cz =
+      kJacobi ? nullptr : column(zf, first, nx, S, plane, yz, inb);
+  const float* cd =
+      kJacobi ? nullptr : column(df, first, nx, S, plane, yz, inb);
+  int xl = first;
+  float pf_a[kPrefetch], pf_r[kPrefetch], pf_z[kPrefetch], pf_d[kPrefetch];
+  // the loads of the cursors' plane into slot j, then the cursors moved on
+  auto fetch = [&](int j) {
+    pf_a[j] = load(ca);
+    pf_r[j] = load(cr);
+    if (!kJacobi) {
+      pf_z[j] = load(cz);
+      pf_d[j] = load(cd);
+    }
+    ++xl;
+    advance(ca, af, xl, nx, plane, yz, inb);
+    advance(cr, rf, xl, nx, plane, yz, inb);
+    if (!kJacobi) {
+      advance(cz, zf, xl, nx, plane, yz, inb);
+      advance(cd, df, xl, nx, plane, yz, inb);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kPrefetch; ++j) {
+    pf_a[j] = pf_r[j] = pf_z[j] = pf_d[j] = 0.f;
+    if (xl <= last) fetch(j);
+  }
+  float aw[S + 1], rw[S + 1], qw[S][3], dw[S];
+#pragma unroll
+  for (int k = 0; k <= S; ++k) aw[k] = rw[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < S; ++k) qw[k][0] = qw[k][1] = qw[k][2] = dw[k] = 0.f;
+  for (int i0 = first; i0 <= last; i0 += kPrefetch) {
+#pragma unroll
+    for (int j = 0; j < kPrefetch; ++j) {
+      const int i = i0 + j;
+      if (i > last) break;
+#pragma unroll
+      for (int k = S; k > 0; --k) {
+        aw[k] = aw[k - 1];
+        rw[k] = rw[k - 1];
+      }
+      aw[0] = pf_a[j];
+      rw[0] = pf_r[j];
+      float z0, d0;
+      if (kJacobi) {
+        d0 = (aw[0] > 0.f ? rw[0] / aw[0] : 0.f) * inv_theta;
+        z0 = d0;
+      } else {
+        z0 = pf_z[j];
+        d0 = pf_d[j];
+      }
+      if (xl <= last) fetch(j);
+      float dnew[S];
+      {  // level 0 of plane i
+        const float q0 = aw[0] > 0.f ? z0 : 0.f;
+        sq[0][i & 1][ty][tz] = q0;
+        qw[0][0] = qw[0][1];
+        qw[0][1] = qw[0][2];
+        qw[0][2] = q0;
+        dnew[0] = d0;
+      }
+#pragma unroll
+      for (int k = 1; k <= S; ++k) {  // level k of plane i - k
+        if (k < S) dnew[k] = 0.f;
+        if (ring < k) continue;
+        const float am = aw[k];
+        const bool fluid = am > 0.f;
+        const float mid = qw[k - 1][1];
+        float az = 0.f;
+        if (fluid) {
+          const float(*b)[kTileZ] = sq[k - 1][(i - 1) & 1];
+          const float s = ((((qw[k - 1][0] + qw[k - 1][2]) + b[ty - 1][tz]) +
+                            b[ty + 1][tz]) +
+                           b[ty][tz - 1]) +
+                          b[ty][tz + 1];
+          az = am * mid - scale * s;
+        }
+        const float resid = rw[k] - az;
+        const float pd = fluid ? resid / am : 0.f;
+        const float dv = cf.c1[k - 1] * dw[k - 1] + cf.c2[k - 1] * pd;
+        const float zv = mid + dv;
+        if (k < S) {
+          const float qk = fluid ? zv : 0.f;
+          sq[k][i & 1][ty][tz] = qk;
+          qw[k][0] = qw[k][1];
+          qw[k][1] = qw[k][2];
+          qw[k][2] = qk;
+          dnew[k] = dv;
+        } else if (own && i - S >= x0) {
+          *oz = zv;
+          oz += plane;
+          if (od) {
+            *od = dv;
+            od += plane;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < S; ++k) dw[k] = dnew[k];
+      __syncthreads();
+    }
+  }
+}
+
+template <int S, bool kJacobi>
+int launch_cheb_steps(const SlabField* f, float* zn, float* dn,
+                      const ChebCoefs& cf, float scale, float inv_theta,
+                      int nx, int n, cudaStream_t stream) {
+  const auto kernel = cheb_steps_kernel<S, kJacobi>;
+  const dim3 grid((n + kTileZ - 2 * S - 1) / (kTileZ - 2 * S),
+                  (n + kTileY - 2 * S - 1) / (kTileY - 2 * S));
+  static int wave = 0;
+  const int rows =
+      chunk_rows(kernel, wave, (long long)grid.x * grid.y, nx, 2 * S);
+  const dim3 blocks(grid.x, grid.y, (nx + rows - 1) / rows);
+  kernel<<<blocks, dim3(kTileZ, kTileY), 0, stream>>>(
+      f[0], f[1], f[2], f[3], zn, dn, cf, scale, inv_theta, nx, n, rows);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_cheb_steps(bool jacobi, const SlabField* f, float* zn, float* dn,
+                      const ChebCoefs& cf, float scale, float inv_theta,
+                      int nx, int n, cudaStream_t stream) {
+  return jacobi ? launch_cheb_steps<S, true>(f, zn, dn, cf, scale, inv_theta,
+                                             nx, n, stream)
+                : launch_cheb_steps<S, false>(f, zn, dn, cf, scale, inv_theta,
+                                              nx, n, stream);
 }
 
 __global__ void shift_reduce_kernel(const float* __restrict__ d,
@@ -307,27 +554,59 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// K3 on an (nx, n, n) slab; p_lo, p_hi, a_lo, a_hi are the (n, n) edge
+// planes of p and adiag beside rows 0 and nx - 1, or null (zeros).  rows:
+// the x planes a block computes, <= 0 to fill the card (the wrappers' choice).
+// K3 on an (nx, n, n) slab; p_lo, p_hi, a_lo, a_hi are the (n, n) edge
+// planes of p and adiag beside rows 0 and nx - 1, or null (zeros).
 extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
+                                  const float* p_lo, const float* p_hi,
+                                  const float* a_lo, const float* a_hi,
                                   float* out, float scale, int nx, int n,
                                   void* stream) {
-  const long long ncell = (long long)nx * n * n;
-  if (ncell == 0) return 0;
-  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  apply_laplacian_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      p, adiag, out, scale, nx, n);
+  if (nx <= 0 || n <= 0) return 0;
+  const dim3 blocks((unsigned)((n * n + kCellThreads - 1) / kCellThreads),
+                    (unsigned)nx);
+  apply_laplacian_kernel<<<blocks, kCellThreads, 0, (cudaStream_t)stream>>>(
+      SlabField{p, p_lo, p_hi}, SlabField{adiag, a_lo, a_hi}, out, scale, nx,
+      n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fs_cheb_step(const float* z, const float* adiag,
-                            const float* r, const float* d, float* dn,
-                            float* zn, float scale, float c1, float c2,
-                            int nx, int n, void* stream) {
-  const long long ncell = (long long)nx * n * n;
-  if (ncell == 0) return 0;
-  const unsigned blocks = (unsigned)((ncell + kThreads - 1) / kThreads);
-  cheb_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      z, adiag, r, d, dn, zn, scale, c1, c2, nx, n);
-  return (int)cudaGetLastError();
+// K4: steps (1..kMaxChebSteps) Chebyshev steps on an (nx, n, n) slab.
+// fields: 12 pointers, (mid, lo, hi) of z, d, r and adiag in that order, each
+// lo / hi `steps` (n, n) planes or null (zeros); a null z (and d) starts
+// from the Jacobi term with 1/theta = inv_theta.  coefs: (c1, c2) of each
+// step, on the host.  zn gets z after the steps, dn (if not null) d'.
+extern "C" int fs_cheb_steps(const float* const* fields, float* zn, float* dn,
+                             const float* coefs, int steps, float scale,
+                             float inv_theta, int nx, int n, void* stream) {
+  if (steps < 1 || steps > kMaxChebSteps) return (int)cudaErrorInvalidValue;
+  if (nx <= 0 || n <= 0) return 0;
+  SlabField f[4];
+  for (int k = 0; k < 4; ++k)
+    f[k] = SlabField{fields[3 * k], fields[3 * k + 1], fields[3 * k + 2]};
+  ChebCoefs cf = {};
+  for (int k = 0; k < steps; ++k) {
+    cf.c1[k] = coefs[2 * k];
+    cf.c2[k] = coefs[2 * k + 1];
+  }
+  const bool jacobi = f[0].mid == nullptr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (steps) {
+    case 1:
+      return launch_cheb_steps<1>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
+                                  n, st);
+    case 2:
+      return launch_cheb_steps<2>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
+                                  n, st);
+    case 3:
+      return launch_cheb_steps<3>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
+                                  n, st);
+    default:
+      return launch_cheb_steps<4>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
+                                  n, st);
+  }
 }
 
 extern "C" int fs_shift_reduce(const float* d, float* out, int n,

@@ -74,10 +74,14 @@ _SIGNATURES = {
     "fs_bucket_move": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, _P),
-    "fs_apply_laplacian": (_P, _P, _P, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, _P),
-    "fs_cheb_step": (_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
-                     ctypes.c_float, ctypes.c_int, ctypes.c_int, _P),
+    # K3: p, adiag, their four edge planes (or null), out, scale, nx, n,
+    # stream
+    "fs_apply_laplacian": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                           ctypes.c_int, ctypes.c_int, _P),
+    # K4: the 12 field pointers, zn, dn, the host (c1, c2) pairs, steps,
+    # scale, 1/theta, nx, n, stream
+    "fs_cheb_steps": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lib: ctypes.CDLL | None = None

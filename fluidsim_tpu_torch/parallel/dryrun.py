@@ -176,7 +176,7 @@ def _counted():
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
     return (tk.p2g_scatter, tk.chunk_fill, tk.g2p_gather, sk.apply_laplacian,
-            sk.cheb_step, tk.p2g_scatter_force, tk.g2p_gather_gw)
+            sk.cheb_steps, tk.p2g_scatter_force, tk.g2p_gather_gw)
 
 
 def _timed_frames(sim, warm: int, frames: int, device: str):
@@ -345,7 +345,7 @@ def _sync_local(device: str):
 # ---- rank functions of the tests (tests/test_torch_*.py) ------------------
 
 def halo_rank(rank: int, world: int, device: str, path: str):
-    """Apply the four halo primitives to this rank's block of the arrays in
+    """Apply the halo primitives to this rank's block of the arrays in
     ``path`` (npz: ``slab`` (world*nl, ...), ``ext`` (world*(nl+2w), ...),
     ``payload``, ``send_left``, ``send_right`` (world*P, ...), ``width``,
     ``capacity``) and write the results to ``path`` + ``.rank<r>.npz``."""
@@ -360,7 +360,11 @@ def halo_rank(rank: int, world: int, device: str, path: str):
     f = cap
     inc_b, val_b = halo.migrate_edge_bands(pay[:f], sl[:f], pay[-f:], sr[-f:])
     inc_n, val_n, dropped = halo.migrate_neighbors(pay, sl, sr, cap)
+    (lo, hi), = halo.edge_rows([block("slab")], w)
+    none = np.zeros((0,), np.float32)
     np.savez(f"{path}.rank{rank}.npz", exchange=ext.numpy(),
+             edge_lo=none if lo is None else lo.numpy(),
+             edge_hi=none if hi is None else hi.numpy(),
              reduce=red.numpy(), bands=inc_b.numpy(), bands_valid=val_b.numpy(),
              neighbours=inc_n.numpy(), neighbours_valid=val_n.numpy(),
              dropped=int(dropped))

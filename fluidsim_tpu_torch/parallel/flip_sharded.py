@@ -11,8 +11,10 @@ between ranks is
 
 * the 2-row halo of the P2G sums (``halo_reduce``) and of the G2P's delta
   field (``exchange_halo``),
-* a 1-row ghost refresh of each stencil apply of the pressure solve, and
-  1-row halos of the projection's fields,
+* the edge rows that K3 and K4 read beside the pressure solve's slab
+  operands (one row of ``p`` per apply, the preconditioner's ``r`` per
+  call, the diagonal per solve), and 1-row halos of the projection's
+  fields,
 * all-reduces of the CG dot products (two per iteration in one), of the
   outer pass's norms, of the CFL speed and of the metrics,
 * the migration of the particles that crossed a slab edge.
@@ -21,24 +23,25 @@ A frame is the single-device frame (``models/flip.py``) on the slab:
 
   sort by slab cell (dead slots last) -> P2G (K1 on the (nl + 4, n, n)
   slab, then halo_reduce) -> projection do-while (PCG on the (nl, n, n)
-  slab with K3 applies and K4 Chebyshev steps on (nl + 2, n, n) operands
-  with 1-row ghosts, or Jacobi) -> G2P (K2 on the slab, the alive prefix
-  only) -> CFL dt -> advection with bounce -> migration (edge bands with a
-  tail insert, or ``migrate_neighbors``)
+  slab with K3 applies and one K4 launch per preconditioner call, each
+  reading its operands' neighbour edge rows in place, or Jacobi) -> G2P
+  (K2 on the slab, the alive prefix only) -> CFL dt -> advection with
+  bounce -> migration (edge bands with a tail insert, or
+  ``migrate_neighbors``)
 
 At world size 1 the frame is the single-device frame's, bit for bit in
-its state: the same sums in the same order, the ghost rows of the solve
-zeros that read as the outside of the box.
+its state: the same sums in the same order, the solve's edge planes null,
+read as the outside of the box.
 
 Every predicate read on the host (the CG and outer-loop tests, the dt read
 for the stencil scale) reads an all-reduced value, the same on every rank,
 so no rank leaves a loop while another waits in a collective.
 
 The TPU path's packed solve layout (8-row alignment, lane halos,
-``pick_layout``) and its haloed ids are not needed here: the solve's ghost
-rows are the first and last rows of a dense (nl + 2, n, n) operand, whose
-outputs the caller drops, and the ids are the slab's plain
-``(x*n + y)*n + z``.  The ``upto`` profiling hook has no counterpart.
+``pick_layout``) and its haloed ids are not needed here: the solve's
+kernels take the neighbours' edge rows beside the dense (nl, n, n) slab,
+and the ids are the slab's plain ``(x*n + y)*n + z``.  The ``upto``
+profiling hook has no counterpart.
 """
 
 from __future__ import annotations
@@ -64,8 +67,9 @@ from fluidsim_tpu_torch.ops import stencil_kernels as sk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.ops.pcg import pcg
 from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
-from fluidsim_tpu_torch.parallel.halo import (all_reduce, exchange_halo,
-                                              halo_reduce, migrate_edge_bands,
+from fluidsim_tpu_torch.parallel.halo import (all_reduce, edge_rows,
+                                              exchange_halo, halo_reduce,
+                                              migrate_edge_bands,
                                               migrate_neighbors, world)
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
@@ -261,25 +265,35 @@ def migrate(slab: Slab, payload, alive, dead_row, cap: int, mig_cap: int,
 
 def _slab_solve(params: FlipParams, slab: Slab, adiag, scale: float):
     """The per-rank PCG of the projection, with all-reduced dot products.
-    Preconditioner: Chebyshev with K4 steps, or Jacobi.
+    Preconditioner: Chebyshev on K4, or Jacobi.
 
     The CG vectors are the (nl, n, n) slab, so the dot products sum its
-    rows once (at world size 1 as the single-device solve does).  Each K3
-    apply and K4 step runs on an (nl + 2, n, n) operand built per call with
-    the neighbours' edge rows around it (``exchange_halo``, zeros at the
-    domain ends), and the output's ghost rows are dropped.  The diagonal's
-    ghost rows hold the neighbours' diagonal, so K3 and K4 mask across the
-    slab edges with the true fluid flags; at a domain end they are 0, and a
-    ghost cell reads as a cell outside the box."""
-    nl = slab.nl
-    ghost = lambda q: slab.halo(q, 1)
-    adiag_ext = ghost(adiag)
-    apply_a = lambda p: sk.apply_laplacian(ghost(p), adiag_ext,
-                                           scale)[1:nl + 1]
-    if params.preconditioner == "chebyshev":
+    rows once (at world size 1 as the single-device solve does).  K3 and K4
+    read their operands' neighbour edge rows where they lie
+    (``halo.edge_rows``; None, read as 0, at a domain end and at world size
+    1): the diagonal's once per solve, as deep as a K4 launch's steps (so
+    the kernels mask across the slab edges with the true fluid flags), one
+    row of ``p`` per K3 apply, and the preconditioner's ``r`` once per call
+    (its ``z`` and ``d`` too before a second launch, above degree
+    ``S_MAX + 1``).  So a CG iteration exchanges twice: ``p``, then
+    ``r``."""
+    edges = lambda ts, width: edge_rows(ts, width, slab.group)
+    chebyshev = params.preconditioner == "chebyshev"
+    (a_lo, a_hi), = edges([adiag], min(sk.S_MAX, slab.nl) if chebyshev
+                          else 1)
+    row = lambda t, i: None if t is None else t[i]
+    a_planes = (row(a_lo, -1), row(a_hi, 0))
+
+    def apply_a(p):
+        (p_lo, p_hi), = edges([p], 1)
+        return sk.apply_laplacian(p, adiag, scale,
+                                  ghost=(row(p_lo, 0), row(p_hi, 0),
+                                         *a_planes))
+
+    if chebyshev:
         precond = sk.chebyshev_precond_fused(
-            adiag_ext, scale, degree=params.cheb_degree,
-            ratio=params.cheb_ratio, ghost=ghost)
+            adiag, scale, degree=params.cheb_degree, ratio=params.cheb_ratio,
+            edges=edges, adiag_edges=(a_lo, a_hi))
     else:
         fluid = adiag > 0
         safe = torch.where(fluid, adiag, 1.0)

@@ -88,6 +88,22 @@ def exchange_halo(slab: torch.Tensor, width: int, group=None, dim: int = 0):
     return torch.cat([from_left, slab, from_right], dim=dim)
 
 
+def edge_rows(slabs: Sequence[torch.Tensor], width: int, group=None):
+    """The neighbours' edge rows of each (nl, ..) tensor of ``slabs`` along
+    dim 0, in one batch and without building a tensor with a halo: a list
+    of ``(lo, hi)``, ``lo`` rank r - 1's last ``width`` rows and ``hi`` rank
+    r + 1's first ``width`` rows, None at a domain end (the stencil kernels
+    read it as 0).  At world size 1 nothing is sent and every pair is
+    ``(None, None)``."""
+    rank, size = world(group)
+    if size == 1:
+        return [(None, None)] * len(slabs)
+    lo, hi = shift_pair([t[:width] for t in slabs],
+                        [t[t.shape[0] - width:] for t in slabs], group)
+    return [(l if rank > 0 else None, h if rank < size - 1 else None)
+            for l, h in zip(lo, hi)]
+
+
 def halo_reduce(ext: torch.Tensor, width: int, group=None, dim: int = 0):
     """(.., nl + 2 width, ..) -> (.., nl, ..) along ``dim``: the halo rows
     folded back into the neighbours that own them, the scatter side of

@@ -271,7 +271,7 @@ def test_multigrid_launches_six_k3_per_iteration(monkeypatch):
     and no K4 call."""
     scene, velg, fluid, solid, p0 = _grid(8)
     calls = {"k3": 0, "k4": 0}
-    k3, k4 = sk.apply_laplacian, sk.cheb_step
+    k3, k4 = sk.apply_laplacian, sk.cheb_steps
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -280,7 +280,7 @@ def test_multigrid_launches_six_k3_per_iteration(monkeypatch):
         return wrapped
 
     monkeypatch.setattr(sk, "apply_laplacian", count("k3", k3))
-    monkeypatch.setattr(sk, "cheb_step", count("k4", k4))
+    monkeypatch.setattr(sk, "cheb_steps", count("k4", k4))
     params = tflip.FlipParams(bound=8, wall=scene.spec.wall, gravity=G,
                               preconditioner="multigrid")
     _, _, n_outer, cg, _, _ = tflip.project(

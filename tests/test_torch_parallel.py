@@ -7,11 +7,18 @@
   (4 rows, gw), K3 and K4 on an (nx, n, n) slab, bit for bit against the
   cube versions on the slab embedded in a cube whose cells outside it are
   0; dead slots past the alive prefix reach neither K1 nor K2;
-* ``pcg(reduce_fn=...)``: the stacked reduction keeps the local sums.
+* ``pcg(reduce_fn=...)``: the stacked reduction keeps the local sums;
+* the sharded solve's stencils (K3, the Chebyshev preconditioner on K4)
+  reading the neighbours' edge rows in place, on slabs of 2-5 rows run as
+  threads of this process that exchange through shared memory: bit for
+  bit the cube's, and the operand path the solve took before (each
+  operand built with its ghost rows, the outputs cut back).
 
 Spawned ranks run ``fluidsim_tpu_torch.parallel.dryrun``'s functions, one
 thread each, under a time limit of their own (``run_ranks``).
 """
+
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +92,14 @@ def test_halo_primitives_match_jax(world, tmp_path):
             np.testing.assert_array_equal(np.asarray(got[name]).reshape(-1),
                                           blocks[r].reshape(-1),
                                           err_msg=f"rank {r} {name}")
+        # edge_rows: exchange_halo's ghost rows, None at a domain end
+        for key, rows, end in (("edge_lo", slice(0, w), r == 0),
+                               ("edge_hi", slice(-w, None), r == world - 1)):
+            if end:
+                assert got[key].size == 0, f"rank {r} {key}"
+            else:
+                np.testing.assert_array_equal(got[key], jout[0][r][rows],
+                                              err_msg=f"rank {r} {key}")
     # rank 0's left link and the last rank's right link are domain ends
     first = np.load(f"{path}.rank0.npz")
     assert (first["exchange"][:w] == 0).all()
@@ -238,6 +253,129 @@ def test_chunk_fill_plain_skips_dead_slots():
     assert torch.equal(first[:nch + 1], live_first[:nch + 1])
     assert torch.equal(cell[:nch + 1], live_cell[:nch + 1])
     assert int(first[nch]) == 500 and int(cell[nch]) == NX * N * N
+
+
+# ---- the slab solve's stencils on threaded ranks ---------------------------
+
+class _ThreadRanks:
+    """``size`` ranks as threads of this process: ``edges(rank)`` is a
+    ``halo.edge_rows`` for that rank, its rows handed over in shared
+    memory between two barriers."""
+
+    def __init__(self, size):
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=SPAWN_TIMEOUT_S)
+        self.posted = [None] * size
+
+    def edges(self, rank):
+        def exchange(tensors, width):
+            self.posted[rank] = [(t[:width].clone(),
+                                  t[t.shape[0] - width:].clone())
+                                 for t in tensors]
+            self.barrier.wait()
+            out = [(self.posted[rank - 1][k][1] if rank > 0 else None,
+                    self.posted[rank + 1][k][0] if rank < self.size - 1
+                    else None) for k in range(len(tensors))]
+            self.barrier.wait()
+            return out
+        return exchange
+
+    def run(self, fn):
+        """``fn(rank, edges)`` on every rank at once; their results."""
+        out, errors = [None] * self.size, []
+
+        def body(rank):
+            try:
+                out[rank] = fn(rank, self.edges(rank))
+            except BaseException as e:   # re-raised below
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SPAWN_TIMEOUT_S)
+        if errors:
+            raise errors[0]
+        assert not any(t.is_alive() for t in threads), "a rank did not finish"
+        return out
+
+
+def _operand_precond(adiag, scale, degree, ghost):
+    """The sharded Chebyshev preconditioner as the solve ran it before:
+    ``r`` padded with zero rows, and every step on (nl + 2)-row operands,
+    ``z`` with its neighbours' rows refreshed before each step (``ghost``),
+    the result cut back."""
+    theta, coefs = sk.cheb_coefs(degree)
+    fluid = adiag > 0
+    safe = torch.where(fluid, adiag, 1.0)
+
+    def precond(r):
+        r = torch.nn.functional.pad(r, (0, 0, 0, 0, 1, 1))
+        d = torch.where(fluid, r / safe, 0.0) * (1.0 / theta)
+        z = d
+        for c1, c2 in coefs:
+            d, z = sk.cheb_step_plain(ghost(z[1:-1]), adiag, r, d, scale, c1,
+                                      c2)
+        return z[1:-1]
+
+    return precond
+
+
+@pytest.mark.parametrize("degree", [3, 4])
+@pytest.mark.parametrize("nl", [2, 3, 4, 5])
+def test_slab_stencils_on_threaded_ranks_match_cube(nl, degree):
+    """A 9^3 cube cut into slabs of ``nl`` rows (the last one running past
+    the box, as ``Slab`` cuts it), one thread per rank: K3 with one edge
+    row of p and adiag, and the preconditioner exchanging ``r`` (and ``z``,
+    ``d`` between launches: with nl < 3 at degree 4 a launch takes nl
+    steps), bit for bit the cube's and the operand path's."""
+    n, scale = 9, 0.37
+    size = -(-n // nl)
+    rng = np.random.default_rng(100 * nl + degree)
+    rows = size * nl
+    ad = rng.uniform(0.5, 6.0, (rows, n, n)).astype(np.float32)
+    ad[rng.random(ad.shape) < 0.3] = 0.0
+    ad[n:] = 0.0
+    p, r = (np.where(ad > 0, rng.normal(size=ad.shape), 0.0)
+            .astype(np.float32) for _ in range(2))
+    ad, p, r = map(torch.as_tensor, (ad, p, r))
+    cube_ap = sk.apply_laplacian(p[:n].contiguous(), ad[:n].contiguous(),
+                                 scale)
+    cube_z = sk.chebyshev_precond_fused(ad[:n].contiguous(), scale,
+                                        degree=degree)(r[:n].contiguous())
+    ranks = _ThreadRanks(size)
+
+    def rank_fn(rank, edges):
+        s = slice(rank * nl, (rank + 1) * nl)
+        a_s, p_s, r_s = (t[s].contiguous() for t in (ad, p, r))
+        depth = min(sk.S_MAX, nl)
+        (a_lo, a_hi), = edges([a_s], depth)
+        (p_lo, p_hi), = edges([p_s], 1)
+        first = lambda t, i: None if t is None else t[i]
+        ap = sk.apply_laplacian(p_s, a_s, scale,
+                                ghost=(first(p_lo, 0), first(p_hi, 0),
+                                       first(a_lo, -1), first(a_hi, 0)))
+        z = sk.chebyshev_precond_fused(a_s, scale, degree=degree,
+                                       edges=edges,
+                                       adiag_edges=(a_lo, a_hi))(r_s)
+
+        def ghost(q):
+            (lo, hi), = edges([q], 1)
+            zero = q.new_zeros((1,) + tuple(q.shape[1:]))
+            return torch.cat([zero if lo is None else lo, q,
+                              zero if hi is None else hi])
+
+        z_old = _operand_precond(ghost(a_s), scale, degree, ghost)(r_s)
+        return ap, z, z_old
+
+    out = ranks.run(rank_fn)
+    ap, z, z_old = (torch.cat([o[k] for o in out]) for k in range(3))
+    _equal(ap[:n], cube_ap)
+    _equal(z[:n], cube_z)
+    _equal(z, z_old)
 
 
 def test_pcg_reduce_fn_keeps_the_local_sums():

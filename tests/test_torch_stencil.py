@@ -11,6 +11,12 @@ f32 stencil whose six-term sum XLA may order or contract differently: atol
 Chebyshev preconditioner chain a few such steps: atol 1e-6, rtol 1e-5 on the
 unit-scale fields used here.  CG stops on a squared-residual threshold, so
 iteration counts must agree exactly and solutions to atol 1e-5.
+
+Where the port is compared with itself it is bit for bit: K3 and K4 with
+the neighbours' edge planes beside a slab against the operand that the
+sharded solve built before (the slab with its ghost rows, the output cut
+back), the S-step ``cheb_steps`` against as many composed steps, and the
+preconditioner's launches split at any step count.
 """
 
 import numpy as np
@@ -89,7 +95,7 @@ def test_cheb_step_matches_pallas(system):
                                atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("degree", [2, 3, 4])
+@pytest.mark.parametrize("degree", [2, 3, 4, 5])
 def test_chebyshev_precond_fused_matches_pallas(system, degree):
     spec, _, _, ad, (r, _, _) = system
     n = spec.n
@@ -141,13 +147,150 @@ def test_pcg_matches_jax(system, precond):
 
 def test_wrappers_take_the_plain_version_on_cpu_only(system):
     _, _, _, ad, (z, r, d) = system
-    before = (sk.apply_laplacian.launches, sk.cheb_step.launches)
+    before = (sk.apply_laplacian.launches, sk.cheb_steps.launches)
     np.testing.assert_array_equal(
         sk.apply_laplacian(_t(z), _t(ad), SCALE).numpy(),
         sk.apply_laplacian_plain(_t(z), _t(ad), SCALE).numpy())
-    assert (sk.apply_laplacian.launches, sk.cheb_step.launches) == before
+    assert (sk.apply_laplacian.launches, sk.cheb_steps.launches) == before
     meta = [_t(a).to("meta") for a in (z, ad, r, d)]
     with pytest.raises(ValueError):
         sk.apply_laplacian(meta[0], meta[1], SCALE)
     with pytest.raises(ValueError):
         sk.cheb_step(*meta, SCALE, 0.5, 0.5)
+
+
+# ---- edge planes and S steps, the port against itself, bit for bit ---------
+
+N_G = 9      # the cube of the edge-plane cases
+X0 = 2       # the slab's first row in it
+
+
+def _field(rng, shape, mask=False):
+    if mask:
+        a = rng.uniform(0.5, 6.0, shape).astype(np.float32)
+        a[rng.random(shape) < 0.3] = 0.0
+        return torch.as_tensor(a)
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+
+def _equal(a, b):
+    assert torch.equal(a, b) and torch.equal(torch.signbit(a),
+                                             torch.signbit(b))
+
+
+def _edges(cube, x0, nl, depth, real):
+    """The ``depth`` rows of ``cube`` on either side of rows [x0, x0 + nl),
+    or None (zeros) where ``real`` is False."""
+    if not real:
+        return None, None
+    return (cube[x0 - depth:x0].contiguous(),
+            cube[x0 + nl:x0 + nl + depth].contiguous())
+
+
+def _operand(slab, lo, hi, depth=1):
+    """The slab with its ``depth`` ghost rows on each side (zeros for
+    None): the operand the sharded solve built per call before."""
+    zero = slab.new_zeros((depth,) + tuple(slab.shape[1:]))
+    return torch.cat([zero if lo is None else lo, slab,
+                      zero if hi is None else hi])
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["zero", "neighbours"])
+@pytest.mark.parametrize("nl", [2, 3, 4, 5])
+def test_apply_laplacian_edge_planes_match_operand_path(nl, real):
+    rng = np.random.default_rng(10 * nl + real)
+    p = _field(rng, (N_G,) * 3)
+    ad = _field(rng, (N_G,) * 3, mask=True)
+    s = slice(X0, X0 + nl)
+    p_lo, p_hi = _edges(p, X0, nl, 1, real)
+    a_lo, a_hi = _edges(ad, X0, nl, 1, real)
+    ghost = tuple(None if t is None else t[0]
+                  for t in (p_lo, p_hi, a_lo, a_hi))
+    out = sk.apply_laplacian(p[s].contiguous(), ad[s].contiguous(), SCALE,
+                             ghost=ghost)
+    ref = sk.apply_laplacian(_operand(p[s], p_lo, p_hi),
+                             _operand(ad[s], a_lo, a_hi), SCALE)[1:-1]
+    _equal(out, ref)
+    if real:   # the slab of the cube, as the cube computes it
+        _equal(out, sk.apply_laplacian(p, ad, SCALE)[s])
+    else:      # null planes read 0: no ghost at all
+        _equal(out, sk.apply_laplacian(p[s].contiguous(), ad[s].contiguous(),
+                                       SCALE))
+
+
+@pytest.mark.parametrize("real", [False, True], ids=["zero", "neighbours"])
+@pytest.mark.parametrize("nl", [2, 3, 4, 5])
+def test_cheb_step_edge_planes_match_operand_path(nl, real):
+    """One step from a given (z, d), with one edge row of every field: the
+    slab's rows of the step on the operand, d' included."""
+    rng = np.random.default_rng(20 * nl + real)
+    z, r, d = (_field(rng, (N_G,) * 3) for _ in range(3))
+    ad = _field(rng, (N_G,) * 3, mask=True)
+    s = slice(X0, X0 + nl)
+    named = dict(z=z, d=d, r=r, adiag=ad)
+    ghost = {k: _edges(v, X0, nl, 1, real) for k, v in named.items()}
+    zn, dn = sk.cheb_steps(ad[s].contiguous(), r[s].contiguous(), SCALE,
+                           [(0.7, 1.3)], z=z[s].contiguous(),
+                           d=d[s].contiguous(), ghost=ghost, want_d=True)
+    ops = {k: _operand(v[s], *ghost[k]) for k, v in named.items()}
+    dref, zref = sk.cheb_step(ops["z"], ops["adiag"], ops["r"], ops["d"],
+                              SCALE, 0.7, 1.3)
+    _equal(zn, zref[1:-1])
+    _equal(dn, dref[1:-1])
+
+
+@pytest.mark.parametrize("jacobi", [True, False], ids=["jacobi", "given"])
+@pytest.mark.parametrize("steps", [1, 2, 3, 4])
+def test_cheb_steps_match_composed_steps(steps, jacobi):
+    """``cheb_steps`` is its steps composed, on the cube and on a slab of
+    it with ``steps`` edge rows of every field (deeper blocks are cut to
+    the rows next to the slab)."""
+    rng = np.random.default_rng(steps + 7 * jacobi)
+    z, r, d = (_field(rng, (N_G,) * 3) for _ in range(3))
+    ad = _field(rng, (N_G,) * 3, mask=True)
+    coefs = [(float(c1), float(c2))
+             for c1, c2 in rng.uniform(0.3, 1.5, (steps, 2))]
+    theta = 1.0333
+    zc, dc = (sk._jacobi_start(ad, r, theta),) * 2 if jacobi else (z, d)
+    for c1, c2 in coefs:
+        dc, zc = sk.cheb_step(zc, ad, r, dc, SCALE, c1, c2)
+    start = dict(theta=theta) if jacobi else dict(z=z, d=d)
+    zs, ds = sk.cheb_steps(ad, r, SCALE, coefs, want_d=True, **start)
+    _equal(zs, zc)
+    _equal(ds, dc)
+    x0, nl, depth = steps + 1, 2, steps + 1
+    sl = slice(x0, x0 + nl)
+    named = dict(z=z, d=d, r=r, adiag=ad)
+    ghost = {k: _edges(v, x0, nl, depth, True) for k, v in named.items()}
+    start = dict(theta=theta) if jacobi else dict(z=z[sl].contiguous(),
+                                                  d=d[sl].contiguous())
+    zs, ds = sk.cheb_steps(ad[sl].contiguous(), r[sl].contiguous(), SCALE,
+                           coefs, ghost=ghost, want_d=True, **start)
+    _equal(zs, zc[sl])
+    _equal(ds, dc[sl])
+
+
+@pytest.mark.parametrize("degree", [2, 3, 4, 5])
+def test_chebyshev_precond_launch_splits_agree(system, degree, monkeypatch):
+    """Every split of the polynomial's steps into launches gives the same
+    bits, in ceil((degree - 1) / max_steps) ``cheb_steps`` calls of
+    near-equal sizes; by default one call up to degree ``S_MAX + 1``."""
+    _, _, _, ad, (r, _, _) = system
+    tad, tr = _t(ad), _t(np.where(ad > 0, r, 0).astype(np.float32))
+    calls = []
+    steps = sk.cheb_steps
+    monkeypatch.setattr(sk, "cheb_steps", lambda *a, **k: (
+        calls.append(len(a[3])), steps(*a, **k))[1])
+    ref = sk.chebyshev_precond_fused(tad, SCALE, degree=degree,
+                                     max_steps=degree - 1)(tr)
+    assert calls == [degree - 1]
+    for max_steps in [*range(1, degree - 1), None]:
+        calls.clear()
+        kw = {} if max_steps is None else dict(max_steps=max_steps)
+        z = sk.chebyshev_precond_fused(tad, SCALE, degree=degree, **kw)(tr)
+        _equal(z, ref)
+        per = sk.S_MAX if max_steps is None else max_steps
+        assert len(calls) == -(-(degree - 1) // per)
+        assert sum(calls) == degree - 1 and max(calls) - min(calls) <= 1
+    if degree <= sk.S_MAX + 1:
+        assert calls == [degree - 1]
