@@ -178,7 +178,10 @@ group of this process alone (NCCL, a ``file://`` store, destroyed after):
    fluid cells), then bit for bit against its
    order function (K1: ``p2g_scatter_chunked``, K1 fg:
    ``p2g_scatter_force_chunked``, K2 gw: ``g2p_gather_gw_ordered``) or
-   plain version (K2, K3, K4 at degrees 3 and 4 and one step);
+   plain version (K2, K3, K4 at degrees 3 and 4 and one step); and on each
+   solve slab a degree-5 preconditioner in two K4 launches, the second
+   from the given (z, d) with the neighbours' edge rows of z and d, bit for
+   bit the cube's 4 steps on the slab's rows;
 32. ``ShardedFlipSim`` at world size 1 on ``water_cube_drop`` at 129^3
    (1,987,675 particles), 2 warm-up and 10 timed frames against
    ``FlipSim`` on the card frame by frame: kinetic energy within rtol
@@ -1929,7 +1932,7 @@ def _stencil_cases(where, fields, cut, torch):
     from fluidsim_tpu_torch.ops import stencil_kernels as sk
 
     size, rank = cut or (1, 0)
-    sl = _solve_slab(fields, size, rank, sk.MAX_STEPS, torch)
+    sl = _solve_slab(fields, size, rank, sk.S_MAX, torch)
     scale = fields["scale"]
     z, a, r, d = (sl[k] for k in ("z", "adiag", "r", "d"))
     cells = r.numel()
@@ -1997,7 +2000,53 @@ def _stencil_cases(where, fields, cut, torch):
     if cut is not None:
         for v in out.values():
             v["slab"] = where
+        _split_on_slab(where, fields, sl, size, rank, torch)
     return out
+
+
+def _split_on_slab(where, fields, sl, size, rank, torch):
+    """A degree-5 preconditioner on the slab ``sl`` (``_solve_slab``'s cut
+    of ``fields``): its 4 steps in two launches of 2, the second from the
+    given (z, d) with the neighbours' edge rows of z and d, which are the
+    cube's after 2 steps.  Bit for bit the cube's 4 steps on the slab's
+    rows."""
+    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+
+    deg, scale = 5, fields["scale"]
+    theta, coefs = sk.cheb_coefs(deg)
+    adiag, r = fields["adiag"], fields["r"]
+    z2, d2 = sk.cheb_steps_plain(adiag, r, scale, coefs[:2], theta,
+                                 want_d=True)
+    mid = _solve_slab(dict(z=z2, d=d2, adiag=adiag, r=r), size, rank, 2,
+                      torch)
+    # the exchanges the preconditioner makes, in order
+    plan = [(sl, ("adiag",)), (sl, ("r",)), (mid, ("z", "d"))]
+
+    def edges(tensors, width):
+        rows, names = plan.pop(0)
+        if len(names) != len(tensors):
+            raise AssertionError(f"{where}: exchange of {len(tensors)} "
+                                 f"fields, expected {names}")
+        return [tuple(None if t is None else
+                      (t[t.shape[0] - width:] if side == 0 else t[:width])
+                      for side, t in enumerate(rows[k + "_edges"]))
+                for k in names]
+
+    before = sk.cheb_steps.launches
+    got = sk.chebyshev_precond_fused(sl["adiag"], scale, degree=deg,
+                                     edges=edges)(sl["r"])
+    launches = sk.cheb_steps.launches - before
+    if launches != 2 or plan:
+        raise AssertionError(f"{where}: degree {deg} in {launches} launches, "
+                             f"{len(plan)} exchanges not made")
+    nl, x0 = sl["r"].shape[0], rank * sl["r"].shape[0]
+    cube = sk.cheb_steps_plain(adiag, r, scale, coefs, theta)
+    cube = torch.cat([cube, cube.new_zeros((size * nl - cube.shape[0],) +
+                                           tuple(cube.shape[1:]))])
+    _require_bitwise(f"K4 preconditioner, degree {deg} in 2 launches on the "
+                     f"{nl}-row slab ({where}), the second from (z, d) with "
+                     "edge rows, against the cube's steps", got,
+                     cube[x0:x0 + nl], torch)
 
 
 def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
@@ -2657,8 +2706,9 @@ def main() -> int:
     solve_fields = dict(z=z, adiag=adiag, r=r, d=d, scale=scale)
     results.update(_stencil_cases("the 129^3 frame", solve_fields, None,
                                   torch))
-    # above S_MAX steps the preconditioner splits its launches
-    deg = 2 * sk.S_MAX
+    # above S_MAX steps the preconditioner splits its launches: 7 steps in
+    # 3 launches
+    deg = 2 * sk.S_MAX + 2
     theta, coefs = sk.cheb_coefs(deg)
     sk.cheb_steps.launches = 0
     split = sk.chebyshev_precond_fused(adiag, scale, degree=deg)(r)

@@ -22,20 +22,24 @@
 //   Bound on the H100: memory.  2 reads + 1 write of 4 B per cell = 12 B per
 //   cell, 25.8 MB at 129^3 (~7.7 us at 3.35 TB/s), 7.0 MB on a 4-way rank's
 //   33-row slab (~2.1 us).
-//   Design: a thread per cell on a 2-D grid, a block of 256 cells of one x
-//   plane (blockIdx.y), so the plane and its x neighbours' pointers (an
-//   edge plane or null at the slab's ends) are the block's, and y, z come
-//   from a 32-bit index (the port's first K3 divided a 64-bit index).  A
-//   cell outside the fluid reads only its adiag and writes 0; a fluid cell
-//   reads p and adiag at itself and its six neighbours, the y and z ones
-//   mostly from L1.  On the FLIP frame 4.2% of the cells are fluid, so the
-//   kernel moves ~8.2 B a cell.  An x-marching tile (a thread per column of
-//   a 30 x 14 tile, the plane staged and masked once in shared memory, the
-//   x neighbours in registers, loads several planes ahead) was built and
-//   held bit for bit, and was slower on the frame at 129^3 and on a 33-row
-//   slab at every prefetch depth and tile height tried: it stages p for
-//   every cell and serialises a block's planes behind a barrier each, where
-//   this kernel skips p outside the fluid and runs every cell at once.
+//   Design: an x-marching (y, z) tile.  A block owns kLapY x kLapRows rows
+//   of 32 z columns and marches over a chunk of x planes; a thread computes
+//   kLapRows rows of its column.  Each plane of p is staged in shared
+//   memory with the tile's one-cell y/z halo by cp.async while the plane
+//   before is computed, and copied only where adiag > 0 (adiag comes into
+//   registers a plane ahead: only the thread that stages a cell reads it):
+//   outside the fluid, the box and the slab's null edge planes the copy
+//   zero-fills, so the staged plane is the masked q, every value is read
+//   from memory about once and no edge is branched on in the inner loop.
+//   A thread keeps q of planes x - 1, x and x + 1 of its cells in
+//   registers, and the y neighbours of its inner rows too; the sum keeps
+//   its order.  Indices come from blockIdx and the plane loop (no 64-bit
+//   divide).  The x chunk is sized so that one wave of blocks fills the
+//   card, at least kLapMinRows planes (a 33-row slab still fills the 132
+//   SMs).  It is slower than the port's earlier K3, a thread per cell that
+//   read p at fluid cells only, on the frame's data (PERF.md section 6): a
+//   plane step costs a block its loads, copies, a barrier and its loop
+//   whatever the fluid share.
 //
 // K4 fs_cheb_steps replaces fluidsim_tpu/ops/pallas_stencil.py:
 //   cheb_step_padded (_kernel_cheb) and cheb_step_padded_lh
@@ -43,10 +47,11 @@
 //   az = (K3 of z); resid = r - az; pd = adiag > 0 ? resid/adiag : 0;
 //   d' = c1*d + c2*pd; z' = q + d',
 //   and chebyshev_precond_fused (l.532), which chains them: here S of those
-//   steps (1 <= S <= kMaxChebSteps) run in one launch, from a given (z, d),
-//   or from the Jacobi term d0 = (adiag > 0 ? r/adiag : 0) * (1/theta), z0 =
-//   d0 computed in the kernel (no z or d read).  Every input takes h = S
-//   edge planes.  It writes z after the S steps, and d' where asked for.
+//   steps (1 <= S <= kMaxChebSteps = 3) run in one launch, from a given
+//   (z, d), or from the Jacobi term d0 = (adiag > 0 ? r/adiag : 0) *
+//   (1/theta), z0 = d0 computed in the kernel (no z or d read).  Every
+//   input takes h = S edge planes.  It writes z after the S steps, and d'
+//   where asked for.
 //   Bound on the H100: memory.  From the Jacobi start: r and adiag read,
 //   z written, 12 B per cell (25.8 MB at 129^3, ~7.7 us) for the whole
 //   preconditioner; from a given (z, d): 4 reads + 2 writes, 24 B per cell.
@@ -71,7 +76,7 @@
 //   recomputing the lower levels of its L1 ball in registers (no shared
 //   memory, nothing done outside the fluid) was built, held bit for bit,
 //   and was several times slower at S = 2 and 3.  Four steps in one launch
-//   cost more than two launches of two (S_MAX in stencil_kernels.py).
+//   cost more than two launches of two, so a launch takes at most three.
 //
 // K6b fs_shift_reduce replaces fluidsim_tpu/ops/pallas_shift.py:
 //   reduce_haloed (_reduce_kernel), the 27-offset shift-reduce of the
@@ -164,45 +169,185 @@ struct SlabField {
   const float* hi;
 };
 
-// K3: a thread per cell, a block per 256 consecutive cells of one plane x
-// (blockIdx.y), so x and the plane pointers of x - 1 and x + 1 (an edge
-// plane or null at the slab's ends) are the same for the whole block and
-// the cell's y, z come from a 32-bit index.  A cell outside the fluid reads
-// only its adiag; a fluid cell reads p and adiag of itself and its six
-// neighbours, the y and z ones mostly from L1.
-constexpr int kCellThreads = 256;
+// cp.async of one f32 from global memory to the shared address dst; with
+// read false nothing is read and the element is zero-filled (src must
+// still be a valid address).
+__device__ __forceinline__ void stage4(unsigned dst, const float* src,
+                                       bool read) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(read ? 4 : 0));
+}
+// wait for this thread's cp.async copies
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
 
-__global__ void __launch_bounds__(kCellThreads)
-    apply_laplacian_kernel(SlabField p, SlabField a, float* __restrict__ out,
-                           float scale, int nx, int n) {
-  const int nn = n * n;
-  const int yz = blockIdx.x * kCellThreads + threadIdx.x;
-  const int x = blockIdx.y;
-  if (yz >= nn) return;
-  const long long plane = nn;
-  const float* pc = p.mid + x * plane;
-  const float* ac = a.mid + x * plane;
-  const float am = __ldg(ac + yz);
-  float v = 0.f;
-  if (am > 0.f) {
-    const int y = yz / n, z = yz - y * n;
-    const float* pm = x > 0 ? pc - plane : p.lo;
-    const float* a_m = x > 0 ? ac - plane : a.lo;
-    const float* pp = x < nx - 1 ? pc + plane : p.hi;
-    const float* a_p = x < nx - 1 ? ac + plane : a.hi;
-    const auto q = [](const float* pq, const float* aq, int i) {
-      return __ldg(aq + i) > 0.f ? __ldg(pq + i) : 0.f;
-    };
-    const float xm = pm && a_m ? q(pm, a_m, yz) : 0.f;
-    const float xp = pp && a_p ? q(pp, a_p, yz) : 0.f;
-    const float ym = y > 0 ? q(pc, ac, yz - n) : 0.f;
-    const float yp = y < n - 1 ? q(pc, ac, yz + n) : 0.f;
-    const float zm = z > 0 ? q(pc, ac, yz - 1) : 0.f;
-    const float zp = z < n - 1 ? q(pc, ac, yz + 1) : 0.f;
-    const float s = ((((xm + xp) + ym) + yp) + zm) + zp;
-    v = am * __ldg(pc + yz) - scale * s;
+// The planes per block: enough chunks of x that one wave of blocks (all
+// resident at once) fills the card, but at least min_rows planes a chunk.
+// wave caches the kernel's blocks in one wave (each launcher keeps its own).
+template <typename Kernel>
+int chunk_rows(Kernel kernel, int threads, int& wave, long long tiles,
+               int nx, int min_rows) {
+  if (wave == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    wave = sms * (per_sm > 0 ? per_sm : 1);
   }
-  out[x * plane + yz] = v;
+  long long chunks = wave / tiles;
+  if (chunks < 1) chunks = 1;
+  int rows = (int)((nx + chunks - 1) / chunks);
+  if (rows < min_rows) rows = min_rows;
+  return rows < nx ? rows : nx;
+}
+
+// K3: a block of kLapZ x TY threads (TY = kLapY, R = kLapRows) owns a
+// (TY R) x kLapZ (y, z) tile of output columns, a thread R rows of its z
+// column, and marches over a chunk of x planes, rows [x0, x1), staging
+// planes x0 - 1 .. x1.  Tick t: the thread loads adiag of plane first + t
+// at its cells into registers, and issues the cp.async copy of p of plane
+// first + t - 1 into shared memory with the tile's one-cell y/z halo
+// ((TY R + 2) x (kLapZ + 2) cells; each thread copies its own R cells, the
+// first 2 kLapZ + 2 TY R threads one halo cell too), reading p only where
+// its adiag, loaded the tick before, is > 0: outside the fluid, the box or
+// the slab's null edge planes the copy zero-fills, so the staged plane is
+// already masked (q) and no edge is branched on in the inner loop.  After
+// a wait and a barrier, plane j = first + t - 2 has landed and the thread
+// writes plane j - 1: x- and x+ are q of planes j - 2 and j, which it
+// keeps in registers, the y and z neighbours those of plane j - 1, from
+// its own rows' registers or read from the staged tile the tick before.
+// Two staged planes (j, and j + 1 in flight) are all the shared memory.
+constexpr int kLapZ = 32;
+// the fastest on the H100 on the FLIP frame's fields among TY 4-16, R 1-8,
+// 2-64 planes a block and deeper cp.async pipelines
+constexpr int kLapY = 4;        // TY: thread rows of a block
+constexpr int kLapRows = 4;     // R: y rows a thread computes
+constexpr int kLapMinRows = 4;  // the least x planes a block computes
+
+// The (n, n) plane x of a field (-h <= x < nx + h), or null: a null mid, lo
+// or hi plane, which reads 0.  x is the same for the whole block.
+__device__ __forceinline__ const float* plane_at(const SlabField& f, int x,
+                                                 int nx, int h, int plane) {
+  const float* base = x < 0 ? f.lo : x < nx ? f.mid : f.hi;
+  const int k = x < 0 ? x + h : x < nx ? x : x - nx;
+  return base ? base + (long long)k * plane : nullptr;
+}
+
+__global__ void __launch_bounds__(kLapZ * kLapY)
+    apply_laplacian_kernel(SlabField p, SlabField a, float* __restrict__ out,
+                           float scale, int nx, int n, int rows) {
+  constexpr int TY = kLapY, R = kLapRows;
+  constexpr int W = kLapZ + 2, H = TY * R + 2, HW = H * W;
+  constexpr int kHalo = 2 * kLapZ + 2 * (H - 2);
+  static_assert(kHalo <= kLapZ * TY, "one halo cell a thread at most");
+  constexpr int E = R + 1;        // staged cells a thread: R rows + 1 halo
+  __shared__ float sq[2 * HW];    // q of planes j and j + 1
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kLapZ + tz;
+  const int y0 = blockIdx.y * (TY * R) - 1, z0 = blockIdx.x * kLapZ - 1;
+  const int x0 = blockIdx.z * rows, x1 = min(nx, x0 + rows);
+  const int first = x0 - 1, last = x1;
+  const int plane = n * n;
+  // the staged cells of this thread: e < R its rows ty R + e of its
+  // column, e = R a halo cell (threads tid < kHalo); sc[e] the cell's
+  // offset in a staged plane, gyz[e] in a field's plane (-1 outside the box)
+  int sc[E], gyz[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    int ey = ty * R + e + 1, ez = tz + 1;
+    if (e == R) {
+      const int h = tid < kHalo ? tid : 0;
+      if (h < kLapZ) {
+        ey = 0, ez = h + 1;
+      } else if (h < 2 * kLapZ) {
+        ey = H - 1, ez = h - kLapZ + 1;
+      } else if (h < 2 * kLapZ + H - 2) {
+        ey = h - 2 * kLapZ + 1, ez = 0;
+      } else {
+        ey = h - 2 * kLapZ - (H - 2) + 1, ez = W - 1;
+      }
+    }
+    const int gy = y0 + ey, gz = z0 + ez;
+    sc[e] = ey * W + ez;
+    gyz[e] = gy >= 0 && gy < n && gz >= 0 && gz < n ? gy * n + gz : -1;
+    if (e == R && tid >= kHalo) gyz[e] = -1;
+  }
+  const unsigned sq0 = (unsigned)__cvta_generic_to_shared(sq);
+  float* o = out + (long long)x0 * plane + (y0 + ty * R + 1) * n + tz + z0 + 1;
+  // adiag of the thread's cells, loaded a plane ahead of the copy of p it
+  // gates: an of plane first + t (this tick's loads), aq of first + t - 1
+  // (the copy of p issued this tick), and of its rows a1, a2 of planes
+  // first + t - 2, first + t - 3 (the plane written this tick)
+  float an[E], aq[E], a1[R], a2[R];
+  // per row: q of planes j - 2 (qm) and j - 1 (qc), and the z neighbours in
+  // plane j - 1; the y neighbours of the end rows in plane j - 1 (yl, yh)
+  float qm[R], qc[R], zm[R], zp[R], yl = 0.f, yh = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) an[e] = aq[e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    a1[r] = a2[r] = qm[r] = qc[r] = zm[r] = zp[r] = 0.f;
+  const int ticks = last - first + 3;
+  for (int t = 0; t < ticks; ++t) {
+    // p of plane j = first + t - 2 (issued the tick before) has landed
+    stage_wait();
+    __syncthreads();
+    const int xq = first + t - 1, xa = first + t;
+    const bool iq = xq >= first && xq <= last, ia = xa <= last;
+    const float* bq = iq ? plane_at(p, xq, nx, 1, plane) : nullptr;
+    const float* ba = ia ? plane_at(a, xa, nx, 1, plane) : nullptr;
+    const int wq = (t + 1) & 1;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const bool in = gyz[e] >= 0;
+      aq[e] = an[e];
+      an[e] = ba && in ? __ldg(ba + gyz[e]) : 0.f;
+      if (iq && (e < R || tid < kHalo)) {
+        const bool fluid = bq && in && aq[e] > 0.f;
+        stage4(sq0 + 4 * (wq * HW + sc[e]), fluid ? bq + gyz[e] : p.mid,
+               fluid);
+      }
+    }
+    if (t >= 2) {
+      // write plane j - 1
+      const float* b = sq + (t & 1) * HW;
+      float qn[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) qn[r] = b[sc[r]];
+      if (t >= 4) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (gyz[r] < 0) continue;
+          const float am = a2[r];
+          float v = 0.f;
+          if (am > 0.f) {
+            const float ym = r > 0 ? qc[r - 1] : yl;
+            const float yp = r < R - 1 ? qc[r + 1] : yh;
+            const float s = ((((qm[r] + qn[r]) + ym) + yp) + zm[r]) + zp[r];
+            v = am * qc[r] - scale * s;
+          }
+          o[r * n] = v;
+        }
+        o += plane;
+      }
+      yl = b[sc[0] - W];
+      yh = b[sc[R - 1] + W];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        zm[r] = b[sc[r] - 1];
+        zp[r] = b[sc[r] + 1];
+        qm[r] = qc[r];
+        qc[r] = qn[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      a2[r] = a1[r];
+      a1[r] = aq[r];
+    }
+  }
 }
 
 // A block of K4 is kTileZ x kTileY threads, one per (z, y) column of its
@@ -212,7 +357,7 @@ __global__ void __launch_bounds__(kCellThreads)
 constexpr int kTileZ = 32;
 constexpr int kTileY = 16;
 constexpr int kTileThreads = kTileZ * kTileY;
-constexpr int kMaxChebSteps = 4;
+constexpr int kMaxChebSteps = 3;
 // planes whose loads are in flight ahead of the one being staged
 constexpr int kPrefetch = 2;
 
@@ -243,27 +388,6 @@ __device__ __forceinline__ void advance(const float*& c, const SlabField& f,
 
 __device__ __forceinline__ float load(const float* c) {
   return c ? __ldg(c) : 0.f;
-}
-
-// The planes per block: enough chunks of x that one wave of blocks (all
-// resident at once) fills the card, but at least min_rows planes a chunk.
-// wave caches the kernel's blocks in one wave (each launcher keeps its own).
-template <typename Kernel>
-int chunk_rows(Kernel kernel, int& wave, long long tiles, int nx,
-               int min_rows) {
-  if (wave == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                  kTileThreads, 0);
-    wave = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  long long chunks = wave / tiles;
-  if (chunks < 1) chunks = 1;
-  int rows = (int)((nx + chunks - 1) / chunks);
-  if (rows < min_rows) rows = min_rows;
-  return rows < nx ? rows : nx;
 }
 
 struct ChebCoefs {
@@ -415,7 +539,8 @@ int launch_cheb_steps(const SlabField* f, float* zn, float* dn,
                   (n + kTileY - 2 * S - 1) / (kTileY - 2 * S));
   static int wave = 0;
   const int rows =
-      chunk_rows(kernel, wave, (long long)grid.x * grid.y, nx, 2 * S);
+      chunk_rows(kernel, kTileThreads, wave, (long long)grid.x * grid.y,
+                 nx, 2 * S);
   const dim3 blocks(grid.x, grid.y, (nx + rows - 1) / rows);
   kernel<<<blocks, dim3(kTileZ, kTileY), 0, stream>>>(
       f[0], f[1], f[2], f[3], zn, dn, cf, scale, inv_theta, nx, n, rows);
@@ -555,9 +680,6 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // K3 on an (nx, n, n) slab; p_lo, p_hi, a_lo, a_hi are the (n, n) edge
-// planes of p and adiag beside rows 0 and nx - 1, or null (zeros).  rows:
-// the x planes a block computes, <= 0 to fill the card (the wrappers' choice).
-// K3 on an (nx, n, n) slab; p_lo, p_hi, a_lo, a_hi are the (n, n) edge
 // planes of p and adiag beside rows 0 and nx - 1, or null (zeros).
 extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
                                   const float* p_lo, const float* p_hi,
@@ -565,11 +687,16 @@ extern "C" int fs_apply_laplacian(const float* p, const float* adiag,
                                   float* out, float scale, int nx, int n,
                                   void* stream) {
   if (nx <= 0 || n <= 0) return 0;
-  const dim3 blocks((unsigned)((n * n + kCellThreads - 1) / kCellThreads),
-                    (unsigned)nx);
-  apply_laplacian_kernel<<<blocks, kCellThreads, 0, (cudaStream_t)stream>>>(
+  constexpr int tile_y = kLapY * kLapRows;
+  const dim3 grid((n + kLapZ - 1) / kLapZ, (n + tile_y - 1) / tile_y);
+  static int wave = 0;
+  const int rows = chunk_rows(apply_laplacian_kernel, kLapZ * kLapY, wave,
+                              (long long)grid.x * grid.y, nx, kLapMinRows);
+  const dim3 blocks(grid.x, grid.y, (nx + rows - 1) / rows);
+  apply_laplacian_kernel<<<blocks, dim3(kLapZ, kLapY), 0,
+                           (cudaStream_t)stream>>>(
       SlabField{p, p_lo, p_hi}, SlabField{adiag, a_lo, a_hi}, out, scale, nx,
-      n);
+      n, rows);
   return (int)cudaGetLastError();
 }
 
@@ -600,11 +727,8 @@ extern "C" int fs_cheb_steps(const float* const* fields, float* zn, float* dn,
     case 2:
       return launch_cheb_steps<2>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
                                   n, st);
-    case 3:
-      return launch_cheb_steps<3>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
-                                  n, st);
     default:
-      return launch_cheb_steps<4>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
+      return launch_cheb_steps<3>(jacobi, f, zn, dn, cf, scale, inv_theta, nx,
                                   n, st);
   }
 }

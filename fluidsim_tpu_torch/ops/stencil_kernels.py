@@ -2,7 +2,7 @@
 ``fluidsim_tpu/ops/pallas_stencil.py``: the masked 7-point Laplacian (K3,
 ``apply_laplacian_padded``) and the Chebyshev preconditioner (K4,
 ``cheb_step_padded`` chained by ``chebyshev_precond_fused``), whose steps run
-up to ``MAX_STEPS`` at a time in one launch (``cheb_steps``).
+up to ``S_MAX`` at a time in one launch (``cheb_steps``).
 
 The CG state stays in the dense (N,N,N) layout.  On a shard of
 ``parallel/`` the CG vectors are the (nl, N, N) slab, and each kernel takes
@@ -33,10 +33,9 @@ import torch
 from fluidsim_tpu_torch import native
 from fluidsim_tpu_torch.core.gridspec import shift_to_minus, shift_to_plus
 
-MAX_STEPS = 4   # the most Chebyshev steps of one K4 launch (kMaxChebSteps)
-# chebyshev_precond_fused's steps per launch: one launch up to degree 4; a
-# launch of 4 steps costs more than two of 2 on the H100 (PERF.md section 6,
-# utils/stencil_timing.py)
+# the most Chebyshev steps of one K4 launch (kMaxChebSteps in stencil.cu):
+# chebyshev_precond_fused is one launch up to degree 4; a launch of 4 steps
+# cost more than two of 2 on the H100 (PERF.md section 6)
 S_MAX = 3
 
 _GHOST_FIELDS = ("z", "d", "r", "adiag")
@@ -182,7 +181,7 @@ def cheb_steps_plain(adiag, r, scale: float, coefs, theta=None, z=None,
 
 def cheb_steps(adiag, r, scale: float, coefs, theta=None, z=None, d=None,
                ghost=None, want_d: bool = False):
-    """K4: ``S = len(coefs)`` (1..``MAX_STEPS``) Chebyshev steps in one
+    """K4: ``S = len(coefs)`` (1..``S_MAX``) Chebyshev steps in one
     launch on (N,N,N) or (nx,N,N) f32; step j is ``resid = r - A z; d' =
     c1_j*d + c2_j*resid/adiag (fluid only); z' = z + d'`` with ``coefs[j] =
     (c1_j, c2_j)``.  They start from the given ``(z, d)``, or with ``theta``
@@ -194,16 +193,16 @@ def cheb_steps(adiag, r, scale: float, coefs, theta=None, z=None, d=None,
     nx - 1, each a (>= S, N, N) block (the S rows next to the slab are read)
     or None for zeros; a field missing reads zeros.  CUDA tensors launch
     ``fs_cheb_steps``; CPU tensors take ``cheb_steps_plain``."""
+    s = len(coefs)
+    if not 1 <= s <= S_MAX:
+        raise ValueError(f"cheb_steps: {s} steps, the kernel takes 1 to "
+                         f"{S_MAX}")
+    if (theta is None) != (z is not None) or (z is None) != (d is None):
+        raise ValueError("cheb_steps: give either theta or both z and d")
     if r.device.type == "cpu":
         return cheb_steps_plain(adiag, r, scale, coefs, theta, z, d, ghost,
                                 want_d)
     native.require_cuda(r, "cheb_steps")
-    s = len(coefs)
-    if not 1 <= s <= MAX_STEPS:
-        raise ValueError(f"cheb_steps: {s} steps, the kernel takes 1 to "
-                         f"{MAX_STEPS}")
-    if (theta is None) != (z is not None) or (z is None) != (d is None):
-        raise ValueError("cheb_steps: give either theta or both z and d")
     dev = r.device
     nx, n = r.shape[0], r.shape[-1]
     mids = dict(z=z, d=d, r=r, adiag=adiag)
@@ -271,32 +270,33 @@ def cheb_coefs(degree: int, lam_max: float = 2.0, ratio: float = 30.0):
 
 def chebyshev_precond_fused(adiag: torch.Tensor, scale: float,
                             degree: int = 3, lam_max: float = 2.0,
-                            ratio: float = 30.0, edges=None, adiag_edges=None,
-                            max_steps: int = S_MAX):
+                            ratio: float = 30.0, edges=None):
     """Chebyshev-Jacobi preconditioner on K4: the polynomial of
-    ``ops.pcg.chebyshev_preconditioner``, its ``degree - 1`` steps run
-    ``max_steps`` at a time by ``cheb_steps``, the first launch from the
-    Jacobi term.  So an application is one launch up to degree
-    ``max_steps + 1`` and ``ceil((degree - 1) / max_steps)`` above it (the
-    steps shared out evenly, the first launches taking one more); degree 1
-    is the Jacobi term alone, with no launch.
+    ``ops.pcg.chebyshev_preconditioner``, its ``degree - 1`` steps run up
+    to ``S_MAX`` at a time by ``cheb_steps``, the first launch from the
+    Jacobi term.  So an application is one launch up to degree ``S_MAX +
+    1`` and ``ceil((degree - 1) / S_MAX)`` above it (the steps shared out
+    evenly, the first launches taking one more); degree 1 is the Jacobi
+    term alone, with no launch.
 
     On a slab of ``parallel/`` (``adiag``, ``r`` and the result (nl, N,
     N)), ``edges(tensors, width)`` returns each tensor's neighbours' edge
-    rows ``(lo, hi)`` (``halo.edge_rows``), and ``adiag_edges`` holds
-    adiag's, at least ``min(max_steps, nl)`` rows deep (exchanged once by
-    the caller).  A launch then takes ``S <= min(max_steps, nl)`` steps, so
-    that its edge rows come from the neighbouring slab alone; an
-    application exchanges ``r``'s edge rows once, and ``z``'s and ``d``'s
-    before each launch after the first.  Every rank's slab has the same
-    ``nl``, so the ranks make the same exchanges."""
+    rows ``(lo, hi)`` (``halo.edge_rows``).  A launch then takes ``S <=
+    min(S_MAX, nl)`` steps, so that its edge rows come from the
+    neighbouring slab alone.  Building the preconditioner exchanges
+    ``adiag``'s edge rows that deep, once; an application exchanges ``r``'s
+    once, and ``z``'s and ``d``'s before each launch after the first.
+    Every rank's slab has the same ``nl``, so the ranks make the same
+    exchanges."""
     theta, coefs = cheb_coefs(degree, lam_max, ratio)
     if not coefs:
         return lambda r: _jacobi_start(adiag, r, theta)
-    per = max_steps if edges is None else min(max_steps, adiag.shape[0])
+    per = S_MAX if edges is None else min(S_MAX, adiag.shape[0])
     launches = math.ceil(len(coefs) / per)
     q, rem = divmod(len(coefs), launches)
     split = [q + 1] * rem + [q] * (launches - rem)
+    if edges is not None:
+        (adiag_edges,) = edges([adiag], max(split))
 
     def precond(r):
         ghost = None

@@ -271,29 +271,26 @@ def _slab_solve(params: FlipParams, slab: Slab, adiag, scale: float):
     rows once (at world size 1 as the single-device solve does).  K3 and K4
     read their operands' neighbour edge rows where they lie
     (``halo.edge_rows``; None, read as 0, at a domain end and at world size
-    1): the diagonal's once per solve, as deep as a K4 launch's steps (so
-    the kernels mask across the slab edges with the true fluid flags), one
-    row of ``p`` per K3 apply, and the preconditioner's ``r`` once per call
-    (its ``z`` and ``d`` too before a second launch, above degree
-    ``S_MAX + 1``).  So a CG iteration exchanges twice: ``p``, then
-    ``r``."""
+    1): the diagonal's once per solve, one row for K3 and, inside the
+    Chebyshev preconditioner, as deep as its launches' steps (so the
+    kernels mask across the slab edges with the true fluid flags); one row
+    of ``p`` per K3 apply; the preconditioner's ``r`` once per call (its
+    ``z`` and ``d`` too before a second launch, above degree 4).  So a CG
+    iteration exchanges twice: ``p``, then ``r``."""
     edges = lambda ts, width: edge_rows(ts, width, slab.group)
-    chebyshev = params.preconditioner == "chebyshev"
-    (a_lo, a_hi), = edges([adiag], min(sk.S_MAX, slab.nl) if chebyshev
-                          else 1)
-    row = lambda t, i: None if t is None else t[i]
-    a_planes = (row(a_lo, -1), row(a_hi, 0))
+    (a_lo, a_hi), = edges([adiag], 1)
+    row0 = lambda t: None if t is None else t[0]
+    a_planes = (row0(a_lo), row0(a_hi))
 
     def apply_a(p):
         (p_lo, p_hi), = edges([p], 1)
         return sk.apply_laplacian(p, adiag, scale,
-                                  ghost=(row(p_lo, 0), row(p_hi, 0),
-                                         *a_planes))
+                                  ghost=(row0(p_lo), row0(p_hi), *a_planes))
 
-    if chebyshev:
+    if params.preconditioner == "chebyshev":
         precond = sk.chebyshev_precond_fused(
             adiag, scale, degree=params.cheb_degree, ratio=params.cheb_ratio,
-            edges=edges, adiag_edges=(a_lo, a_hi))
+            edges=edges)
     else:
         fluid = adiag > 0
         safe = torch.where(fluid, adiag, 1.0)

@@ -169,8 +169,7 @@ def main(argv=None) -> int:
                     sets[i][0], sets[i][1], scale, ghost=(None,) * 4), COPIES)
             for deg in (3, 4):
                 pcs = [sk.chebyshev_precond_fused(
-                    s[1], scale, degree=deg, edges=no_edges,
-                    adiag_edges=(None, None)) for s in sets]
+                    s[1], scale, degree=deg, edges=no_edges) for s in sets]
                 cases[f"precond_world1_deg{deg}"] = _cycle(
                     lambda i, pcs=pcs: lambda: pcs[i](sets[i][2]), COPIES)
         else:
@@ -201,12 +200,11 @@ def main(argv=None) -> int:
             cases["k3_slab33"] = lambda: sk.apply_laplacian(
                 p_s, a_s, scale, ghost=ghost3)
             # the neighbours' z and d before a second launch: p's rows
-            edges = lambda ts, w: [near("r" if t is r_s else "p", w)
-                                   for t in ts]
+            edges = lambda ts, w: [near("r" if t is r_s else "adiag" if t
+                                        is a_s else "p", w) for t in ts]
             for deg in (3, 4):
                 pc = sk.chebyshev_precond_fused(
-                    a_s, scale, degree=deg, edges=edges,
-                    adiag_edges=blocks["adiag"])
+                    a_s, scale, degree=deg, edges=edges)
                 cases[f"precond_slab33_deg{deg}"] = (
                     lambda pc=pc: pc(r_s))
         else:
@@ -222,14 +220,9 @@ def main(argv=None) -> int:
                 cases[f"precond_slab33_deg{deg}"] = (
                     lambda pc=pc: pc(r_s))
 
-        # ---- the step count per launch (this tree's kernel only) ----
+        # ---- one K4 launch of 1 to S_MAX steps (this tree's kernel) ----
         if in_place:
-            for mx in (2, 3, 4):
-                pcs = [sk.chebyshev_precond_fused(
-                    s[1], scale, degree=5, max_steps=mx) for s in sets]
-                cases[f"precond_cube_deg5_max{mx}"] = _cycle(
-                    lambda i, pcs=pcs: lambda: pcs[i](sets[i][2]), COPIES)
-            for steps in (1, 2, 3, 4):
+            for steps in range(1, sk.S_MAX + 1):
                 theta, coefs = sk.cheb_coefs(steps + 1)
                 cases[f"k4_cube_{steps}steps"] = _cycle(
                     lambda i, coefs=coefs, theta=theta: lambda: sk.cheb_steps(

@@ -324,14 +324,15 @@ def _operand_precond(adiag, scale, degree, ghost):
     return precond
 
 
-@pytest.mark.parametrize("degree", [3, 4])
+@pytest.mark.parametrize("degree", [3, 4, 8])
 @pytest.mark.parametrize("nl", [2, 3, 4, 5])
 def test_slab_stencils_on_threaded_ranks_match_cube(nl, degree):
     """A 9^3 cube cut into slabs of ``nl`` rows (the last one running past
     the box, as ``Slab`` cuts it), one thread per rank: K3 with one edge
-    row of p and adiag, and the preconditioner exchanging ``r`` (and ``z``,
-    ``d`` between launches: with nl < 3 at degree 4 a launch takes nl
-    steps), bit for bit the cube's and the operand path's."""
+    row of p and adiag, and the preconditioner exchanging ``adiag`` once
+    and ``r`` (and ``z``, ``d`` between launches: a launch takes at most
+    ``min(S_MAX, nl)`` steps, so degree 4 splits at nl = 2 and degree 8
+    everywhere), bit for bit the cube's and the operand path's."""
     n, scale = 9, 0.37
     size = -(-n // nl)
     rng = np.random.default_rng(100 * nl + degree)
@@ -351,16 +352,14 @@ def test_slab_stencils_on_threaded_ranks_match_cube(nl, degree):
     def rank_fn(rank, edges):
         s = slice(rank * nl, (rank + 1) * nl)
         a_s, p_s, r_s = (t[s].contiguous() for t in (ad, p, r))
-        depth = min(sk.S_MAX, nl)
-        (a_lo, a_hi), = edges([a_s], depth)
+        (a_lo, a_hi), = edges([a_s], 1)
         (p_lo, p_hi), = edges([p_s], 1)
-        first = lambda t, i: None if t is None else t[i]
+        row0 = lambda t: None if t is None else t[0]
         ap = sk.apply_laplacian(p_s, a_s, scale,
-                                ghost=(first(p_lo, 0), first(p_hi, 0),
-                                       first(a_lo, -1), first(a_hi, 0)))
+                                ghost=(row0(p_lo), row0(p_hi), row0(a_lo),
+                                       row0(a_hi)))
         z = sk.chebyshev_precond_fused(a_s, scale, degree=degree,
-                                       edges=edges,
-                                       adiag_edges=(a_lo, a_hi))(r_s)
+                                       edges=edges)(r_s)
 
         def ghost(q):
             (lo, hi), = edges([q], 1)

@@ -240,7 +240,7 @@ def test_cheb_step_edge_planes_match_operand_path(nl, real):
 
 
 @pytest.mark.parametrize("jacobi", [True, False], ids=["jacobi", "given"])
-@pytest.mark.parametrize("steps", [1, 2, 3, 4])
+@pytest.mark.parametrize("steps", [1, 2, 3])
 def test_cheb_steps_match_composed_steps(steps, jacobi):
     """``cheb_steps`` is its steps composed, on the cube and on a slab of
     it with ``steps`` edge rows of every field (deeper blocks are cut to
@@ -270,27 +270,31 @@ def test_cheb_steps_match_composed_steps(steps, jacobi):
     _equal(ds, dc[sl])
 
 
-@pytest.mark.parametrize("degree", [2, 3, 4, 5])
+def test_cheb_steps_refuse_more_than_s_max():
+    """One launch takes 1 to ``S_MAX`` steps, on either route."""
+    rng = np.random.default_rng(3)
+    r = _field(rng, (N_G,) * 3)
+    ad = _field(rng, (N_G,) * 3, mask=True)
+    for count in (0, sk.S_MAX + 1):
+        with pytest.raises(ValueError, match="steps"):
+            sk.cheb_steps(ad, r, SCALE, [(0.5, 1.0)] * count, theta=1.0)
+
+
+@pytest.mark.parametrize("degree", [2, 3, 4, 5, 8])
 def test_chebyshev_precond_launch_splits_agree(system, degree, monkeypatch):
-    """Every split of the polynomial's steps into launches gives the same
-    bits, in ceil((degree - 1) / max_steps) ``cheb_steps`` calls of
-    near-equal sizes; by default one call up to degree ``S_MAX + 1``."""
+    """The polynomial's steps go out in ceil((degree - 1) / S_MAX)
+    ``cheb_steps`` calls of near-equal sizes, one up to degree ``S_MAX +
+    1``, and give the bits of the steps composed in one plain call."""
     _, _, _, ad, (r, _, _) = system
     tad, tr = _t(ad), _t(np.where(ad > 0, r, 0).astype(np.float32))
     calls = []
     steps = sk.cheb_steps
     monkeypatch.setattr(sk, "cheb_steps", lambda *a, **k: (
         calls.append(len(a[3])), steps(*a, **k))[1])
-    ref = sk.chebyshev_precond_fused(tad, SCALE, degree=degree,
-                                     max_steps=degree - 1)(tr)
-    assert calls == [degree - 1]
-    for max_steps in [*range(1, degree - 1), None]:
-        calls.clear()
-        kw = {} if max_steps is None else dict(max_steps=max_steps)
-        z = sk.chebyshev_precond_fused(tad, SCALE, degree=degree, **kw)(tr)
-        _equal(z, ref)
-        per = sk.S_MAX if max_steps is None else max_steps
-        assert len(calls) == -(-(degree - 1) // per)
-        assert sum(calls) == degree - 1 and max(calls) - min(calls) <= 1
+    theta, coefs = sk.cheb_coefs(degree)
+    z = sk.chebyshev_precond_fused(tad, SCALE, degree=degree)(tr)
+    _equal(z, sk.cheb_steps_plain(tad, tr, SCALE, coefs, theta))
+    assert len(calls) == -(-(degree - 1) // sk.S_MAX)
+    assert sum(calls) == degree - 1 and max(calls) - min(calls) <= 1
     if degree <= sk.S_MAX + 1:
         assert calls == [degree - 1]
