@@ -228,6 +228,8 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 #include "tile_search.cuh"
 
 namespace {
@@ -401,6 +403,283 @@ __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
   if (p >= np || dead_row<kCount>(count, out, kMom ? kMoments : 4, p, np))
     return;
   contract_rows<kMom>(src, w27t, out, flat[p], n, ncell, p, np);
+}
+
+// ---- K2: the G2P gather, a tile of sorted particles a block -------------
+
+constexpr int kGatherTile = 256;   // particles a tile, a thread each
+constexpr int kGatherWarps = kGatherTile / 32;
+constexpr int kStageCells = 384;   // float4 cells a tile may stage (6 KB)
+
+// The rows a launch gathers: the first *count (kCount), else all np.
+template <bool kCount>
+__device__ __forceinline__ long long live_rows(const int* __restrict__ count,
+                                               long long np) {
+  if constexpr (kCount)
+    return min((long long)__ldg(count), np);
+  else
+    return np;
+}
+
+// Zeros into rows 0..3 of out at [p0, p0 + len), by the block: 16-byte
+// stores where a row's span is aligned, scalar ones at its two ends.
+__device__ __forceinline__ void zero_gather_rows(float* __restrict__ out,
+                                                 long long np, long long p0,
+                                                 int len) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float* d = out + r * np + p0;
+    const int mis = (int)(((unsigned long long)d >> 2) & 3);
+    const int head = min(len, (4 - mis) & 3);
+    const int body = (len - head) >> 2;
+    float4* b = reinterpret_cast<float4*>(d + head);
+    for (int i = threadIdx.x; i < body; i += blockDim.x)
+      b[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int tail = len - head - 4 * body;
+    if ((int)threadIdx.x < head) d[threadIdx.x] = 0.f;
+    if ((int)threadIdx.x < tail) d[head + 4 * body + threadIdx.x] = 0.f;
+  }
+}
+
+// The cells a tile's live particles read: the box of their base cells
+// widened by one cell on every side, origin (x0, y0, z0), extents
+// (bx, by, bz).  Staged when it holds at most kStageCells cells.
+struct GatherBox {
+  int x0, y0, z0, bx, by, bz;
+  bool staged;
+};
+
+// The box of a tile whose first nlive rows are live, by the whole block (it
+// synchronises): f is the thread's id when alive.  Sorted ids give the x
+// range from the first and last live rows; y and z are reduced over all.
+__device__ __forceinline__ GatherBox gather_box(int f, bool alive, int nlive,
+                                                int n, int4* red, int* ends) {
+  const int nn = n * n;
+  const int y = (f / n) % n, z = f % n;
+  const unsigned all = 0xffffffffu;
+  const int4 mine = alive ? make_int4(y, -y, z, -z)
+                          : make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
+  const int4 w = make_int4(__reduce_min_sync(all, mine.x),
+                           __reduce_min_sync(all, mine.y),
+                           __reduce_min_sync(all, mine.z),
+                           __reduce_min_sync(all, mine.w));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = w;
+  if (threadIdx.x == 0) ends[0] = f;
+  if ((int)threadIdx.x == nlive - 1) ends[1] = f;
+  __syncthreads();
+  int4 m = red[0];
+#pragma unroll
+  for (int i = 1; i < kGatherWarps; ++i) {
+    const int4 q = red[i];
+    m = make_int4(min(m.x, q.x), min(m.y, q.y), min(m.z, q.z), min(m.w, q.w));
+  }
+  GatherBox b;
+  b.x0 = ends[0] / nn - 1;
+  b.y0 = m.x - 1;
+  b.z0 = m.z - 1;
+  b.bx = ends[1] / nn - ends[0] / nn + 3;
+  b.by = -m.y - m.x + 3;
+  b.bz = -m.w - m.z + 3;
+  b.staged = (long long)b.bx * b.by * b.bz <= kStageCells;
+  return b;
+}
+
+// Stage the box's cells as float4 (the 4 channels of one cell), zeros for
+// cells outside the (nx, n, n) grid, then synchronise.
+__device__ __forceinline__ void stage_box(const GatherBox& b,
+                                          const float* __restrict__ fm,
+                                          int nx, int n, long long ncell,
+                                          float4* box) {
+  const int plane = b.by * b.bz;
+  for (int i = threadIdx.x; i < b.bx * plane; i += blockDim.x) {
+    const int a = i / plane, r = i - a * plane;
+    const int cy = r / b.bz, cz = r - cy * b.bz;
+    const int gx = b.x0 + a, gy = b.y0 + cy, gz = b.z0 + cz;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gx >= 0 && gx < nx && gy >= 0 && gy < n && gz >= 0 && gz < n) {
+      const float* q = fm + ((long long)gx * n + gy) * n + gz;
+      v = make_float4(__ldg(q), __ldg(q + ncell), __ldg(q + 2 * ncell),
+                      __ldg(q + 3 * ncell));
+    }
+    box[i] = v;
+  }
+  __syncthreads();
+}
+
+// One particle's 4 sums over the 27 offsets in order from +0, its weights
+// w(o) read through `wt`, its grid values from the staged box or from the
+// fields (a neighbour outside the grid skipped).  A staged zero adds w * 0,
+// which leaves a sum that started at +0 unchanged to the bit (see
+// NeighbourFields), so both give the same bits.
+template <class W>
+__device__ __forceinline__ void gather_sums(const W& wt, int f, int nx, int n,
+                                            long long ncell,
+                                            const float* __restrict__ fm,
+                                            const GatherBox& b, bool staged,
+                                            const float4* box, float s[4]) {
+  const int nn = n * n;
+  const int x = f / nn, y = (f / n) % n, z = f % n;
+  if (staged) {
+    const int zs = b.bz, ys = b.by * b.bz;
+    const int c0 = (x - b.x0) * ys + (y - b.y0) * zs + (z - b.z0);
+#pragma unroll
+    for (int o = 0; o < 27; ++o) {
+      const float4 v =
+          box[c0 + (o / 9 - 1) * ys + ((o / 3) % 3 - 1) * zs + (o % 3 - 1)];
+      const float w = wt(o);
+      s[0] += w * v.x;
+      s[1] += w * v.y;
+      s[2] += w * v.z;
+      s[3] += w * v.w;
+    }
+    return;
+  }
+  const bool in_x[3] = {x > 0, true, x + 1 < nx};
+  const bool in_y[3] = {y > 0, true, y + 1 < n};
+  const bool in_z[3] = {z > 0, true, z + 1 < n};
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    if (!(in_x[o / 9] && in_y[(o / 3) % 3] && in_z[o % 3])) continue;
+    const float* q = fm + f + (o / 9 - 1) * nn + ((o / 3) % 3 - 1) * n +
+                     (o % 3 - 1);
+    const float w = wt(o);
+    s[0] += w * __ldg(q);
+    s[1] += w * __ldg(q + ncell);
+    s[2] += w * __ldg(q + 2 * ncell);
+    s[3] += w * __ldg(q + 3 * ncell);
+  }
+}
+
+// A particle's 27 weights, loaded into registers before any field read.
+struct RegWeights {
+  float w[27];
+  __device__ __forceinline__ float operator()(int o) const { return w[o]; }
+};
+
+// ... or read from the tile's shared copy (row o at w[o * kGatherTile]).
+struct SharedWeights {
+  const float* w;
+  __device__ __forceinline__ float operator()(int o) const {
+    return w[o * kGatherTile];
+  }
+};
+
+// K2, the weights in registers: a block per tile of kGatherTile sorted
+// particles.  kStage: the tile's box staged when small enough.
+template <bool kCount, bool kStage>
+__global__ void __launch_bounds__(kGatherTile)
+    g2p_gather_kernel(const float* __restrict__ fm,
+                      const float* __restrict__ w27t,
+                      const int* __restrict__ flat,
+                      const int* __restrict__ count, float* __restrict__ out,
+                      int nx, int n, long long np) {
+  __shared__ int4 red[kGatherWarps];
+  __shared__ int ends[2];
+  __shared__ float4 box[kStage ? kStageCells : 1];
+  const long long ncell = (long long)nx * n * n;
+  const long long p0 = (long long)blockIdx.x * kGatherTile;
+  const int j = threadIdx.x;
+  const long long live = live_rows<kCount>(count, np);
+  const int len = (int)min((long long)kGatherTile, np - p0);
+  if (p0 >= live) {                   // the whole tile past the count
+    zero_gather_rows(out, np, p0, len);
+    return;
+  }
+  const int nlive = (int)min((long long)len, live - p0);
+  const bool alive = j < nlive;
+  const long long p = p0 + j;
+  const int f = alive ? __ldg(flat + p) : 0;
+  RegWeights wt;
+#pragma unroll
+  for (int o = 0; o < 27; ++o)
+    wt.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
+  GatherBox b{};
+  if constexpr (kStage) {
+    b = gather_box(f, alive, nlive, n, red, ends);
+    if (b.staged) stage_box(b, fm, nx, n, ncell, box);
+  }
+  if (j >= len) return;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (alive) gather_sums(wt, f, nx, n, ncell, fm, b, b.staged, box, s);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) out[r * np + p] = s[r];
+}
+
+// 4-byte cp.async of global src to shared dst, and its group fences.
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void copy_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+constexpr int kGatherTileSmem =
+    kStageCells * 16 + 2 * 27 * kGatherTile * 4 + 2 * kGatherTile * 4;
+
+// K2, the persistent tile: each block walks tiles blockIdx.x, + gridDim.x,
+// ...; the next tile's 27 weight rows and ids are copied into one of two
+// shared buffers by cp.async while the current one is summed.
+template <bool kCount>
+__global__ void __launch_bounds__(kGatherTile)
+    g2p_gather_tile_kernel(const float* __restrict__ fm,
+                           const float* __restrict__ w27t,
+                           const int* __restrict__ flat,
+                           const int* __restrict__ count,
+                           float* __restrict__ out, int nx, int n,
+                           long long np, long long ntiles) {
+  extern __shared__ float4 smem4[];
+  float4* box = smem4;                                        // kStageCells
+  float* wbuf = reinterpret_cast<float*>(smem4 + kStageCells);  // [2][27][T]
+  int* ids = reinterpret_cast<int*>(wbuf + 2 * 27 * kGatherTile);  // [2][T]
+  __shared__ int4 red[kGatherWarps];
+  __shared__ int ends[2];
+  const long long ncell = (long long)nx * n * n;
+  const long long live = live_rows<kCount>(count, np);
+  const int j = threadIdx.x;
+  auto issue = [&](long long t, int buf) {
+    const long long q = t * kGatherTile + j;
+    if (q < live) {
+      float* d = wbuf + buf * 27 * kGatherTile + j;
+#pragma unroll
+      for (int o = 0; o < 27; ++o) copy4(d + o * kGatherTile, w27t + o * np + q);
+      copy4(ids + buf * kGatherTile + j, flat + q);
+    }
+  };
+  long long t = blockIdx.x;
+  if (t < ntiles) issue(t, 0);
+  copy_commit();
+  for (int buf = 0; t < ntiles; t += gridDim.x, buf ^= 1) {
+    if (t + gridDim.x < ntiles) issue(t + gridDim.x, buf ^ 1);
+    copy_commit();
+    copy_wait_one();
+    __syncthreads();
+    const long long p0 = t * kGatherTile;
+    const int len = (int)min((long long)kGatherTile, np - p0);
+    if (p0 >= live) {
+      zero_gather_rows(out, np, p0, len);
+    } else {
+      const int nlive = (int)min((long long)len, live - p0);
+      const bool alive = j < nlive;
+      const int* tid = ids + buf * kGatherTile;
+      const int f = alive ? tid[j] : 0;
+      const GatherBox b = gather_box(f, alive, nlive, n, red, ends);
+      if (b.staged) stage_box(b, fm, nx, n, ncell, box);
+      if (j < len) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        if (alive)
+          gather_sums(SharedWeights{wbuf + buf * 27 * kGatherTile + j}, f, nx,
+                      n, ncell, fm, b, b.staged, box, s);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) out[r * np + p0 + j] = s[r];
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -1301,11 +1580,62 @@ int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
   return (int)cudaGetLastError();
 }
 
+template <bool kCount>
+int launch_gather(int variant, const float* fm, const float* w27t,
+                  const int* flat, const int* count, float* out, int nx, int n,
+                  long long np, cudaStream_t st) {
+  const long long ntiles = (np + kGatherTile - 1) / kGatherTile;
+  if (variant == 1 || variant == 2) {
+    if (variant == 1)
+      g2p_gather_kernel<kCount, false><<<(unsigned)ntiles, kGatherTile, 0, st>>>(
+          fm, w27t, flat, count, out, nx, n, np);
+    else
+      g2p_gather_kernel<kCount, true><<<(unsigned)ntiles, kGatherTile, 0, st>>>(
+          fm, w27t, flat, count, out, nx, n, np);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t rc = cudaFuncSetAttribute(
+      g2p_gather_tile_kernel<kCount>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kGatherTileSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, g2p_gather_tile_kernel<kCount>, kGatherTile, kGatherTileSmem);
+  if (rc != cudaSuccess) return (int)rc;
+  const long long wave = (long long)per_sm * sms;
+  const long long grid = ntiles < wave ? ntiles : wave;
+  g2p_gather_tile_kernel<kCount><<<(unsigned)grid, kGatherTile,
+                                   kGatherTileSmem, st>>>(
+      fm, w27t, flat, count, out, nx, n, np, ntiles);
+  return (int)cudaGetLastError();
+}
+
+// K2 by design (a probe of this build): 0 the thread per particle of
+// launch_rows, 1 a tile a block with the weights in registers, 2 the same
+// with the tile's fields staged, 3 the persistent cp.async tile.
+extern "C" int fs_g2p_gather_variant(const float* fm, const float* w27t,
+                                     const int* flat, const int* count,
+                                     float* out, int nx, int n, long long np,
+                                     int variant, void* stream) {
+  if (np == 0) return 0;
+  if (variant == 0)
+    return launch_rows<false>(NeighbourFields{fm, nx}, w27t, flat, count, out,
+                              nx, n, np, stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (count != nullptr)
+    return launch_gather<true>(variant, fm, w27t, flat, count, out, nx, n, np,
+                               st);
+  return launch_gather<false>(variant, fm, w27t, flat, count, out, nx, n, np,
+                              st);
+}
+
 extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
                              const int* flat, const int* count, float* out,
                              int nx, int n, long long np, void* stream) {
-  return launch_rows<false>(NeighbourFields{fm, nx}, w27t, flat, count, out,
-                            nx, n, np, stream);
+  return fs_g2p_gather_variant(fm, w27t, flat, count, out, nx, n, np, 2,
+                               stream);
 }
 
 extern "C" int fs_g2p_moments(const float* fm, const float* w27t,

@@ -545,6 +545,37 @@ def g2p_gather_table_plain(table: torch.Tensor, w27t: torch.Tensor,
     return _gather_sums(_table_columns(table, flat_s), w27t)
 
 
+GATHER_TILE = 256       # K2's tile of sorted rows (kGatherTile)
+STAGE_CELLS = 384       # the cells a K2 tile may stage (kStageCells)
+
+
+def g2p_gather_staged_tiles(flat_s: torch.Tensor, n: int,
+                            count: torch.Tensor | None = None):
+    """``(staged, tiles)``: of K2's tiles of ``GATHER_TILE`` sorted rows that
+    hold a live row (the first ``count[0]``, or all), how many stage their
+    fields in ``csrc/transfer.cu`` — those whose live base cells' box,
+    widened by one cell on every side, holds at most ``STAGE_CELLS`` cells.
+    Reads ``count`` on the host: a diagnostic, not a frame's path."""
+    live = flat_s.shape[0] if count is None else min(int(count[0]),
+                                                     flat_s.shape[0])
+    if live <= 0:
+        return 0, 0
+    f = flat_s[:live].long()
+    t = -(-live // GATHER_TILE)
+    pad = t * GATHER_TILE - live
+    y, z = (f // n) % n, f % n
+
+    def spread(v):
+        lo = torch.cat([v, v.new_full((pad,), n)]).view(t, GATHER_TILE)
+        hi = torch.cat([v, v.new_full((pad,), -1)]).view(t, GATHER_TILE)
+        return hi.amax(1) - lo.amin(1) + 3
+
+    ends = torch.clamp(torch.arange(1, t + 1, device=f.device) * GATHER_TILE,
+                       max=live) - 1
+    bx = f[ends] // (n * n) - f[::GATHER_TILE] // (n * n) + 3
+    return int((bx * spread(y) * spread(z) <= STAGE_CELLS).sum()), t
+
+
 def _check_count(count: torch.Tensor | None, dev):
     if count is not None:
         native.check_tensor("count", count, torch.int32, (1,), dev)

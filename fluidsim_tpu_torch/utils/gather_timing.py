@@ -1,5 +1,6 @@
-"""K2 and K2 gw at the main paths' cube shapes, timed on the card, so that
-two checkouts of the port can be compared in one call.
+"""K2 at every shape its paths launch, with K2 moments, K7a, K9b and K2 gw
+beside it, timed on the card, so that two checkouts of the port can be
+compared in one call.
 
     python3 -m fluidsim_tpu_torch.utils.gather_timing [--root DIR] [--label L]
 
@@ -7,20 +8,32 @@ two checkouts of the port can be compared in one call.
 built (default: the one holding this file); run the script from two
 checkouts in alternation (A, B, B, A) in one call, since the card's clocks
 and power limit differ between calls.  The inputs are those of
-``chip_smoke.py`` phases 3 and 10 at the same sizes, made from seed 0:
+``chip_smoke.py`` at the same sizes, made from seed 0:
 
-- K2 (``g2p_gather``, no ``count``): ``water_cube_drop`` at 129^3, its
-  1,987,675 seeded particles sorted by cell, ``masked_weights_cm``, and
-  random (4, n, n, n) fields;
-- K2 gw (``g2p_gather_gw``, no ``count``): ``mpm_cone`` at 127^3, its
-  473,798 seeded particles sorted by cell, ``mpm_stencil``'s gradients and
-  random (3, n, n, n) fields.
+- ``cube``: ``water_cube_drop`` at 129^3, its 1,987,675 seeded particles
+  sorted by cell, ``masked_weights_cm`` and random (4, n, n, n) fields: K2
+  (FLIP, PIC), K2 moments (APIC), and on ``shift_expand``'s table K7a, K7a
+  moments and K9b (the kernels alone, ``g2p_gather_spans_launch``);
+- ``cone``: ``mpm_cone`` at 127^3, its 473,798 seeded particles sorted by
+  cell, ``mpm_stencil``'s weights and the MPM density gather's fields (the
+  mass of K1 masked to the non-solid cells, two zero channels and the
+  mask, as ``ops/mpm_kernels.density``): K2; K2 gw on random (3, n, n, n)
+  fields with ``mpm_stencil``'s gradients;
+- ``slab133``, ``slab37``: the sharded FLIP's transfer slabs of
+  ``water_cube_drop`` at world size 1 and on rank 1 of 4 (``rank_arrays``:
+  the rank's sorted slots, dead ones last, and the live count), random
+  fields: K2 with the count, as ``parallel/flip_sharded.py`` launches it;
+- ``slab131``, ``slab36``: the sharded MPM's slabs of ``mpm_cone`` at
+  world size 1 and on rank 1 of 4, likewise (``parallel/mpm_sharded.py``).
 
 Each kernel is timed ``ROUNDS`` times, each the median of ``REPS`` runs with
 CUDA events, each run queued behind a spin kernel so that the events time
-the device and not the host.  The last line is a JSON object with the
-rounds' times, the card's name and power limit, and the label.  It needs
-the card and uses only calls that every slice of the port has had.
+the device and not the host.  Where the timed package has
+``g2p_gather_staged_tiles``, each K2 shape also reports how many of K2's
+tiles stage their fields.  The last line is a JSON object with the rounds'
+times, the card's name and power limit, and the label.  It needs the card
+and uses only calls that every slice of the port since the slab sims has
+had.
 """
 
 from __future__ import annotations
@@ -36,6 +49,9 @@ REPS = 20
 ROUNDS = 5
 SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's clocks
 SEED = 0
+FLIP_BOUND, FLIP_DENSITY = 64, 25.0     # chip_smoke.py's BOUND, DENSITY
+MPM_BOUND = 63                          # chip_smoke.py's MPM_BOUND
+SLAB_WORLD, SLAB_RANK = 4, 1            # chip_smoke.py's phase 31 cut
 
 
 def _ms(fn, torch) -> float:
@@ -54,6 +70,57 @@ def _ms(fn, torch) -> float:
     return statistics.median(times)
 
 
+def _variants(native, tk, torch, fm, w27t, flat, count):
+    """{design: rounds' ms} of ``fs_g2p_gather_variant`` designs 0-3, each
+    first held bit for bit to ``g2p_gather_plain``."""
+    lib = native.library()
+    nx, n, p = fm.shape[1], fm.shape[-1], flat.shape[0]
+    want = tk.g2p_gather_plain(fm, w27t, flat, count).view(torch.int32)
+    res = {}
+    for v in range(4):
+        o = torch.empty((4, p), dtype=torch.float32, device=fm.device)
+
+        def run():
+            rc = lib.fs_g2p_gather_variant(
+                fm.data_ptr(), w27t.data_ptr(), flat.data_ptr(),
+                None if count is None else count.data_ptr(), o.data_ptr(),
+                nx, n, p, v, native.stream_ptr(fm.device))
+            native.check_launch("fs_g2p_gather_variant", rc)
+
+        o.fill_(float("nan"))
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(o.view(torch.int32), want):
+            raise AssertionError(f"K2 design {v}: not bit for bit the plain "
+                                 "version")
+        res[v] = [_ms(run, torch) for _ in range(ROUNDS)]
+    return res
+
+
+def rank_arrays(scene, bound, rank, size, rng, dev):
+    """Rank ``rank``'s sorted slots in a ``size``-way cut of the scene's
+    seeded particles (seed ``SEED``) with random velocities: its own
+    particles alive, every other slot dead, as the rank holds them in a
+    frame.  Returns (slab, pos, vel, flat, live count)."""
+    import numpy as np
+    import torch
+
+    from fluidsim_tpu_torch.parallel import flip_sharded as fs
+    from fluidsim_tpu_torch.seeding import seed_particles
+
+    slab = fs.Slab.build(np.asarray(scene.solid), bound, None, dev,
+                         rank=rank, size=size)
+    pos, _ = seed_particles(scene, seed=SEED, dtype="float32")
+    vel = torch.as_tensor(rng.normal(scale=3.0, size=pos.shape)
+                          .astype(np.float32), device=dev)
+    pos = torch.as_tensor(pos, device=dev)
+    alive = fs.owners(slab, pos) == rank
+    pos = torch.where(alive[:, None], pos, fs.SENTINEL)
+    vel = torch.where(alive[:, None], vel, 0.0)
+    pos_s, vel_s, _, flat = fs.sort_slab(slab, pos, vel, alive)
+    return slab, pos_s, vel_s, flat, int(alive.sum())
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -61,12 +128,16 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=here,
                     help="checkout whose fluidsim_tpu_torch is timed")
     ap.add_argument("--label", default="")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time each K2 design of fs_g2p_gather_variant, "
+                    "each held bit for bit to the plain version first")
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
     for name in [m for m in sys.modules if m.startswith("fluidsim_tpu_torch")]:
         del sys.modules[name]
 
+    import numpy as np
     import torch
 
     from fluidsim_tpu_torch import native
@@ -83,30 +154,87 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     native.library()
     g = torch.Generator(device=dev).manual_seed(SEED)
-    out = {"label": a.label, "root": os.path.relpath(root, here)}
+    rng = np.random.default_rng(SEED)
+    out = {"label": a.label, "root": os.path.relpath(root, here),
+           "shapes": {}}
+    staged_tiles = getattr(tk, "g2p_gather_staged_tiles", None)
+
+    def time_k2(name, fm, w27t, flat, count=None, live=None):
+        res = {"slots": int(flat.shape[0]),
+               "live": int(flat.shape[0] if live is None else live),
+               "rows": int(fm.shape[1])}
+        if staged_tiles is not None:
+            res["staged_tiles"] = list(staged_tiles(flat, fm.shape[-1],
+                                                    count))
+        res["k2_ms"] = [_ms(lambda: tk.g2p_gather(fm, w27t, flat, count),
+                            torch) for _ in range(ROUNDS)]
+        if a.variants:
+            res["variants_ms"] = _variants(native, tk, torch, fm, w27t, flat,
+                                           count)
+        out["shapes"][name] = res
+        print(f"{a.label} {name}: {res}", file=sys.stderr)
 
     def sorted_state(scene, bound):
         pos, vel = seed_particles(scene, seed=SEED, dtype="float32")
         pos = torch.as_tensor(pos, device=dev)
         vel = torch.as_tensor(vel, device=dev)
-        pos_s, _, flat = tk.sort_by_cell(pos, vel, bound)
-        return pos_s, flat
+        pos_s, vel_s, flat = tk.sort_by_cell(pos, vel, bound)
+        return pos_s, vel_s, flat
 
-    pos_s, flat = sorted_state(get_scene("water_cube_drop", bound=64,
-                                         density=25.0), 64)
-    w27t = tk.masked_weights_cm(pos_s, 64)
-    fm = torch.rand((4, 129, 129, 129), generator=g, device=dev)
-    k2 = lambda: tk.g2p_gather(fm, w27t, flat)
-    out["k2_particles"] = int(flat.shape[0])
-    out["k2_ms"] = [_ms(k2, torch) for _ in range(ROUNDS)]
-    del pos_s, flat, w27t, fm
+    # the cube: K2, K2 moments, K7a, K9b
+    n = 2 * FLIP_BOUND + 1
+    flip_scene = get_scene("water_cube_drop", bound=FLIP_BOUND,
+                           density=FLIP_DENSITY)
+    pos_s, _, flat = sorted_state(flip_scene, FLIP_BOUND)
+    w27t = tk.masked_weights_cm(pos_s, FLIP_BOUND)
+    fm = torch.rand((4, n, n, n), generator=g, device=dev)
+    time_k2("cube", fm, w27t, flat)
+    table = tk.shift_expand(fm)
+    for key, fn in (
+            ("k2_moments_ms", lambda: tk.g2p_moments(fm, w27t, flat)),
+            ("k7a_ms", lambda: tk.g2p_gather_table(table, w27t, flat)),
+            ("k7a_moments_ms",
+             lambda: tk.g2p_moments_table(table, w27t, flat)),
+            ("k9b_ms", lambda: tk.g2p_gather_spans_launch(table, w27t, flat)),
+            ("k9b_moments_ms",
+             lambda: tk.g2p_gather_spans_launch(table, w27t, flat, True))):
+        out[key] = [_ms(fn, torch) for _ in range(ROUNDS)]
+        print(f"{a.label} {key}: {out[key]}", file=sys.stderr)
+    del pos_s, flat, w27t, fm, table
 
-    pos_s, flat = sorted_state(get_scene("mpm_cone", bound=63), 63)
-    _, gradw = mk.mpm_stencil(pos_s, 63)
-    fm3 = torch.rand((3, 127, 127, 127), generator=g, device=dev)
-    gw = lambda: tk.g2p_gather_gw(fm3, gradw, flat)
+    # the cone: K2 on the density gather's fields, K2 gw
+    m = 2 * MPM_BOUND + 1
+    cone = get_scene("mpm_cone", bound=MPM_BOUND)
+    pos_s, vel_s, flat = sorted_state(cone, MPM_BOUND)
+    w27t, gradw = mk.mpm_stencil(pos_s, MPM_BOUND)
+    solid = torch.as_tensor(np.asarray(cone.solid), device=dev)
+    mass, _ = mk.p2g_mpm(w27t, vel_s, tk.cell_starts(flat, m), solid,
+                         MPM_BOUND)
+    ns = ~solid
+    zero = torch.zeros_like(mass)
+    fm = torch.stack([torch.where(ns, mass, 0.0), zero, zero,
+                      ns.to(mass.dtype)])
+    time_k2("cone", fm, w27t, flat)
+    fm3 = torch.rand((3, m, m, m), generator=g, device=dev)
     out["gw_particles"] = int(flat.shape[0])
-    out["gw_ms"] = [_ms(gw, torch) for _ in range(ROUNDS)]
+    out["gw_ms"] = [_ms(lambda: tk.g2p_gather_gw(fm3, gradw, flat), torch)
+                    for _ in range(ROUNDS)]
+    del pos_s, vel_s, flat, w27t, gradw, mass, fm, fm3
+
+    # the slabs of the sharded FLIP and MPM, with the live count
+    for scene, bound, weights in (
+            (flip_scene, FLIP_BOUND, lambda p: tk.masked_weights_cm(
+                p, FLIP_BOUND)),
+            (cone, MPM_BOUND, lambda p: mk.mpm_stencil(p, MPM_BOUND)[0])):
+        nb = 2 * bound + 1
+        for size, rank in ((1, 0), (SLAB_WORLD, SLAB_RANK)):
+            slab, pos_s, _, flat, live = rank_arrays(scene, bound, rank, size,
+                                                     rng, dev)
+            count = tk.cell_starts(flat, nb, slab.rows)[-1:]
+            fm = torch.rand((4, slab.rows, nb, nb), generator=g, device=dev)
+            time_k2(f"slab{slab.rows}", fm, weights(pos_s), flat, count,
+                    live)
+            del slab, pos_s, flat, count, fm
 
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
