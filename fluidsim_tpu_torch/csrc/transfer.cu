@@ -408,7 +408,6 @@ __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
 // ---- K2: the G2P gather, a tile of sorted particles a block -------------
 
 constexpr int kGatherTile = 256;   // particles a tile, a thread each
-constexpr int kGatherWarps = kGatherTile / 32;
 constexpr int kStageCells = 384;   // float4 cells a tile may stage (6 KB)
 
 // The rows a launch gathers: the first *count (kCount), else all np.
@@ -443,7 +442,7 @@ __device__ __forceinline__ void zero_gather_rows(float* __restrict__ out,
 
 // The cells a tile's live particles read: the box of their base cells
 // widened by one cell on every side, origin (x0, y0, z0), extents
-// (bx, by, bz).  Staged when it holds at most kStageCells cells.
+// (bx, by, bz).  Staged when it holds at most kCap cells.
 struct GatherBox {
   int x0, y0, z0, bx, by, bz;
   bool staged;
@@ -452,6 +451,7 @@ struct GatherBox {
 // The box of a tile whose first nlive rows are live, by the whole block (it
 // synchronises): f is the thread's id when alive.  Sorted ids give the x
 // range from the first and last live rows; y and z are reduced over all.
+template <int kCap>
 __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int nlive,
                                                 int n, int4* red, int* ends) {
   const int nn = n * n;
@@ -469,7 +469,7 @@ __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int nlive,
   __syncthreads();
   int4 m = red[0];
 #pragma unroll
-  for (int i = 1; i < kGatherWarps; ++i) {
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
     const int4 q = red[i];
     m = make_int4(min(m.x, q.x), min(m.y, q.y), min(m.z, q.z), min(m.w, q.w));
   }
@@ -480,7 +480,7 @@ __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int nlive,
   b.bx = ends[1] / nn - ends[0] / nn + 3;
   b.by = -m.y - m.x + 3;
   b.bz = -m.w - m.z + 3;
-  b.staged = (long long)b.bx * b.by * b.bz <= kStageCells;
+  b.staged = (long long)b.bx * b.by * b.bz <= kCap;
   return b;
 }
 
@@ -556,31 +556,23 @@ struct RegWeights {
   __device__ __forceinline__ float operator()(int o) const { return w[o]; }
 };
 
-// ... or read from the tile's shared copy (row o at w[o * kGatherTile]).
-struct SharedWeights {
-  const float* w;
-  __device__ __forceinline__ float operator()(int o) const {
-    return w[o * kGatherTile];
-  }
-};
-
-// K2, the weights in registers: a block per tile of kGatherTile sorted
-// particles.  kStage: the tile's box staged when small enough.
-template <bool kCount, bool kStage>
-__global__ void __launch_bounds__(kGatherTile)
+// K2, the weights in registers: a block per tile of kT sorted particles,
+// the tile's box staged when it holds at most kCap cells.
+template <bool kCount, int kT, int kCap, int kMinBlocks>
+__global__ void __launch_bounds__(kT, kMinBlocks)
     g2p_gather_kernel(const float* __restrict__ fm,
                       const float* __restrict__ w27t,
                       const int* __restrict__ flat,
                       const int* __restrict__ count, float* __restrict__ out,
                       int nx, int n, long long np) {
-  __shared__ int4 red[kGatherWarps];
+  __shared__ int4 red[kT / 32];
   __shared__ int ends[2];
-  __shared__ float4 box[kStage ? kStageCells : 1];
+  __shared__ float4 box[kCap];
   const long long ncell = (long long)nx * n * n;
-  const long long p0 = (long long)blockIdx.x * kGatherTile;
+  const long long p0 = (long long)blockIdx.x * kT;
   const int j = threadIdx.x;
   const long long live = live_rows<kCount>(count, np);
-  const int len = (int)min((long long)kGatherTile, np - p0);
+  const int len = (int)min((long long)kT, np - p0);
   if (p0 >= live) {                   // the whole tile past the count
     zero_gather_rows(out, np, p0, len);
     return;
@@ -593,93 +585,13 @@ __global__ void __launch_bounds__(kGatherTile)
 #pragma unroll
   for (int o = 0; o < 27; ++o)
     wt.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
-  GatherBox b{};
-  if constexpr (kStage) {
-    b = gather_box(f, alive, nlive, n, red, ends);
-    if (b.staged) stage_box(b, fm, nx, n, ncell, box);
-  }
+  const GatherBox b = gather_box<kCap>(f, alive, nlive, n, red, ends);
+  if (b.staged) stage_box(b, fm, nx, n, ncell, box);
   if (j >= len) return;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   if (alive) gather_sums(wt, f, nx, n, ncell, fm, b, b.staged, box, s);
 #pragma unroll
   for (int r = 0; r < 4; ++r) out[r * np + p] = s[r];
-}
-
-// 4-byte cp.async of global src to shared dst, and its group fences.
-__device__ __forceinline__ void copy4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void copy_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-constexpr int kGatherTileSmem =
-    kStageCells * 16 + 2 * 27 * kGatherTile * 4 + 2 * kGatherTile * 4;
-
-// K2, the persistent tile: each block walks tiles blockIdx.x, + gridDim.x,
-// ...; the next tile's 27 weight rows and ids are copied into one of two
-// shared buffers by cp.async while the current one is summed.
-template <bool kCount>
-__global__ void __launch_bounds__(kGatherTile)
-    g2p_gather_tile_kernel(const float* __restrict__ fm,
-                           const float* __restrict__ w27t,
-                           const int* __restrict__ flat,
-                           const int* __restrict__ count,
-                           float* __restrict__ out, int nx, int n,
-                           long long np, long long ntiles) {
-  extern __shared__ float4 smem4[];
-  float4* box = smem4;                                        // kStageCells
-  float* wbuf = reinterpret_cast<float*>(smem4 + kStageCells);  // [2][27][T]
-  int* ids = reinterpret_cast<int*>(wbuf + 2 * 27 * kGatherTile);  // [2][T]
-  __shared__ int4 red[kGatherWarps];
-  __shared__ int ends[2];
-  const long long ncell = (long long)nx * n * n;
-  const long long live = live_rows<kCount>(count, np);
-  const int j = threadIdx.x;
-  auto issue = [&](long long t, int buf) {
-    const long long q = t * kGatherTile + j;
-    if (q < live) {
-      float* d = wbuf + buf * 27 * kGatherTile + j;
-#pragma unroll
-      for (int o = 0; o < 27; ++o) copy4(d + o * kGatherTile, w27t + o * np + q);
-      copy4(ids + buf * kGatherTile + j, flat + q);
-    }
-  };
-  long long t = blockIdx.x;
-  if (t < ntiles) issue(t, 0);
-  copy_commit();
-  for (int buf = 0; t < ntiles; t += gridDim.x, buf ^= 1) {
-    if (t + gridDim.x < ntiles) issue(t + gridDim.x, buf ^ 1);
-    copy_commit();
-    copy_wait_one();
-    __syncthreads();
-    const long long p0 = t * kGatherTile;
-    const int len = (int)min((long long)kGatherTile, np - p0);
-    if (p0 >= live) {
-      zero_gather_rows(out, np, p0, len);
-    } else {
-      const int nlive = (int)min((long long)len, live - p0);
-      const bool alive = j < nlive;
-      const int* tid = ids + buf * kGatherTile;
-      const int f = alive ? tid[j] : 0;
-      const GatherBox b = gather_box(f, alive, nlive, n, red, ends);
-      if (b.staged) stage_box(b, fm, nx, n, ncell, box);
-      if (j < len) {
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        if (alive)
-          gather_sums(SharedWeights{wbuf + buf * 27 * kGatherTile + j}, f, nx,
-                      n, ncell, fm, b, b.staged, box, s);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) out[r * np + p0 + j] = s[r];
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -1580,41 +1492,43 @@ int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
   return (int)cudaGetLastError();
 }
 
+template <bool kCount, int kT, int kCap, int kMinBlocks>
+int launch_gather_t(const float* fm, const float* w27t, const int* flat,
+                    const int* count, float* out, int nx, int n, long long np,
+                    cudaStream_t st) {
+  const long long ntiles = (np + kT - 1) / kT;
+  g2p_gather_kernel<kCount, kT, kCap, kMinBlocks>
+      <<<(unsigned)ntiles, kT, 0, st>>>(fm, w27t, flat, count, out, nx, n, np);
+  return (int)cudaGetLastError();
+}
+
 template <bool kCount>
 int launch_gather(int variant, const float* fm, const float* w27t,
                   const int* flat, const int* count, float* out, int nx, int n,
                   long long np, cudaStream_t st) {
-  const long long ntiles = (np + kGatherTile - 1) / kGatherTile;
-  if (variant == 1 || variant == 2) {
-    if (variant == 1)
-      g2p_gather_kernel<kCount, false><<<(unsigned)ntiles, kGatherTile, 0, st>>>(
-          fm, w27t, flat, count, out, nx, n, np);
-    else
-      g2p_gather_kernel<kCount, true><<<(unsigned)ntiles, kGatherTile, 0, st>>>(
-          fm, w27t, flat, count, out, nx, n, np);
-    return (int)cudaGetLastError();
+  switch (variant) {
+    case 4:
+      return launch_gather_t<kCount, 256, 1024, 1>(fm, w27t, flat, count, out,
+                                                  nx, n, np, st);
+    case 5:
+      return launch_gather_t<kCount, 256, 1024, 4>(fm, w27t, flat, count, out,
+                                                  nx, n, np, st);
+    case 6:
+      return launch_gather_t<kCount, 128, 512, 1>(fm, w27t, flat, count, out,
+                                                 nx, n, np, st);
+    case 7:
+      return launch_gather_t<kCount, 128, 512, 8>(fm, w27t, flat, count, out,
+                                                 nx, n, np, st);
+    default:
+      return launch_gather_t<kCount, kGatherTile, kStageCells, 1>(
+          fm, w27t, flat, count, out, nx, n, np, st);
   }
-  cudaError_t rc = cudaFuncSetAttribute(
-      g2p_gather_tile_kernel<kCount>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kGatherTileSmem);
-  if (rc != cudaSuccess) return (int)rc;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, g2p_gather_tile_kernel<kCount>, kGatherTile, kGatherTileSmem);
-  if (rc != cudaSuccess) return (int)rc;
-  const long long wave = (long long)per_sm * sms;
-  const long long grid = ntiles < wave ? ntiles : wave;
-  g2p_gather_tile_kernel<kCount><<<(unsigned)grid, kGatherTile,
-                                   kGatherTileSmem, st>>>(
-      fm, w27t, flat, count, out, nx, n, np, ntiles);
-  return (int)cudaGetLastError();
 }
 
 // K2 by design (a probe of this build): 0 the thread per particle of
-// launch_rows, 1 a tile a block with the weights in registers, 2 the same
-// with the tile's fields staged, 3 the persistent cp.async tile.
+// launch_rows; a block per tile, the weights in registers and the tile's
+// fields staged: 2 (256 particles, at most 384 cells), 4 (256, 1024),
+// 5 (256, 1024, 64 registers), 6 (128, 512), 7 (128, 512, 64 registers).
 extern "C" int fs_g2p_gather_variant(const float* fm, const float* w27t,
                                      const int* flat, const int* count,
                                      float* out, int nx, int n, long long np,

@@ -71,13 +71,13 @@ def _ms(fn, torch) -> float:
 
 
 def _variants(native, tk, torch, fm, w27t, flat, count):
-    """{design: rounds' ms} of ``fs_g2p_gather_variant`` designs 0-3, each
+    """{design: rounds' ms} of the ``fs_g2p_gather_variant`` designs, each
     first held bit for bit to ``g2p_gather_plain``."""
     lib = native.library()
     nx, n, p = fm.shape[1], fm.shape[-1], flat.shape[0]
     want = tk.g2p_gather_plain(fm, w27t, flat, count).view(torch.int32)
     res = {}
-    for v in range(4):
+    for v in (0, 2, 4, 5, 6, 7):
         o = torch.empty((4, p), dtype=torch.float32, device=fm.device)
 
         def run():

@@ -1,8 +1,9 @@
 """Synthetic kernel inputs that a frame's state may not reach, made from a
 seed with numpy: the run tables of the bucket move (K5), skewed sorted
 states for the K1 modes (K1, K1 aff, K1 fg), a skewed window-grouped
-state for the base-cell scatter (K6a) and a skewed sorted row state for
-the row scatter-add (K8b).  ``chip_smoke.py`` holds the CUDA
+state for the base-cell scatter (K6a), a skewed sorted row state for
+the row scatter-add (K8b) and the edge cases of the G2P gather's tiles
+(K2).  ``chip_smoke.py`` holds the CUDA
 kernels to their plain versions on them, and the CPU tests hold the plain
 versions and the plans to numpy on the same inputs."""
 
@@ -178,3 +179,60 @@ def skewed_row_state(seed: int, n: int, big: int, device="cpu"):
     rows = rng.standard_normal((flat.size + 8, 128), dtype=np.float32)
     return (torch.as_tensor(rows, device=device),
             torch.as_tensor(flat, device=device), counts)
+
+
+def gather_edge_cases(p: int, n: int, seed: int = 0, device="cpu"):
+    """K2 inputs that reach each path of its tiles of 256 sorted rows
+    (``csrc/transfer.cu``), each ``(name, fm, w27t, flat, count)`` with
+    ``p`` rows (any ``p``, also one not a multiple of 4), random positive
+    weights and random fields that are not zero on the box faces:
+
+    - ``rows``: about 24 particles a cell along a z run from the end of an
+      (x, y) row into the next and on across an x plane;
+    - ``faces``: particles on random cells of the box's faces, edges and
+      corners;
+    - ``dense``: every particle in 3 cells of the box's corner (staged
+      tiles reading zeros outside the grid);
+    - ``wide``: ids spread over the whole grid (tiles reading the fields
+      directly);
+    - ``count_split``, ``count_zero``, ``count_all``: the ``rows`` ids
+      with a live count inside a tile, 0 and ``p``, the slots past it
+      dead (id ``n^3``);
+    - ``slab``: an x slab of 5 rows of the grid holding the ``faces``
+      particles that fall in it, the rest dead, with their count.
+    """
+    rng = np.random.default_rng(seed)
+    ncell = n ** 3
+    fm = torch.as_tensor(rng.normal(size=(4, n, n, n)).astype(np.float32),
+                         device=device)
+    w27t = torch.as_tensor(rng.random((27, p), dtype=np.float32),
+                           device=device)
+    f0 = (1 * n + n - 1) * n + n - 3
+    rows = np.minimum(f0 + np.arange(p) // 24, ncell - 1)
+    face = rng.integers(0, n, size=(p, 3))
+    side = rng.integers(0, 3, size=p)
+    face[np.arange(p), side] = rng.integers(0, 2, size=p) * (n - 1)
+    faces = np.sort((face[:, 0] * n + face[:, 1]) * n + face[:, 2])
+    dense = np.sort(rng.choice(np.array([0, 1, n]), size=p))
+    wide = np.sort(rng.integers(0, ncell, size=p))
+
+    def ids(a):
+        return torch.as_tensor(a.astype(np.int32), device=device)
+
+    def counted(a, live, dead):
+        a = a.copy()
+        a[live:] = dead
+        return ids(a), torch.tensor([live], dtype=torch.int32, device=device)
+
+    cases = [("rows", fm, w27t, ids(rows), None),
+             ("faces", fm, w27t, ids(faces), None),
+             ("dense", fm, w27t, ids(dense), None),
+             ("wide", fm, w27t, ids(wide), None)]
+    for name, live in (("count_split", p // 2 + 3), ("count_zero", 0),
+                       ("count_all", p)):
+        cases.append((name, fm, w27t, *counted(rows, min(live, p), ncell)))
+    nx = 5
+    cut = int(np.searchsorted(faces, nx * n * n))
+    cases.append(("slab", fm[:, :nx].contiguous(), w27t,
+                  *counted(faces, cut, nx * n * n)))
+    return cases
