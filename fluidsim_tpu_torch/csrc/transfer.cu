@@ -558,7 +558,7 @@ struct RegWeights {
 
 // K2, the weights in registers: a block per tile of kT sorted particles,
 // the tile's box staged when it holds at most kCap cells.
-template <bool kCount, int kT, int kCap, int kMinBlocks>
+template <bool kCount, int kT, int kCap, int kMinBlocks, bool kStream>
 __global__ void __launch_bounds__(kT, kMinBlocks)
     g2p_gather_kernel(const float* __restrict__ fm,
                       const float* __restrict__ w27t,
@@ -584,14 +584,21 @@ __global__ void __launch_bounds__(kT, kMinBlocks)
   RegWeights wt;
 #pragma unroll
   for (int o = 0; o < 27; ++o)
-    wt.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
+    wt.w[o] = alive ? (kStream ? __ldcs(w27t + o * np + p)
+                               : __ldg(w27t + o * np + p))
+                    : 0.f;
   const GatherBox b = gather_box<kCap>(f, alive, nlive, n, red, ends);
   if (b.staged) stage_box(b, fm, nx, n, ncell, box);
   if (j >= len) return;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   if (alive) gather_sums(wt, f, nx, n, ncell, fm, b, b.staged, box, s);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) out[r * np + p] = s[r];
+  for (int r = 0; r < 4; ++r) {
+    if constexpr (kStream)
+      __stcs(out + r * np + p, s[r]);
+    else
+      out[r * np + p] = s[r];
+  }
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -1492,12 +1499,12 @@ int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
   return (int)cudaGetLastError();
 }
 
-template <bool kCount, int kT, int kCap, int kMinBlocks>
+template <bool kCount, int kT, int kCap, int kMinBlocks, bool kStream>
 int launch_gather_t(const float* fm, const float* w27t, const int* flat,
                     const int* count, float* out, int nx, int n, long long np,
                     cudaStream_t st) {
   const long long ntiles = (np + kT - 1) / kT;
-  g2p_gather_kernel<kCount, kT, kCap, kMinBlocks>
+  g2p_gather_kernel<kCount, kT, kCap, kMinBlocks, kStream>
       <<<(unsigned)ntiles, kT, 0, st>>>(fm, w27t, flat, count, out, nx, n, np);
   return (int)cudaGetLastError();
 }
@@ -1506,29 +1513,24 @@ template <bool kCount>
 int launch_gather(int variant, const float* fm, const float* w27t,
                   const int* flat, const int* count, float* out, int nx, int n,
                   long long np, cudaStream_t st) {
+#define FS_K2(T, CAP, MINB, STREAM)                                         \
+  launch_gather_t<kCount, T, CAP, MINB, STREAM>(fm, w27t, flat, count, out, \
+                                                nx, n, np, st)
   switch (variant) {
-    case 4:
-      return launch_gather_t<kCount, 256, 1024, 1>(fm, w27t, flat, count, out,
-                                                  nx, n, np, st);
-    case 5:
-      return launch_gather_t<kCount, 256, 1024, 4>(fm, w27t, flat, count, out,
-                                                  nx, n, np, st);
-    case 6:
-      return launch_gather_t<kCount, 128, 512, 1>(fm, w27t, flat, count, out,
-                                                 nx, n, np, st);
-    case 7:
-      return launch_gather_t<kCount, 128, 512, 8>(fm, w27t, flat, count, out,
-                                                 nx, n, np, st);
-    default:
-      return launch_gather_t<kCount, kGatherTile, kStageCells, 1>(
-          fm, w27t, flat, count, out, nx, n, np, st);
+    case 8: return FS_K2(256, 1024, 5, false);
+    case 9: return FS_K2(128, 1024, 8, false);
+    case 10: return FS_K2(128, 1024, 10, false);
+    case 11: return FS_K2(256, 1024, 4, true);
+    default: return FS_K2(256, 1024, 4, false);
   }
+#undef FS_K2
 }
 
 // K2 by design (a probe of this build): 0 the thread per particle of
 // launch_rows; a block per tile, the weights in registers and the tile's
-// fields staged: 2 (256 particles, at most 384 cells), 4 (256, 1024),
-// 5 (256, 1024, 64 registers), 6 (128, 512), 7 (128, 512, 64 registers).
+// fields staged (particles a tile, at most cells staged, blocks an SM):
+// 5 (256, 1024, 4), 8 (256, 1024, 5), 9 (128, 1024, 8), 10 (128, 1024,
+// 10), 11 as 5 with streaming loads of the weights and stores of out.
 extern "C" int fs_g2p_gather_variant(const float* fm, const float* w27t,
                                      const int* flat, const int* count,
                                      float* out, int nx, int n, long long np,
@@ -1548,7 +1550,7 @@ extern "C" int fs_g2p_gather_variant(const float* fm, const float* w27t,
 extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
                              const int* flat, const int* count, float* out,
                              int nx, int n, long long np, void* stream) {
-  return fs_g2p_gather_variant(fm, w27t, flat, count, out, nx, n, np, 2,
+  return fs_g2p_gather_variant(fm, w27t, flat, count, out, nx, n, np, 5,
                                stream);
 }
 
