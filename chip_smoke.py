@@ -29,7 +29,12 @@ Phases, each of which raises on failure (nonzero exit):
    card's idle time after its host read), K1 bit for bit against its
    summation order in PyTorch (``p2g_scatter_chunked``) and a rerun, a
    plan of another ``cell_start`` refused, and the plan's chunk lists
-   (``chunk_fill``) against their plain version;
+   (``chunk_fill``) against their plain version; K2 bit for bit against its
+   plain version there and on ``utils/synthetic.gather_edge_cases`` (tiles
+   across rows and planes, box faces, live counts of 0, P and one inside a
+   tile, a window-grouped order, a slab; 1 to 100,003 rows at 13^3, 25^3
+   and 129^3), each state's share of K2 tiles that stage their fields
+   printed;
 4. run ``FlipSim`` (FLIP) for warm-up and timed frames: finite energy,
    particles in the box, the projection's outer tolerance met, every
    kernel launched by the timed frames the number of times the frame's CG
@@ -46,9 +51,10 @@ Phases, each of which raises on failure (nonzero exit):
 9. reference: a small scene stepped on the card in FLIP, APIC and PIC mode
    matches the same scene stepped on the CPU, where every kernel wrapper
    runs its plain version (APIC: the affine matrices too);
-10. the MPM kernels (K1, K1 fg, K2 gw) against their plain versions on
-   the sorted state, stress and grid velocity of ``MpmSim("mpm_cone")``
-   after its 2 warm-up frames, timed as in phase 3, K1 and K1 fg with the
+10. the MPM kernels (K1, K1 fg, K2 gw, and K2 on the density gather's
+   fields, bit for bit) against their plain versions on the sorted state,
+   stress and grid velocity of ``MpmSim("mpm_cone")`` after its 2 warm-up
+   frames, timed as in phase 3, K1 and K1 fg with the
    checks of K1 in phase 3 (``p2g_scatter_force_chunked``); all three K1
    modes again on skewed synthetic states
    (``utils/synthetic.skewed_force_state``, ``skewed_wv_state``: 20,000
@@ -71,7 +77,8 @@ Phases, each of which raises on failure (nonzero exit):
    (``p2g_scatter_base_ordered``) and a rerun, there, in its APIC instance
    on phase 6's APIC state shuffled inside each window (timed), and in both
    instances on ``utils/synthetic.skewed_window_state`` (20,000 particles
-   in one cell, a span of 2,560 ids, the ragged last window occupied);
+   in one cell, a span of 2,560 ids, the ragged last window occupied); K2
+   bit for bit against its plain version on the window-grouped order;
 15. the bucket path at 129^3: 10 timed frames with the checks of phase 4,
    the launch counts (K5 once per frame that kept the bucket order, K6a
    and K6b once per frame, K1 never), how many frames fell back to the
@@ -171,8 +178,9 @@ group of this process alone (NCCL, a ``file://`` store, destroyed after):
    4-way cut (37 rows, its 1,062,973 particles alive and the rest of the
    slots dead), K3 and K4 on their solve slabs (129 rows with null edge
    planes, and 33 rows with the neighbouring slabs' edge rows beside them,
-   cut out of phase 3's frame fields), K1 fg and K2 gw on the cone's (131
-   and 36 rows at 127^3); each against its plain version as in phase 3
+   cut out of phase 3's frame fields), K1 fg, K2 gw and K2 (the density
+   gather) on the cone's (131 and 36 rows at 127^3); each against its plain
+   version as in phase 3
    (timed, with the bound of the slab's bytes: the live particles' inputs,
    the edge rows read, the whole output; K3 and K4 read p, z and r only at
    fluid cells), then bit for bit against its
@@ -378,6 +386,42 @@ def _require_bitwise(name, a, b, torch):
     if not same:
         raise AssertionError(f"{name}: not bit for bit equal")
     print(f"bitwise {name}: equal")
+
+
+def _k2_staged(label, flat, n, count, torch):
+    """Print and return how many of K2's tiles of the sorted ids ``flat``
+    (with a live row) stage their fields (``g2p_gather_staged_tiles``)."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    staged, tiles = tk.g2p_gather_staged_tiles(flat, n, count)
+    print(f"K2 ({label}): {staged} of {tiles} tiles with a live row stage "
+          f"their fields ({staged / max(tiles, 1):.1%})")
+    return [staged, tiles]
+
+
+def _k2_edge_cases(torch):
+    """K2 bit for bit against its plain version on
+    ``utils/synthetic.gather_edge_cases`` at 13^3, 25^3 and 129^3, with
+    particle counts of 1, 255, 257, 1001, 4099 and 100,003 (most not a
+    multiple of 4); across them both of its paths (staged tiles and the
+    direct reads) must be taken."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils import synthetic
+
+    staged = tiles = 0
+    for p, n in ((1, 13), (255, 13), (257, 13), (1001, 13), (4099, 25),
+                 (100_003, 129)):
+        for name, fm, w27t, flat, count in synthetic.gather_edge_cases(
+                p, n, seed=SEED, device="cuda"):
+            label = f"edge case {name}, {p} rows at {n}^3"
+            _require_bitwise(f"K2 g2p_gather ({label})",
+                             tk.g2p_gather(fm, w27t, flat, count),
+                             tk.g2p_gather_plain(fm, w27t, flat, count), torch)
+            s, t = _k2_staged(label, flat, n, count, torch)
+            staged, tiles = staged + s, tiles + t
+    if not 0 < staged < tiles:
+        raise AssertionError(f"K2 edge cases: {staged} of {tiles} tiles "
+                             "stage: a path of the kernel went untested")
 
 
 def _k6a_case(name, w27t, vel, flat, n, aff, torch):
@@ -1831,35 +1875,15 @@ def _one_rank_group():
             dist.destroy_process_group()
 
 
-def _rank_arrays(scene, bound, rank, size, rng, dev, torch, np):
-    """Rank ``rank``'s sorted slots in a ``size``-way cut of the scene's
-    seeded particles with random velocities: its own particles alive,
-    every other slot dead, as the rank holds them in a frame.  Returns
-    (slab, pos, vel, flat, live count)."""
-    from fluidsim_tpu_torch.parallel import flip_sharded as fs
-    from fluidsim_tpu_torch.seeding import seed_particles
-
-    slab = fs.Slab.build(np.asarray(scene.solid), bound, None, dev,
-                         rank=rank, size=size)
-    pos, _ = seed_particles(scene, seed=SEED, dtype="float32")
-    vel = torch.as_tensor(rng.normal(scale=3.0, size=pos.shape)
-                          .astype(np.float32), device=dev)
-    pos = torch.as_tensor(pos, device=dev)
-    alive = fs.owners(slab, pos) == rank
-    pos = torch.where(alive[:, None], pos, fs.SENTINEL)
-    vel = torch.where(alive[:, None], vel, 0.0)
-    pos_s, vel_s, _, flat = fs.sort_slab(slab, pos, vel, alive)
-    return slab, pos_s, vel_s, flat, int(alive.sum())
-
-
-def _slab_kernels(where, results, cases, torch):
+def _slab_kernels(where, path, results, cases, torch):
     """``_compare`` each case (key, label, kernel, plain, tolerance,
-    inputs, ops, order function or None) and hold it bit for bit to its
-    order function, or with None to its plain version."""
+    inputs, ops, order function or None) of the sharded path ``path`` and
+    hold it bit for bit to its order function, or with None to its plain
+    version."""
     for key, label, kernel, plain, tol, inputs, ops, order in cases:
         results[key] = _compare(f"{label} ({where})", kernel, plain, tol,
                                 inputs, ops, torch)
-        results[key]["slab"] = where
+        results[key].update(slab=where, path=path)
         _require_bitwise(f"{label} ({where}): against its "
                          f"{'order function' if order else 'plain version'}",
                          kernel(), (order or plain)(), torch)
@@ -1870,10 +1894,11 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
     from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
+    from fluidsim_tpu_torch.utils.gather_timing import rank_arrays
 
     n = 2 * BOUND + 1
-    slab, pos_s, vel_s, flat, a = _rank_arrays(scene, BOUND, rank, size, rng,
-                                               dev, torch, np)
+    slab, pos_s, vel_s, flat, a = rank_arrays(scene, BOUND, rank, size, rng,
+                                              dev)
     w27t = tk.masked_weights_cm(pos_s, BOUND)
     cs = tk.cell_starts(flat, n, slab.rows)
     count = cs[-1:]
@@ -1886,6 +1911,7 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     tag = f"slab{slab.rows}"
     print(f"{scene.name}, rank {rank} of {size}: transfer slab "
           f"{tuple(acc.shape[1:])}, {a} of {flat.shape[0]} slots alive")
+    _k2_staged(f"{scene.name}, {tag}", flat, n, count, torch)
     live = (w27t[:, :a], vel_s[:a], flat[:a])
     return [
         (f"p2g_scatter_{tag}", f"K1 p2g_scatter {tag}",
@@ -2050,13 +2076,15 @@ def _split_on_slab(where, fields, sl, size, rank, torch):
 
 
 def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
-    """K1 fg and K2 gw on one rank's transfer slab of the cone."""
+    """K1 fg, K2 gw and K2 (the density gather) on one rank's transfer slab
+    of the cone."""
     from fluidsim_tpu_torch.ops import mpm_kernels as mk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.utils.gather_timing import rank_arrays
 
     n = 2 * MPM_BOUND + 1
-    slab, pos_s, vel_s, flat, a = _rank_arrays(scene, MPM_BOUND, rank, size,
-                                               rng, dev, torch, np)
+    slab, pos_s, vel_s, flat, a = rank_arrays(scene, MPM_BOUND, rank, size,
+                                              rng, dev)
     w27t, gradw = mk.mpm_stencil(pos_s, MPM_BOUND)
     cs = tk.cell_starts(flat, n, slab.rows)
     count = cs[-1:]
@@ -2068,10 +2096,19 @@ def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     velg = torch.where(heavy[None],
                        acc[1:4] / torch.where(heavy, acc[0], 1.0)[None], 0.0)
     fm3 = torch.where(~slab.solid_ext[None], velg, 0.0).contiguous()
+    ns = ~slab.solid_ext
+    zero = torch.zeros_like(acc[0])
+    fm = torch.stack([torch.where(ns, acc[0], 0.0), zero, zero,
+                      ns.to(torch.float32)])
     tag = f"slab{slab.rows}"
     print(f"{scene.name}, rank {rank} of {size}: transfer slab "
           f"{tuple(acc.shape[1:])}, {a} of {p} slots alive")
+    _k2_staged(f"{scene.name}, {tag}", flat, n, count, torch)
     return [
+        (f"g2p_gather_{tag}", f"K2 g2p_gather {tag} (density)",
+         lambda: tk.g2p_gather(fm, w27t, flat, count),
+         lambda: tk.g2p_gather_plain(fm, w27t, flat, count), 1e-5,
+         (fm, w27t[:, :a], flat[:a], count), 27 * 8 * a, None),
         (f"p2g_scatter_force_{tag}", f"K1 fg p2g_scatter_force {tag}",
          lambda: tk.p2g_scatter_force(gradw, m9, cs, n, plan),
          lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
@@ -2099,9 +2136,10 @@ def _slab_phase(dev, torch, np, solve_fields):
         for size in (1, SLAB_WORLD):
             rank = 0 if size == 1 else SLAB_RANK
             where = f"rank {rank} of {size}"
-            for cases in (_flip_slab_cases, _cone_slab_cases):
-                scene = flip_scene if cases is _flip_slab_cases else cone
-                _slab_kernels(where, results,
+            for cases, scene, path in (
+                    (_flip_slab_cases, flip_scene, "sharded_flip"),
+                    (_cone_slab_cases, cone, "sharded_mpm")):
+                _slab_kernels(where, path, results,
                               cases(scene, rank, size, rng, g, dev, torch,
                                     np), torch)
             results.update(_stencil_cases(where, solve_fields, (size, rank),
@@ -2688,6 +2726,12 @@ def main() -> int:
         "K2 g2p_gather", lambda: tk.g2p_gather(fm, w27t, flat),
         lambda: tk.g2p_gather_plain(fm, w27t, flat), 1e-5,
         (fm, w27t, flat), 27 * 8 * P, torch)
+    _require_bitwise("K2 g2p_gather (the FLIP state): against its plain "
+                     "version", tk.g2p_gather(fm, w27t, flat),
+                     tk.g2p_gather_plain(fm, w27t, flat), torch)
+    results["g2p_gather"]["staged_tiles"] = _k2_staged("the FLIP state", flat,
+                                                       n, None, torch)
+    _k2_edge_cases(torch)
 
     # K3/K4 on the adiag and pressure of a real frame (the 2nd of the sim)
     kes = [float(sim.step()["kinetic_energy"])]
@@ -2872,8 +2916,23 @@ def main() -> int:
         "K2 gw g2p_gather_gw", lambda: tk.g2p_gather_gw(fm, gradw, flat),
         lambda: tk.g2p_gather_gw_plain(fm, gradw, flat), 1e-5,
         (fm, gradw, flat), 27 * 18 * P, torch)
+    # K2 as the frame's density gather launches it (mpm_kernels.density)
+    zero = torch.zeros_like(mass)
+    fm_d = torch.stack([torch.where(~sim.solid, mass, 0.0), zero, zero,
+                        (~sim.solid).to(torch.float32)])
+    cone_k2 = _compare(
+        "K2 g2p_gather (cone density)",
+        lambda: tk.g2p_gather(fm_d, w27t, flat),
+        lambda: tk.g2p_gather_plain(fm_d, w27t, flat), 1e-5,
+        (fm_d, w27t, flat), 27 * 8 * P, torch)
+    _require_bitwise("K2 g2p_gather (the cone state): against its plain "
+                     "version", tk.g2p_gather(fm_d, w27t, flat),
+                     tk.g2p_gather_plain(fm_d, w27t, flat), torch)
+    cone_k2["staged_tiles"] = _k2_staged("the cone state", flat, n, None,
+                                         torch)
+    results["g2p_gather"]["mpm_cone"] = cone_k2
     del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, plan, cone
-    del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm
+    del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm, fm_d, zero
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
     ke, mpm_launches, mpm_cg, mpm_ms = _run_mpm_frames(sim, counted, torch)
@@ -2939,6 +2998,15 @@ def main() -> int:
         "K6a p2g_scatter_base", w27t, vel_s, flat_o, n, None, torch)
     results["p2g_scatter_base"].update(_k6a_more_states(
         w27t, vel_s, flat_o, apic_k6a, B, n, dev, torch))
+    # the bucket frame's G2P launches K2 on this window-grouped order
+    fm_b = torch.rand((4, n, n, n), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    _require_bitwise("K2 g2p_gather (the bucket state, window-grouped): "
+                     "against its plain version",
+                     tk.g2p_gather(fm_b, w27t, flat_o),
+                     tk.g2p_gather_plain(fm_b, w27t, flat_o), torch)
+    _k2_staged("the bucket state", flat_o, n, None, torch)
+    del fm_b
     d = tk.p2g_scatter_base(w27t, vel_s, flat_o,
                             tk.window_starts(flat_o, n), n)
     _, onehot = _shift_onehots(dev, torch)
@@ -3049,8 +3117,8 @@ def main() -> int:
     for key in sorted(k for k in results if "_slab" in k):
         name = key.rsplit("_slab", 1)[0]
         src, rep, _ = sources[name]
-        sources[key] = (src, rep, shard_mpm if "force" in name
-                        or "gw" in name else shard_flip)
+        sources[key] = (src, rep, shard_mpm if results[key].get("path")
+                        == "sharded_mpm" else shard_flip)
     paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches,
              "flip_bucket": bucket_launches,
              "g2p_materialised": table_launches,

@@ -22,8 +22,9 @@
 // kernel (nullptr: all P rows), and write zeros to the rows past it, so a
 // dead slot's id, which decodes to row nx, reads no real cell and no host
 // read sizes the launch.  A cube call (nx = n, count nullptr) launches the
-// gathers built without the count test (kCount false), bit for bit as
-// before the slabs.
+// gathers built without the count test (kCount false).  K2 reads the count
+// once a tile of particles and tests rows only in the tile that straddles
+// it.
 //
 // K1 fs_p2g_scatter, fs_p2g_scatter_affine and fs_p2g_scatter_force replace
 //   fluidsim_tpu/ops/pallas_transfer.py:1064 scatter_wv_fused
@@ -78,16 +79,38 @@
 //   p2g_scatter_force_chunked are this order written in PyTorch; the
 //   kernels equal them bit for bit.
 //
-// K2 fs_g2p_gather replaces fluidsim_tpu/ops/pallas_transfer.py:
+// K2 fs_g2p_gather replaces fluidsim_tpu/ops/pallas_transfer.py:1339
 //   gather_wv_fused (_gather_wv_fused_kernel), nout=8 (rows 0-3 live).
 //   out[c, p] = sum_o w27t[o, p] * fm[c, base(p) + off_o] for c = 0..3,
-//   where fm holds 3 within-wall-masked field channels and the mask itself;
-//   neighbours outside the box read 0.  Output (4, P) f32.
-//   Bound on the H100: memory.  Per particle it reads 108 B of weights,
-//   4 B of id and 27 x 16 B of grid values, writes 16 B; the grid reads of
-//   the ~25 particles of one cell hit the same addresses (L1 broadcast).
-//   Design: one thread per particle; consecutive threads are consecutive
-//   sorted particles, so the weight reads and output writes are coalesced.
+//   each sum over o = 0..26 in order from +0, where fm holds 3 within-wall-
+//   masked field channels and the mask itself; neighbours outside the grid
+//   are skipped; rows past the count are 0.  Output (4, P) f32, bit for bit
+//   transfer_kernels.g2p_gather_plain (and K7a and K9b).
+//   Bound on the H100: memory.  Per particle it reads 108 B of weights
+//   (214.7 of the 288.8 compulsory MB at 129^3) and 4 B of id, writes 16 B,
+//   and its 27 neighbours' 432 B are shared by the ~25 sorted particles of
+//   a cell.  A thread per particle that tested each neighbour against the
+//   box before loading its weight kept about one weight line in flight a
+//   warp and issued 108 scalar field loads a particle: 55-57% of the bound.
+//   Design: a block per tile of kGatherTile = 128 sorted particles, a
+//   thread each, at most 64 registers (8 blocks an SM):
+//   - the tile's live count is read once: a tile wholly past it writes its
+//     zeros with 16-byte stores and reads nothing; only the tile that
+//     straddles it tests rows;
+//   - each thread issues its id and all 27 weight loads into registers
+//     first, so 27 lines a warp are in flight while the block reduces the
+//     box of its live base cells (min and max of x, y, z: right for any
+//     order, small for the sorted one);
+//   - a box (the live base cells widened by one cell) of at most
+//     kStageCells cells is staged in shared memory as float4, zeros outside
+//     the grid, so each offset is one 16-byte shared read with no box test
+//     (99% of the tiles of the 129^3 FLIP state; the rest read the fields
+//     directly, the offsets unrolled, neighbours outside the grid skipped).
+//   A staged zero adds w * 0 where the direct read skips: the same bits
+//   (see NeighbourFields).  A cp.async-fed persistent tile that double-
+//   buffered the weights in shared memory, and the register tile without
+//   the staged box, were slower at every launch shape on the H100
+//   (PERF.md §6).
 //
 // K2 moments fs_g2p_moments replaces the same TPU gather with nout=24
 //   (_contract_mat): the 22 live rows, from wf = w27t[o,p] * fm[:, base+off_o]
@@ -96,7 +119,7 @@
 //     over the pairs (00, 01, 02, 11, 12, 22).
 //   Output (22, P) f32.  Bound on the H100: memory; per particle 108 B of
 //   weights, 4 B of id, 88 B of output, the grid values from cache; ~432 MB
-//   at 129^3 / 2M particles.  Design: K2's thread per particle with 22
+//   at 129^3 / 2M particles.  Design: a thread per sorted particle with 22
 //   register accumulators; the offsets are compile-time constants in
 //   {-1, 0, 1}, so every product by an offset is exact.
 //
@@ -107,7 +130,7 @@
 //   box reading 0.  fm is (3, n, n, n).  Output (9, P) f32.
 //   Bound on the H100: memory; per particle 324 B of gradW, 4 B of id and
 //   36 B of output, the grid values from cache; ~197 MB at 127^3 / 473,798
-//   particles.  Design: K2's thread per sorted particle with 9 register
+//   particles.  Design: a thread per sorted particle with 9 register
 //   accumulators over the 27 neighbours.
 //
 // K6a fs_p2g_scatter_base replaces fluidsim_tpu/ops/pallas_transfer.py:
@@ -167,10 +190,10 @@
 //   Bound on the H100: memory.  Per particle 108 B of weights, 4 B of id and
 //   16 or 88 B of output, plus 432 B of table per distinct base cell: the
 //   sorted particles of one cell read the same 108 values (L1 broadcast).
-//   Design: K2's and K2 moments' kernels, templated on where a particle's
-//   grid values come from (NeighbourFields or TableColumn), so the
-//   accumulators are one code and the offsets are summed in K2's order:
-//   the materialised G2P equals the fused one bit for bit.
+//   Design: K2 moments' kernel, templated on where a particle's grid values
+//   come from (NeighbourFields or TableColumn), so the accumulators are one
+//   code and the offsets are summed in K2's order: the materialised G2P
+//   equals the fused one bit for bit.
 //
 // K9a fs_p2g_scatter_spans replaces fluidsim_tpu/ops/pallas_transfer.py:1500
 //   scatter_wv_spans (_scatter_wv_spans_kernel, its plan build_spans): K6a's
@@ -239,10 +262,11 @@ constexpr int kThreads = 256;
 constexpr int kMoments = 22;
 
 // The 4 grid values that offset o of a particle with base cell f = (x, y, z)
-// reads.  K2 reads the (4, n, n, n) fields at f + off_o and skips a
-// neighbour outside the box; K7a reads column f of the (27, 4, n, n, n)
-// table, which holds 0 for such a neighbour.  Adding w * 0 leaves a sum that
-// started at +0 unchanged to the bit, so K2 and K7a agree bit for bit.
+// reads.  K2 moments reads the (4, n, n, n) fields at f + off_o and skips a
+// neighbour outside the box (as K2 does); K7a reads column f of the
+// (27, 4, n, n, n) table, which holds 0 for such a neighbour.  Adding w * 0
+// leaves a sum that started at +0 unchanged to the bit, so K2 and K7a agree
+// bit for bit.
 struct NeighbourFields {
   const float* fm;
   int nx;                         // the grid's x extent (n for the cube)
@@ -295,8 +319,9 @@ struct StagedColumn {
 
 // The rows of one particle p with base cell f = (x, y, z): K2's 4 sums
 // (gather_rows) or K2 moments' 22 (moment_rows), each over the 27 offsets in
-// order from +0, the grid values read through src.  K2, K7a and K9b run this
-// code with their own sources, so they agree bit for bit.
+// order from +0, the grid values read through src.  K7a and K9b run this
+// code with their own sources, K2 its tiles (gather_sums) in the same order,
+// so they agree bit for bit.
 template <class Src>
 __device__ __forceinline__ void moment_rows(const Src& src,
                                             const float* __restrict__ w27t,
@@ -391,8 +416,8 @@ __device__ __forceinline__ bool dead_row(const int* __restrict__ count,
   }
 }
 
-// K2 (kMom false, 4 rows) and K2 moments (22 rows) on an (nx, n, n) grid, and
-// K7a on the table (kMom as K2's): a thread per sorted particle.
+// K2 moments (kMom, 22 rows) on an (nx, n, n) grid, and K7a on the table (4
+// or 22 rows): a thread per sorted particle.
 template <bool kMom, bool kCount, class Src>
 __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
                                 const int* __restrict__ flat,
@@ -407,18 +432,9 @@ __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
 
 // ---- K2: the G2P gather, a tile of sorted particles a block -------------
 
-constexpr int kGatherTile = 256;   // particles a tile, a thread each
-constexpr int kStageCells = 384;   // float4 cells a tile may stage (6 KB)
-
-// The rows a launch gathers: the first *count (kCount), else all np.
-template <bool kCount>
-__device__ __forceinline__ long long live_rows(const int* __restrict__ count,
-                                               long long np) {
-  if constexpr (kCount)
-    return min((long long)__ldg(count), np);
-  else
-    return np;
-}
+constexpr int kGatherTile = 128;   // particles a tile, a thread each
+constexpr int kGatherBlocks = 8;   // blocks an SM: at most 64 registers
+constexpr int kStageCells = 1024;  // float4 cells a tile may stage (16 KB)
 
 // Zeros into rows 0..3 of out at [p0, p0 + len), by the block: 16-byte
 // stores where a row's span is aligned, scalar ones at its two ends.
@@ -442,45 +458,43 @@ __device__ __forceinline__ void zero_gather_rows(float* __restrict__ out,
 
 // The cells a tile's live particles read: the box of their base cells
 // widened by one cell on every side, origin (x0, y0, z0), extents
-// (bx, by, bz).  Staged when it holds at most kCap cells.
+// (bx, by, bz).  Staged when it holds at most kStageCells cells.
 struct GatherBox {
   int x0, y0, z0, bx, by, bz;
   bool staged;
 };
 
-// The box of a tile whose first nlive rows are live, by the whole block (it
-// synchronises): f is the thread's id when alive.  Sorted ids give the x
-// range from the first and last live rows; y and z are reduced over all.
-template <int kCap>
-__device__ __forceinline__ GatherBox gather_box(int f, bool alive, int nlive,
-                                                int n, int4* red, int* ends) {
-  const int nn = n * n;
-  const int y = (f / n) % n, z = f % n;
+// The box of a tile's live particles, by the whole block (it synchronises):
+// f is the thread's id when alive.  Each extent is a min and a max reduced
+// over the live ids, so the box holds every live particle's neighbours
+// whatever their order (the bucket path's window-grouped order too).
+__device__ __forceinline__ GatherBox gather_box(int f, bool alive, int n,
+                                                int (*red)[6]) {
+  const int c[3] = {f / (n * n), (f / n) % n, f % n};
   const unsigned all = 0xffffffffu;
-  const int4 mine = alive ? make_int4(y, -y, z, -z)
-                          : make_int4(INT_MAX, INT_MAX, INT_MAX, INT_MAX);
-  const int4 w = make_int4(__reduce_min_sync(all, mine.x),
-                           __reduce_min_sync(all, mine.y),
-                           __reduce_min_sync(all, mine.z),
-                           __reduce_min_sync(all, mine.w));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = w;
-  if (threadIdx.x == 0) ends[0] = f;
-  if ((int)threadIdx.x == nlive - 1) ends[1] = f;
-  __syncthreads();
-  int4 m = red[0];
+  const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
-    const int4 q = red[i];
-    m = make_int4(min(m.x, q.x), min(m.y, q.y), min(m.z, q.z), min(m.w, q.w));
+  for (int k = 0; k < 6; ++k) {
+    const int v = __reduce_min_sync(
+        all, alive ? (k & 1 ? -c[k >> 1] : c[k >> 1]) : INT_MAX);
+    if ((threadIdx.x & 31) == 0) red[warp][k] = v;
   }
-  GatherBox b;
-  b.x0 = ends[0] / nn - 1;
-  b.y0 = m.x - 1;
-  b.z0 = m.z - 1;
-  b.bx = ends[1] / nn - ends[0] / nn + 3;
-  b.by = -m.y - m.x + 3;
-  b.bz = -m.w - m.z + 3;
-  b.staged = (long long)b.bx * b.by * b.bz <= kCap;
+  __syncthreads();
+  int m[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    m[k] = red[0][k];
+#pragma unroll
+    for (int i = 1; i < kGatherTile / 32; ++i) m[k] = min(m[k], red[i][k]);
+  }
+  GatherBox b;          // (lo, -hi) of each axis -> origin lo - 1, extent
+  b.x0 = m[0] - 1;
+  b.y0 = m[2] - 1;
+  b.z0 = m[4] - 1;
+  b.bx = -m[1] - m[0] + 3;
+  b.by = -m[3] - m[2] + 3;
+  b.bz = -m[5] - m[4] + 3;
+  b.staged = (long long)b.bx * b.by * b.bz <= kStageCells;
   return b;
 }
 
@@ -507,30 +521,28 @@ __device__ __forceinline__ void stage_box(const GatherBox& b,
 }
 
 // One particle's 4 sums over the 27 offsets in order from +0, its weights
-// w(o) read through `wt`, its grid values from the staged box or from the
+// w[o] in registers, its grid values from the staged box or from the
 // fields (a neighbour outside the grid skipped).  A staged zero adds w * 0,
 // which leaves a sum that started at +0 unchanged to the bit (see
 // NeighbourFields), so both give the same bits.
-template <class W>
-__device__ __forceinline__ void gather_sums(const W& wt, int f, int nx, int n,
-                                            long long ncell,
+__device__ __forceinline__ void gather_sums(const float (&w)[27], int f,
+                                            int nx, int n, long long ncell,
                                             const float* __restrict__ fm,
-                                            const GatherBox& b, bool staged,
+                                            const GatherBox& b,
                                             const float4* box, float s[4]) {
   const int nn = n * n;
   const int x = f / nn, y = (f / n) % n, z = f % n;
-  if (staged) {
+  if (b.staged) {
     const int zs = b.bz, ys = b.by * b.bz;
     const int c0 = (x - b.x0) * ys + (y - b.y0) * zs + (z - b.z0);
 #pragma unroll
     for (int o = 0; o < 27; ++o) {
       const float4 v =
           box[c0 + (o / 9 - 1) * ys + ((o / 3) % 3 - 1) * zs + (o % 3 - 1)];
-      const float w = wt(o);
-      s[0] += w * v.x;
-      s[1] += w * v.y;
-      s[2] += w * v.z;
-      s[3] += w * v.w;
+      s[0] += w[o] * v.x;
+      s[1] += w[o] * v.y;
+      s[2] += w[o] * v.z;
+      s[3] += w[o] * v.w;
     }
     return;
   }
@@ -542,37 +554,30 @@ __device__ __forceinline__ void gather_sums(const W& wt, int f, int nx, int n,
     if (!(in_x[o / 9] && in_y[(o / 3) % 3] && in_z[o % 3])) continue;
     const float* q = fm + f + (o / 9 - 1) * nn + ((o / 3) % 3 - 1) * n +
                      (o % 3 - 1);
-    const float w = wt(o);
-    s[0] += w * __ldg(q);
-    s[1] += w * __ldg(q + ncell);
-    s[2] += w * __ldg(q + 2 * ncell);
-    s[3] += w * __ldg(q + 3 * ncell);
+    s[0] += w[o] * __ldg(q);
+    s[1] += w[o] * __ldg(q + ncell);
+    s[2] += w[o] * __ldg(q + 2 * ncell);
+    s[3] += w[o] * __ldg(q + 3 * ncell);
   }
 }
 
-// A particle's 27 weights, loaded into registers before any field read.
-struct RegWeights {
-  float w[27];
-  __device__ __forceinline__ float operator()(int o) const { return w[o]; }
-};
-
-// K2, the weights in registers: a block per tile of kT sorted particles,
-// the tile's box staged when it holds at most kCap cells.
-template <bool kCount, int kT, int kCap, int kMinBlocks, bool kStream>
-__global__ void __launch_bounds__(kT, kMinBlocks)
+// K2: a block per tile of kGatherTile sorted particles (see the note at
+// the top).
+template <bool kCount>
+__global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
     g2p_gather_kernel(const float* __restrict__ fm,
                       const float* __restrict__ w27t,
                       const int* __restrict__ flat,
                       const int* __restrict__ count, float* __restrict__ out,
                       int nx, int n, long long np) {
-  __shared__ int4 red[kT / 32];
-  __shared__ int ends[2];
-  __shared__ float4 box[kCap];
+  __shared__ int red[kGatherTile / 32][6];
+  __shared__ float4 box[kStageCells];
   const long long ncell = (long long)nx * n * n;
-  const long long p0 = (long long)blockIdx.x * kT;
+  const long long p0 = (long long)blockIdx.x * kGatherTile;
   const int j = threadIdx.x;
-  const long long live = live_rows<kCount>(count, np);
-  const int len = (int)min((long long)kT, np - p0);
+  // the rows gathered: the first *count, or all np (the test compiled away)
+  const long long live = kCount ? min((long long)__ldg(count), np) : np;
+  const int len = (int)min((long long)kGatherTile, np - p0);
   if (p0 >= live) {                   // the whole tile past the count
     zero_gather_rows(out, np, p0, len);
     return;
@@ -581,24 +586,16 @@ __global__ void __launch_bounds__(kT, kMinBlocks)
   const bool alive = j < nlive;
   const long long p = p0 + j;
   const int f = alive ? __ldg(flat + p) : 0;
-  RegWeights wt;
+  float w[27];                         // all 27 loads in flight at once
 #pragma unroll
-  for (int o = 0; o < 27; ++o)
-    wt.w[o] = alive ? (kStream ? __ldcs(w27t + o * np + p)
-                               : __ldg(w27t + o * np + p))
-                    : 0.f;
-  const GatherBox b = gather_box<kCap>(f, alive, nlive, n, red, ends);
+  for (int o = 0; o < 27; ++o) w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
+  const GatherBox b = gather_box(f, alive, n, red);
   if (b.staged) stage_box(b, fm, nx, n, ncell, box);
   if (j >= len) return;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
-  if (alive) gather_sums(wt, f, nx, n, ncell, fm, b, b.staged, box, s);
+  if (alive) gather_sums(w, f, nx, n, ncell, fm, b, box, s);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    if constexpr (kStream)
-      __stcs(out + r * np + p, s[r]);
-    else
-      out[r * np + p] = s[r];
-  }
+  for (int r = 0; r < 4; ++r) out[r * np + p] = s[r];
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -1482,7 +1479,7 @@ extern "C" int fs_chunk_fill(const int* cell_start, const int* chunk_start,
   return (int)cudaGetLastError();
 }
 
-// The gathers of K2, K2 moments and K7a: fields (4, nx, n, n), or the table
+// The gathers of K2 moments and K7a: fields (4, nx, n, n), or the table
 // (27, 4, nx, n, n); count as in dead_row (nullptr: every row).
 template <bool kMom, class Src>
 int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
@@ -1499,59 +1496,19 @@ int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
   return (int)cudaGetLastError();
 }
 
-template <bool kCount, int kT, int kCap, int kMinBlocks, bool kStream>
-int launch_gather_t(const float* fm, const float* w27t, const int* flat,
-                    const int* count, float* out, int nx, int n, long long np,
-                    cudaStream_t st) {
-  const long long ntiles = (np + kT - 1) / kT;
-  g2p_gather_kernel<kCount, kT, kCap, kMinBlocks, kStream>
-      <<<(unsigned)ntiles, kT, 0, st>>>(fm, w27t, flat, count, out, nx, n, np);
-  return (int)cudaGetLastError();
-}
-
-template <bool kCount>
-int launch_gather(int variant, const float* fm, const float* w27t,
-                  const int* flat, const int* count, float* out, int nx, int n,
-                  long long np, cudaStream_t st) {
-#define FS_K2(T, CAP, MINB, STREAM)                                         \
-  launch_gather_t<kCount, T, CAP, MINB, STREAM>(fm, w27t, flat, count, out, \
-                                                nx, n, np, st)
-  switch (variant) {
-    case 8: return FS_K2(256, 1024, 5, false);
-    case 9: return FS_K2(128, 1024, 8, false);
-    case 10: return FS_K2(128, 1024, 10, false);
-    case 11: return FS_K2(256, 1024, 4, true);
-    default: return FS_K2(256, 1024, 4, false);
-  }
-#undef FS_K2
-}
-
-// K2 by design (a probe of this build): 0 the thread per particle of
-// launch_rows; a block per tile, the weights in registers and the tile's
-// fields staged (particles a tile, at most cells staged, blocks an SM):
-// 5 (256, 1024, 4), 8 (256, 1024, 5), 9 (128, 1024, 8), 10 (128, 1024,
-// 10), 11 as 5 with streaming loads of the weights and stores of out.
-extern "C" int fs_g2p_gather_variant(const float* fm, const float* w27t,
-                                     const int* flat, const int* count,
-                                     float* out, int nx, int n, long long np,
-                                     int variant, void* stream) {
-  if (np == 0) return 0;
-  if (variant == 0)
-    return launch_rows<false>(NeighbourFields{fm, nx}, w27t, flat, count, out,
-                              nx, n, np, stream);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (count != nullptr)
-    return launch_gather<true>(variant, fm, w27t, flat, count, out, nx, n, np,
-                               st);
-  return launch_gather<false>(variant, fm, w27t, flat, count, out, nx, n, np,
-                              st);
-}
-
 extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
                              const int* flat, const int* count, float* out,
                              int nx, int n, long long np, void* stream) {
-  return fs_g2p_gather_variant(fm, w27t, flat, count, out, nx, n, np, 5,
-                               stream);
+  if (np == 0) return 0;
+  const unsigned tiles = (unsigned)((np + kGatherTile - 1) / kGatherTile);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (count != nullptr)
+    g2p_gather_kernel<true><<<tiles, kGatherTile, 0, st>>>(
+        fm, w27t, flat, count, out, nx, n, np);
+  else
+    g2p_gather_kernel<false><<<tiles, kGatherTile, 0, st>>>(
+        fm, w27t, flat, count, out, nx, n, np);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fs_g2p_moments(const float* fm, const float* w27t,

@@ -47,8 +47,6 @@ _SIGNATURES = {
     # the gathers: src, weights, ids, live count (or None), out, nx, n, P
     "fs_g2p_gather": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_longlong, _P),
-    "fs_g2p_gather_variant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_int, _P),
     "fs_g2p_moments": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, _P),
     "fs_g2p_gather_gw": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

@@ -545,14 +545,14 @@ def g2p_gather_table_plain(table: torch.Tensor, w27t: torch.Tensor,
     return _gather_sums(_table_columns(table, flat_s), w27t)
 
 
-GATHER_TILE = 256       # K2's tile of sorted rows (kGatherTile)
-STAGE_CELLS = 384       # the cells a K2 tile may stage (kStageCells)
+GATHER_TILE = 128       # K2's tile of sorted rows (kGatherTile)
+STAGE_CELLS = 1024      # the cells a K2 tile may stage (kStageCells)
 
 
 def g2p_gather_staged_tiles(flat_s: torch.Tensor, n: int,
                             count: torch.Tensor | None = None):
-    """``(staged, tiles)``: of K2's tiles of ``GATHER_TILE`` sorted rows that
-    hold a live row (the first ``count[0]``, or all), how many stage their
+    """``(staged, tiles)``: of K2's tiles of ``GATHER_TILE`` rows that hold
+    a live row (the first ``count[0]``, or all), how many stage their
     fields in ``csrc/transfer.cu`` — those whose live base cells' box,
     widened by one cell on every side, holds at most ``STAGE_CELLS`` cells.
     Reads ``count`` on the host: a diagnostic, not a frame's path."""
@@ -563,17 +563,14 @@ def g2p_gather_staged_tiles(flat_s: torch.Tensor, n: int,
     f = flat_s[:live].long()
     t = -(-live // GATHER_TILE)
     pad = t * GATHER_TILE - live
-    y, z = (f // n) % n, f % n
 
     def spread(v):
-        lo = torch.cat([v, v.new_full((pad,), n)]).view(t, GATHER_TILE)
-        hi = torch.cat([v, v.new_full((pad,), -1)]).view(t, GATHER_TILE)
+        lo = torch.cat([v, v.new_full((pad,), v.max())]).view(t, GATHER_TILE)
+        hi = torch.cat([v, v.new_full((pad,), v.min())]).view(t, GATHER_TILE)
         return hi.amax(1) - lo.amin(1) + 3
 
-    ends = torch.clamp(torch.arange(1, t + 1, device=f.device) * GATHER_TILE,
-                       max=live) - 1
-    bx = f[ends] // (n * n) - f[::GATHER_TILE] // (n * n) + 3
-    return int((bx * spread(y) * spread(z) <= STAGE_CELLS).sum()), t
+    cells = spread(f // (n * n)) * spread((f // n) % n) * spread(f % n)
+    return int((cells <= STAGE_CELLS).sum()), t
 
 
 def _check_count(count: torch.Tensor | None, dev):

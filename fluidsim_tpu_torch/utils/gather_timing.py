@@ -70,33 +70,6 @@ def _ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def _variants(native, tk, torch, fm, w27t, flat, count):
-    """{design: rounds' ms} of the ``fs_g2p_gather_variant`` designs, each
-    first held bit for bit to ``g2p_gather_plain``."""
-    lib = native.library()
-    nx, n, p = fm.shape[1], fm.shape[-1], flat.shape[0]
-    want = tk.g2p_gather_plain(fm, w27t, flat, count).view(torch.int32)
-    res = {}
-    for v in (0, 5, 8, 9, 10, 11):
-        o = torch.empty((4, p), dtype=torch.float32, device=fm.device)
-
-        def run():
-            rc = lib.fs_g2p_gather_variant(
-                fm.data_ptr(), w27t.data_ptr(), flat.data_ptr(),
-                None if count is None else count.data_ptr(), o.data_ptr(),
-                nx, n, p, v, native.stream_ptr(fm.device))
-            native.check_launch("fs_g2p_gather_variant", rc)
-
-        o.fill_(float("nan"))
-        run()
-        torch.cuda.synchronize()
-        if not torch.equal(o.view(torch.int32), want):
-            raise AssertionError(f"K2 design {v}: not bit for bit the plain "
-                                 "version")
-        res[v] = [_ms(run, torch) for _ in range(ROUNDS)]
-    return res
-
-
 def rank_arrays(scene, bound, rank, size, rng, dev):
     """Rank ``rank``'s sorted slots in a ``size``-way cut of the scene's
     seeded particles (seed ``SEED``) with random velocities: its own
@@ -128,9 +101,6 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=here,
                     help="checkout whose fluidsim_tpu_torch is timed")
     ap.add_argument("--label", default="")
-    ap.add_argument("--variants", action="store_true",
-                    help="also time each K2 design of fs_g2p_gather_variant, "
-                    "each held bit for bit to the plain version first")
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -168,9 +138,6 @@ def main(argv=None) -> int:
                                                     count))
         res["k2_ms"] = [_ms(lambda: tk.g2p_gather(fm, w27t, flat, count),
                             torch) for _ in range(ROUNDS)]
-        if a.variants:
-            res["variants_ms"] = _variants(native, tk, torch, fm, w27t, flat,
-                                           count)
         out["shapes"][name] = res
         print(f"{a.label} {name}: {res}", file=sys.stderr)
 

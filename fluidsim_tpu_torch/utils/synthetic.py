@@ -195,6 +195,9 @@ def gather_edge_cases(p: int, n: int, seed: int = 0, device="cpu"):
       tiles reading zeros outside the grid);
     - ``wide``: ids spread over the whole grid (tiles reading the fields
       directly);
+    - ``grouped``: the ``rows`` ids shuffled inside each 512-cell window,
+      as the bucket path orders them (a tile's first and last ids need not
+      bound the rest);
     - ``count_split``, ``count_zero``, ``count_all``: the ``rows`` ids
       with a live count inside a tile, 0 and ``p``, the slots past it
       dead (id ``n^3``);
@@ -224,10 +227,12 @@ def gather_edge_cases(p: int, n: int, seed: int = 0, device="cpu"):
         a[live:] = dead
         return ids(a), torch.tensor([live], dtype=torch.int32, device=device)
 
+    grouped = rows[np.lexsort((rng.random(p), rows // 512))]
     cases = [("rows", fm, w27t, ids(rows), None),
              ("faces", fm, w27t, ids(faces), None),
              ("dense", fm, w27t, ids(dense), None),
-             ("wide", fm, w27t, ids(wide), None)]
+             ("wide", fm, w27t, ids(wide), None),
+             ("grouped", fm, w27t, ids(grouped), None)]
     for name, live in (("count_split", p // 2 + 3), ("count_zero", 0),
                        ("count_all", p)):
         cases.append((name, fm, w27t, *counted(rows, min(live, p), ncell)))
