@@ -389,7 +389,7 @@ def _require_bitwise(name, a, b, torch):
 
 
 def _k2_staged(label, flat, n, count, torch):
-    """Print and return how many of K2's tiles of the sorted ids ``flat``
+    """Print and return how many of K2's tiles of the ids ``flat``
     (with a live row) stage their fields (``g2p_gather_staged_tiles``)."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
