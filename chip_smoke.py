@@ -33,8 +33,11 @@ Phases, each of which raises on failure (nonzero exit):
    plain version there and on ``utils/synthetic.gather_edge_cases`` (tiles
    across rows and planes, box faces, live counts of 0, P and one inside a
    tile, a window-grouped order, a slab; 1 to 100,003 rows at 13^3, 25^3
-   and 129^3), each state's share of K2 tiles that stage their fields
-   printed;
+   and 129^3), each state's share of K2 tiles that staged their fields
+   counted by the kernel (``paths``) and printed, both paths required
+   across the edge cases; the bound of each gather of fields (K2, K2
+   moments, K2 gw) counts the fields at the cells in the live rows'
+   neighbourhoods, which is all it must read;
 4. run ``FlipSim`` (FLIP) for warm-up and timed frames: finite energy,
    particles in the box, the projection's outer tolerance met, every
    kernel launched by the timed frames the number of times the frame's CG
@@ -183,7 +186,8 @@ group of this process alone (NCCL, a ``file://`` store, destroyed after):
    version as in phase 3
    (timed, with the bound of the slab's bytes: the live particles' inputs,
    the edge rows read, the whole output; K3 and K4 read p, z and r only at
-   fluid cells), then bit for bit against its
+   fluid cells, the gathers the fields only in the live particles'
+   neighbourhoods), then bit for bit against its
    order function (K1: ``p2g_scatter_chunked``, K1 fg:
    ``p2g_scatter_force_chunked``, K2 gw: ``g2p_gather_gw_ordered``) or
    plain version (K2, K3, K4 at degrees 3 and 4 and one step); and on each
@@ -254,19 +258,15 @@ import time
 _SPIN_CYCLES = 20_000_000
 _REPS = 20          # timed runs per kernel and per plain version
 
-# the least time of a kernel: H100 SXM HBM3 bandwidth and f32 rate outside
-# the tensor cores (NVIDIA's data sheet)
-_HBM_BYTES_PER_S = 3.35e12
-_F32_OPS_PER_S = 67e12
+# the main paths' configuration (the JAX package's bench scene at 129^3 and
+# its scaled MPM bench row at 127^3, uncut; the MPM scene's density of 400
+# particles per seeded voxel; the "hybrid" operator), phase 31's 4-way cut,
+# and the card's rates that a kernel's least time is counted at
+from fluidsim_tpu_torch.utils.card_inputs import (  # noqa: E402
+    F32_OPS_PER_S, FLIP_BOUND as BOUND, FLIP_DENSITY as DENSITY,
+    HBM_BYTES_PER_S, MPM_BOUND, SEED, SLAB_RANK, SLAB_WORLD)
 
-# the main paths' configuration: the JAX package's bench scene, uncut
-BOUND = 64          # scene half-width: a (2*64+1)^3 = 129^3 grid
-DENSITY = 25.0      # particles per seeded voxel: ~1.99M particles
 FRAMES = 10         # timed frames per mode, after 2 warm-up frames
-SEED = 0
-# the MPM path's configuration: the JAX package's scaled MPM bench row,
-# uncut, with the scene's density of 400 particles per seeded voxel
-MPM_BOUND = 63      # a 127^3 grid, 473,798 particles; "hybrid" operator
 MPM_SMALL = dict(bound=15, density=40.0)   # phase 13's reference scene
 CLI_FRAMES = 12     # phase 27's frames, a checkpoint every CLI_FRAMES // 2
 MPM_CLI_FRAMES = 6  # phase 28's
@@ -365,7 +365,7 @@ def _compare(name, kernel, plain, rel_tol, inputs, ops, torch, library=None,
     plain_ms = _cuda_ms(plain, torch)
     library_ms = None if library is None else _cuda_ms(library, torch)
     nbytes = _nbytes(inputs) + _nbytes(out_k) + extra_bytes
-    bytes_ms, ops_ms = 1e3 * nbytes / _HBM_BYTES_PER_S, 1e3 * ops / _F32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     lib = "" if library is None else f", library {library_ms:.4f} ms"
@@ -388,36 +388,48 @@ def _require_bitwise(name, a, b, torch):
     print(f"bitwise {name}: equal")
 
 
-def _k2_staged(label, flat, n, count, torch):
-    """Print and return how many of K2's tiles of the ids ``flat``
-    (with a live row) stage their fields (``g2p_gather_staged_tiles``)."""
+def _k2_staged(label, fm, w27t, flat, count, torch):
+    """K2 on the inputs once more, bit for bit against its plain version,
+    with the kernel counting its tiles (``paths``); print and return
+    ``[staged, tiles]``: of its tiles with a live row, how many staged
+    their fields."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
-    staged, tiles = tk.g2p_gather_staged_tiles(flat, n, count)
-    print(f"K2 ({label}): {staged} of {tiles} tiles with a live row stage "
-          f"their fields ({staged / max(tiles, 1):.1%})")
+    paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
+    _require_bitwise(f"K2 g2p_gather ({label}): against its plain version",
+                     tk.g2p_gather(fm, w27t, flat, count, paths=paths),
+                     tk.g2p_gather_plain(fm, w27t, flat, count), torch)
+    staged, tiles = paths.tolist()
+    print(f"K2 ({label}): {staged} of {tiles} tiles with a live row staged "
+          f"their fields ({staged / max(tiles, 1):.1%}, the kernel's count)")
     return [staged, tiles]
+
+
+def _field_bytes(flat, nx, n, channels, live=None):
+    """The bytes of (channels, nx, n, n) f32 fields that a gather of the
+    ids ``flat[:live]`` must read: every cell in their 27-cell
+    neighbourhoods (``card_inputs.read_cells``), once."""
+    from fluidsim_tpu_torch.utils.card_inputs import read_cells
+
+    return 4 * channels * read_cells(flat, nx, n, live)
 
 
 def _k2_edge_cases(torch):
     """K2 bit for bit against its plain version on
     ``utils/synthetic.gather_edge_cases`` at 13^3, 25^3 and 129^3, with
-    particle counts of 1, 255, 257, 1001, 4099 and 100,003 (most not a
-    multiple of 4); across them both of its paths (staged tiles and the
-    direct reads) must be taken."""
-    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    particle counts of 1, 127, 129, 255, 257, 1001, 4099 and 100,003 (most
+    not a multiple of 4, two on either side of a 128-row tile); across
+    them the kernel must count tiles of both of its paths (staged tiles
+    and the direct reads)."""
     from fluidsim_tpu_torch.utils import synthetic
 
     staged = tiles = 0
-    for p, n in ((1, 13), (255, 13), (257, 13), (1001, 13), (4099, 25),
-                 (100_003, 129)):
+    for p, n in ((1, 13), (127, 13), (129, 13), (255, 13), (257, 13),
+                 (1001, 13), (4099, 25), (100_003, 129)):
         for name, fm, w27t, flat, count in synthetic.gather_edge_cases(
                 p, n, seed=SEED, device="cuda"):
-            label = f"edge case {name}, {p} rows at {n}^3"
-            _require_bitwise(f"K2 g2p_gather ({label})",
-                             tk.g2p_gather(fm, w27t, flat, count),
-                             tk.g2p_gather_plain(fm, w27t, flat, count), torch)
-            s, t = _k2_staged(label, flat, n, count, torch)
+            s, t = _k2_staged(f"edge case {name}, {p} rows at {n}^3", fm,
+                              w27t, flat, count, torch)
             staged, tiles = staged + s, tiles + t
     if not 0 < staged < tiles:
         raise AssertionError(f"K2 edge cases: {staged} of {tiles} tiles "
@@ -1848,8 +1860,6 @@ def _surface_trace_phase(dev, counted, torch, np, tmp, on_ms):
 
 # ---- phases 31-34: the slab-sharded sims (run before phase 30) -----------
 
-SLAB_WORLD = 4      # phase 31's cut: one rank's arrays of a 4-way run
-SLAB_RANK = 1
 SHARD_SMALL = dict(bound=8, density=3.0)   # phase 34's FLIP scene
 
 
@@ -1877,12 +1887,12 @@ def _one_rank_group():
 
 def _slab_kernels(where, path, results, cases, torch):
     """``_compare`` each case (key, label, kernel, plain, tolerance,
-    inputs, ops, order function or None) of the sharded path ``path`` and
-    hold it bit for bit to its order function, or with None to its plain
-    version."""
-    for key, label, kernel, plain, tol, inputs, ops, order in cases:
+    inputs, ops, order function or None[, bytes read past the inputs]) of
+    the sharded path ``path`` and hold it bit for bit to its order
+    function, or with None to its plain version."""
+    for key, label, kernel, plain, tol, inputs, ops, order, *extra in cases:
         results[key] = _compare(f"{label} ({where})", kernel, plain, tol,
-                                inputs, ops, torch)
+                                inputs, ops, torch, extra_bytes=sum(extra))
         results[key].update(slab=where, path=path)
         _require_bitwise(f"{label} ({where}): against its "
                          f"{'order function' if order else 'plain version'}",
@@ -1894,7 +1904,7 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
     from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
-    from fluidsim_tpu_torch.utils.gather_timing import rank_arrays
+    from fluidsim_tpu_torch.utils.card_inputs import rank_arrays
 
     n = 2 * BOUND + 1
     slab, pos_s, vel_s, flat, a = rank_arrays(scene, BOUND, rank, size, rng,
@@ -1911,7 +1921,7 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     tag = f"slab{slab.rows}"
     print(f"{scene.name}, rank {rank} of {size}: transfer slab "
           f"{tuple(acc.shape[1:])}, {a} of {flat.shape[0]} slots alive")
-    _k2_staged(f"{scene.name}, {tag}", flat, n, count, torch)
+    _k2_staged(f"{scene.name}, {tag}", fm, w27t, flat, count, torch)
     live = (w27t[:, :a], vel_s[:a], flat[:a])
     return [
         (f"p2g_scatter_{tag}", f"K1 p2g_scatter {tag}",
@@ -1922,7 +1932,8 @@ def _flip_slab_cases(scene, rank, size, rng, g, dev, torch, np):
         (f"g2p_gather_{tag}", f"K2 g2p_gather {tag}",
          lambda: tk.g2p_gather(fm, w27t, flat, count),
          lambda: tk.g2p_gather_plain(fm, w27t, flat, count), 1e-5,
-         (fm, live[0], live[2], count), 27 * 8 * a, None)]
+         (live[0], live[2], count), 27 * 8 * a, None,
+         _field_bytes(flat, slab.rows, n, 4, a))]
 
 
 def _solve_slab(fields, size, rank, depth, torch):
@@ -2080,7 +2091,7 @@ def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     of the cone."""
     from fluidsim_tpu_torch.ops import mpm_kernels as mk
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
-    from fluidsim_tpu_torch.utils.gather_timing import rank_arrays
+    from fluidsim_tpu_torch.utils.card_inputs import rank_arrays
 
     n = 2 * MPM_BOUND + 1
     slab, pos_s, vel_s, flat, a = rank_arrays(scene, MPM_BOUND, rank, size,
@@ -2096,19 +2107,17 @@ def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
     velg = torch.where(heavy[None],
                        acc[1:4] / torch.where(heavy, acc[0], 1.0)[None], 0.0)
     fm3 = torch.where(~slab.solid_ext[None], velg, 0.0).contiguous()
-    ns = ~slab.solid_ext
-    zero = torch.zeros_like(acc[0])
-    fm = torch.stack([torch.where(ns, acc[0], 0.0), zero, zero,
-                      ns.to(torch.float32)])
+    fm = mk.density_fields(acc[0], slab.solid_ext)
     tag = f"slab{slab.rows}"
     print(f"{scene.name}, rank {rank} of {size}: transfer slab "
           f"{tuple(acc.shape[1:])}, {a} of {p} slots alive")
-    _k2_staged(f"{scene.name}, {tag}", flat, n, count, torch)
+    _k2_staged(f"{scene.name}, {tag}", fm, w27t, flat, count, torch)
     return [
         (f"g2p_gather_{tag}", f"K2 g2p_gather {tag} (density)",
          lambda: tk.g2p_gather(fm, w27t, flat, count),
          lambda: tk.g2p_gather_plain(fm, w27t, flat, count), 1e-5,
-         (fm, w27t[:, :a], flat[:a], count), 27 * 8 * a, None),
+         (w27t[:, :a], flat[:a], count), 27 * 8 * a, None,
+         _field_bytes(flat, slab.rows, n, 4, a)),
         (f"p2g_scatter_force_{tag}", f"K1 fg p2g_scatter_force {tag}",
          lambda: tk.p2g_scatter_force(gradw, m9, cs, n, plan),
          lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
@@ -2117,8 +2126,9 @@ def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
         (f"g2p_gather_gw_{tag}", f"K2 gw g2p_gather_gw {tag}",
          lambda: tk.g2p_gather_gw(fm3, gradw, flat, count),
          lambda: tk.g2p_gather_gw_plain(fm3, gradw, flat, count), 1e-5,
-         (fm3, gradw[:, :a], flat[:a], count), 27 * 18 * a,
-         lambda: tk.g2p_gather_gw_ordered(fm3, gradw, flat, count))]
+         (gradw[:, :a], flat[:a], count), 27 * 18 * a,
+         lambda: tk.g2p_gather_gw_ordered(fm3, gradw, flat, count),
+         _field_bytes(flat, slab.rows, n, 3, a))]
 
 
 def _slab_phase(dev, torch, np, solve_fields):
@@ -2725,12 +2735,10 @@ def main() -> int:
     results["g2p_gather"] = _compare(
         "K2 g2p_gather", lambda: tk.g2p_gather(fm, w27t, flat),
         lambda: tk.g2p_gather_plain(fm, w27t, flat), 1e-5,
-        (fm, w27t, flat), 27 * 8 * P, torch)
-    _require_bitwise("K2 g2p_gather (the FLIP state): against its plain "
-                     "version", tk.g2p_gather(fm, w27t, flat),
-                     tk.g2p_gather_plain(fm, w27t, flat), torch)
-    results["g2p_gather"]["staged_tiles"] = _k2_staged("the FLIP state", flat,
-                                                       n, None, torch)
+        (w27t, flat), 27 * 8 * P, torch,
+        extra_bytes=_field_bytes(flat, n, n, 4))
+    results["g2p_gather"]["staged_tiles"] = _k2_staged(
+        "the FLIP state", fm, w27t, flat, None, torch)
     _k2_edge_cases(torch)
 
     # K3/K4 on the adiag and pressure of a real frame (the 2nd of the sim)
@@ -2815,7 +2823,8 @@ def main() -> int:
     results["g2p_moments"] = _compare(
         "K2 moments g2p_moments", lambda: tk.g2p_moments(fm, w27t, flat),
         lambda: tk.g2p_moments_plain(fm, w27t, flat), 1e-5,
-        (fm, w27t, flat), 27 * 44 * P, torch)
+        (w27t, flat), 27 * 44 * P, torch,
+        extra_bytes=_field_bytes(flat, n, n, 4))
     vel_a, c_a = apic.g2p_apic(w27t, flat, pos_s, vc, B, wall)
     if not (bool(torch.isfinite(vel_a).all()) and bool(torch.isfinite(c_a).all())):
         raise AssertionError("g2p_apic: non-finite velocity or C")
@@ -2915,24 +2924,21 @@ def main() -> int:
     results["g2p_gather_gw"] = _compare(
         "K2 gw g2p_gather_gw", lambda: tk.g2p_gather_gw(fm, gradw, flat),
         lambda: tk.g2p_gather_gw_plain(fm, gradw, flat), 1e-5,
-        (fm, gradw, flat), 27 * 18 * P, torch)
+        (gradw, flat), 27 * 18 * P, torch,
+        extra_bytes=_field_bytes(flat, n, n, 3))
     # K2 as the frame's density gather launches it (mpm_kernels.density)
-    zero = torch.zeros_like(mass)
-    fm_d = torch.stack([torch.where(~sim.solid, mass, 0.0), zero, zero,
-                        (~sim.solid).to(torch.float32)])
+    fm_d = mk.density_fields(mass, sim.solid)
     cone_k2 = _compare(
         "K2 g2p_gather (cone density)",
         lambda: tk.g2p_gather(fm_d, w27t, flat),
         lambda: tk.g2p_gather_plain(fm_d, w27t, flat), 1e-5,
-        (fm_d, w27t, flat), 27 * 8 * P, torch)
-    _require_bitwise("K2 g2p_gather (the cone state): against its plain "
-                     "version", tk.g2p_gather(fm_d, w27t, flat),
-                     tk.g2p_gather_plain(fm_d, w27t, flat), torch)
-    cone_k2["staged_tiles"] = _k2_staged("the cone state", flat, n, None,
-                                         torch)
+        (w27t, flat), 27 * 8 * P, torch,
+        extra_bytes=_field_bytes(flat, n, n, 4))
+    cone_k2["staged_tiles"] = _k2_staged("the cone state", fm_d, w27t, flat,
+                                         None, torch)
     results["g2p_gather"]["mpm_cone"] = cone_k2
     del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, plan, cone
-    del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm, fm_d, zero
+    del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm, fm_d
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
     ke, mpm_launches, mpm_cg, mpm_ms = _run_mpm_frames(sim, counted, torch)
@@ -3001,11 +3007,8 @@ def main() -> int:
     # the bucket frame's G2P launches K2 on this window-grouped order
     fm_b = torch.rand((4, n, n, n), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(SEED))
-    _require_bitwise("K2 g2p_gather (the bucket state, window-grouped): "
-                     "against its plain version",
-                     tk.g2p_gather(fm_b, w27t, flat_o),
-                     tk.g2p_gather_plain(fm_b, w27t, flat_o), torch)
-    _k2_staged("the bucket state", flat_o, n, None, torch)
+    _k2_staged("the bucket state, window-grouped", fm_b, w27t, flat_o, None,
+               torch)
     del fm_b
     d = tk.p2g_scatter_base(w27t, vel_s, flat_o,
                             tk.window_starts(flat_o, n), n)

@@ -107,10 +107,12 @@
 //     (99% of the tiles of the 129^3 FLIP state; the rest read the fields
 //     directly, the offsets unrolled, neighbours outside the grid skipped).
 //   A staged zero adds w * 0 where the direct read skips: the same bits
-//   (see NeighbourFields).  A cp.async-fed persistent tile that double-
-//   buffered the weights in shared memory, and the register tile without
-//   the staged box, were slower at every launch shape on the H100
-//   (PERF.md §6).
+//   (see NeighbourFields).  With `paths` given (two device ints), thread 0
+//   of each tile with a live row adds 1 to paths[1], and to paths[0] when
+//   its tile stages: the kernel's own count of the path it took.
+//   A cp.async-fed persistent tile that double-buffered the weights in
+//   shared memory, and the register tile without the staged box, were
+//   slower at every launch shape on the H100 (PERF.md §6).
 //
 // K2 moments fs_g2p_moments replaces the same TPU gather with nout=24
 //   (_contract_mat): the 22 live rows, from wf = w27t[o,p] * fm[:, base+off_o]
@@ -569,7 +571,7 @@ __global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
                       const float* __restrict__ w27t,
                       const int* __restrict__ flat,
                       const int* __restrict__ count, float* __restrict__ out,
-                      int nx, int n, long long np) {
+                      int nx, int n, long long np, int* __restrict__ paths) {
   __shared__ int red[kGatherTile / 32][6];
   __shared__ float4 box[kStageCells];
   const long long ncell = (long long)nx * n * n;
@@ -590,6 +592,10 @@ __global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
 #pragma unroll
   for (int o = 0; o < 27; ++o) w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
   const GatherBox b = gather_box(f, alive, n, red);
+  if (paths != nullptr && j == 0) {    // the path taken: (staged, tiles)
+    if (b.staged) atomicAdd(paths, 1);
+    atomicAdd(paths + 1, 1);
+  }
   if (b.staged) stage_box(b, fm, nx, n, ncell, box);
   if (j >= len) return;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
@@ -1498,16 +1504,17 @@ int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
 
 extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
                              const int* flat, const int* count, float* out,
-                             int nx, int n, long long np, void* stream) {
+                             int nx, int n, long long np, int* paths,
+                             void* stream) {
   if (np == 0) return 0;
   const unsigned tiles = (unsigned)((np + kGatherTile - 1) / kGatherTile);
   const cudaStream_t st = (cudaStream_t)stream;
   if (count != nullptr)
     g2p_gather_kernel<true><<<tiles, kGatherTile, 0, st>>>(
-        fm, w27t, flat, count, out, nx, n, np);
+        fm, w27t, flat, count, out, nx, n, np, paths);
   else
     g2p_gather_kernel<false><<<tiles, kGatherTile, 0, st>>>(
-        fm, w27t, flat, count, out, nx, n, np);
+        fm, w27t, flat, count, out, nx, n, np, paths);
   return (int)cudaGetLastError();
 }
 

@@ -79,14 +79,20 @@ def p2g_mpm(w27t, vel_s, cell_start, solid, bound: int, plan=None):
     return accn[0], accn[1:4]
 
 
-def density(mass, w27t, flat_s, solid):
-    """Per-particle density ``sum_o w_o mass(base + off_o)`` over
-    non-solid cells: channel 0 of K2 on the masked mass (channels 1-2 zero,
-    channel 3 the mask, as the TPU gather's input)."""
+def density_fields(mass, solid):
+    """K2's (4, ...) fields for the density gather: the mass masked to the
+    non-solid cells, two zero channels and the non-solid mask, as the TPU
+    gather's input."""
     ns = ~solid
     zero = torch.zeros_like(mass)
-    fm = torch.stack([torch.where(ns, mass, 0.0), zero, zero, ns.to(mass.dtype)])
-    return tk.g2p_gather(fm, w27t, flat_s)[0]
+    return torch.stack([torch.where(ns, mass, 0.0), zero, zero,
+                        ns.to(mass.dtype)])
+
+
+def density(mass, w27t, flat_s, solid):
+    """Per-particle density ``sum_o w_o mass(base + off_o)`` over
+    non-solid cells: channel 0 of K2 on ``density_fields``."""
+    return tk.g2p_gather(density_fields(mass, solid), w27t, flat_s)[0]
 
 
 def _gather_gw(fields, mask, gradw, flat_s):

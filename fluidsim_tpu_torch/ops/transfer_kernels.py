@@ -545,34 +545,6 @@ def g2p_gather_table_plain(table: torch.Tensor, w27t: torch.Tensor,
     return _gather_sums(_table_columns(table, flat_s), w27t)
 
 
-GATHER_TILE = 128       # K2's tile of sorted rows (kGatherTile)
-STAGE_CELLS = 1024      # the cells a K2 tile may stage (kStageCells)
-
-
-def g2p_gather_staged_tiles(flat_s: torch.Tensor, n: int,
-                            count: torch.Tensor | None = None):
-    """``(staged, tiles)``: of K2's tiles of ``GATHER_TILE`` rows that hold
-    a live row (the first ``count[0]``, or all), how many stage their
-    fields in ``csrc/transfer.cu`` — those whose live base cells' box,
-    widened by one cell on every side, holds at most ``STAGE_CELLS`` cells.
-    Reads ``count`` on the host: a diagnostic, not a frame's path."""
-    live = flat_s.shape[0] if count is None else min(int(count[0]),
-                                                     flat_s.shape[0])
-    if live <= 0:
-        return 0, 0
-    f = flat_s[:live].long()
-    t = -(-live // GATHER_TILE)
-    pad = t * GATHER_TILE - live
-
-    def spread(v):
-        lo = torch.cat([v, v.new_full((pad,), v.max())]).view(t, GATHER_TILE)
-        hi = torch.cat([v, v.new_full((pad,), v.min())]).view(t, GATHER_TILE)
-        return hi.amax(1) - lo.amin(1) + 3
-
-    cells = spread(f // (n * n)) * spread((f // n) % n) * spread(f % n)
-    return int((cells <= STAGE_CELLS).sum()), t
-
-
 def _check_count(count: torch.Tensor | None, dev):
     if count is not None:
         native.check_tensor("count", count, torch.int32, (1,), dev)
@@ -580,11 +552,13 @@ def _check_count(count: torch.Tensor | None, dev):
 
 def _launch_gather(name: str, entry: str, src: torch.Tensor, lead: tuple,
                    w27t: torch.Tensor, flat_s: torch.Tensor,
-                   rows: int, count: torch.Tensor | None = None) -> torch.Tensor:
+                   rows: int, count: torch.Tensor | None = None,
+                   tail: tuple = ()) -> torch.Tensor:
     """Launch a gather of ``csrc/transfer.cu`` that reads ``src`` of shape
     ``lead + (4, nx, n, n)`` (the fields, or with ``lead = (27,)`` the
     table), (27, P) weights and (P,) sorted ids, and writes ``rows`` rows
-    of P (zeros past ``count[0]`` when ``count`` is given)."""
+    of P (zeros past ``count[0]`` when ``count`` is given); ``tail``: the
+    entry's further arguments, before the stream."""
     native.require_cuda(src, name)
     dev = src.device
     nx, n = src.shape[-3], src.shape[-1]
@@ -599,24 +573,36 @@ def _launch_gather(name: str, entry: str, src: torch.Tensor, lead: tuple,
         rc = getattr(lib, entry)(src.data_ptr(), w27t.data_ptr(),
                                  flat_s.data_ptr(),
                                  None if count is None else count.data_ptr(),
-                                 out.data_ptr(), nx, n, p,
+                                 out.data_ptr(), nx, n, p, *tail,
                                  native.stream_ptr(dev))
     native.check_launch(name, rc)
     return out
 
 
 def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor, flat_s: torch.Tensor,
-               count: torch.Tensor | None = None) -> torch.Tensor:
+               count: torch.Tensor | None = None,
+               paths: torch.Tensor | None = None) -> torch.Tensor:
     """K2: ``out[c, p] = sum_o w27t[o, p] * fm[c, base(p) + off_o]`` with
     neighbours outside the grid reading 0; ``fm`` is (4, n, n, n), or
     (4, nx, n, n) on a slab.  ``count`` (a (1,) int32 tensor on the same
     device, read there): only the first ``count[0]`` rows are gathered, the
     rest are 0.  (4, P) f32.  CUDA tensors launch ``fs_g2p_gather``
-    (``csrc/transfer.cu``); CPU tensors take ``g2p_gather_plain``."""
+    (``csrc/transfer.cu``); CPU tensors take ``g2p_gather_plain``.
+
+    ``paths``, a diagnostic (a (2,) int32 tensor on the card): the kernel
+    adds to ``paths[1]`` its tiles that hold a live row, and to
+    ``paths[0]`` those of them that staged their fields.  The plain version
+    has no tiles, so CPU tensors refuse it."""
     if fm.device.type == "cpu":
+        if paths is not None:
+            raise ValueError("g2p_gather: paths counts the CUDA kernel's "
+                             "tiles; the CPU's plain version has none")
         return g2p_gather_plain(fm, w27t, flat_s, count)
+    if paths is not None:
+        native.check_tensor("paths", paths, torch.int32, (2,), fm.device)
     out = _launch_gather("g2p_gather", "fs_g2p_gather", fm, (), w27t,
-                         flat_s, 4, count)
+                         flat_s, 4, count,
+                         (None if paths is None else paths.data_ptr(),))
     g2p_gather.launches += 1
     return out
 

@@ -50,6 +50,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from fluidsim_tpu_torch.utils import card_inputs as ci
+
 TIMEOUT_S = 300          # default limit of one collective, and of a run
 
 
@@ -159,8 +161,9 @@ def dryrun_rank(rank: int, world: int, device: str):
                   f"{m['cg_iters']} ({mref[f]['cg_iters']})", flush=True)
 
 
-FULL_FLIP = dict(bound=64, density=25.0)   # chip_smoke.py's BOUND, DENSITY
-FULL_MPM = dict(bound=63)                   # chip_smoke.py's MPM_BOUND
+# chip_smoke.py's sizes
+FULL_FLIP = dict(bound=ci.FLIP_BOUND, density=ci.FLIP_DENSITY)
+FULL_MPM = dict(bound=ci.MPM_BOUND)
 NOISE_OCCUPANCY = 1e-6
 
 

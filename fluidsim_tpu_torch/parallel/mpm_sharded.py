@@ -107,10 +107,7 @@ def sharded_mpm_step(params: MpmParams, slab: Slab, cap: int, mig_cap: int,
 
     # the volumes come from the density of frame 0 only (gathered every
     # frame, as in the JAX package)
-    mass_ext = slab.halo(mass, W)
-    zero = torch.zeros_like(mass_ext)
-    fm = torch.stack([torch.where(ns_ext, mass_ext, 0.0), zero, zero,
-                      ns_ext.to(mass.dtype)])
+    fm = mk.density_fields(slab.halo(mass, W), slab.solid_ext)
     dens = tk.g2p_gather(fm, w27t, flat, count)[0]
     vol0 = 1.0 / torch.where(dens > 0, dens, 1.0)
     volume = torch.where(state.frame == 0, torch.where(alive, vol0, 0.0),

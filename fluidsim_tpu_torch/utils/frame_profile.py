@@ -48,11 +48,9 @@ from fluidsim_tpu_torch.ops import apic
 from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.scenes import get_scene
+from fluidsim_tpu_torch.utils.card_inputs import (
+    FLIP_BOUND as BOUND, FLIP_DENSITY as DENSITY, MPM_BOUND, SEED)
 
-BOUND = 64          # FLIP scene half-width: a (2*64+1)^3 = 129^3 grid
-DENSITY = 25.0      # particles per seeded voxel: ~1.99M particles
-MPM_BOUND = 63      # mpm_cone: a 127^3 grid, 473,798 particles
-SEED = 0
 WARMUP = 5          # frames stepped before the profiled window
 FRAMES = 3          # frames in the window, run three times
 TOP_KERNELS = 30    # kernels listed, the busiest first

@@ -4,41 +4,46 @@ compared in one call.
 
     python3 -m fluidsim_tpu_torch.utils.gather_timing [--root DIR] [--label L]
 
-``--root`` names the checkout whose ``fluidsim_tpu_torch`` is imported and
-built (default: the one holding this file); run the script from two
-checkouts in alternation (A, B, B, A) in one call, since the card's clocks
-and power limit differ between calls.  The inputs are those of
-``chip_smoke.py`` at the same sizes, made from seed 0:
+``--root`` names the checkout whose kernels are built and timed (default:
+the one holding this file).  The inputs are always made by this file's
+checkout, before the timed one is imported, so both checkouts get the
+same tensors.  Run it for two checkouts in alternation (A, B, B, A) in one
+call, since the card's clocks and power limit differ between calls.  The
+inputs are those of ``chip_smoke.py`` at ``utils/card_inputs``'s sizes,
+made from seed 0:
 
 - ``cube``: ``water_cube_drop`` at 129^3, its 1,987,675 seeded particles
   sorted by cell, ``masked_weights_cm`` and random (4, n, n, n) fields: K2
   (FLIP, PIC), K2 moments (APIC), and on ``shift_expand``'s table K7a, K7a
   moments and K9b (the kernels alone, ``g2p_gather_spans_launch``);
 - ``cone``: ``mpm_cone`` at 127^3, its 473,798 seeded particles sorted by
-  cell, ``mpm_stencil``'s weights and the MPM density gather's fields (the
-  mass of K1 masked to the non-solid cells, two zero channels and the
-  mask, as ``ops/mpm_kernels.density``): K2; K2 gw on random (3, n, n, n)
-  fields with ``mpm_stencil``'s gradients;
+  cell, ``mpm_stencil``'s weights and the MPM density gather's fields
+  (``mpm_kernels.density_fields`` of K1's mass): K2; K2 gw on random
+  (3, n, n, n) fields with ``mpm_stencil``'s gradients;
 - ``slab133``, ``slab37``: the sharded FLIP's transfer slabs of
-  ``water_cube_drop`` at world size 1 and on rank 1 of 4 (``rank_arrays``:
-  the rank's sorted slots, dead ones last, and the live count), random
-  fields: K2 with the count, as ``parallel/flip_sharded.py`` launches it;
+  ``water_cube_drop`` at world size 1 and on rank 1 of 4
+  (``card_inputs.rank_arrays``: the rank's sorted slots, dead ones last,
+  and the live count), random fields: K2 with the count, as
+  ``parallel/flip_sharded.py`` launches it;
 - ``slab131``, ``slab36``: the sharded MPM's slabs of ``mpm_cone`` at
   world size 1 and on rank 1 of 4, likewise (``parallel/mpm_sharded.py``).
 
 Each kernel is timed ``ROUNDS`` times, each the median of ``REPS`` runs with
 CUDA events, each run queued behind a spin kernel so that the events time
-the device and not the host.  Where the timed package has
-``g2p_gather_staged_tiles``, each K2 shape also reports how many of K2's
-tiles stage their fields.  The last line is a JSON object with the rounds'
-times, the card's name and power limit, and the label.  It needs the card
-and uses only calls that every slice of the port since the slab sims has
-had.
+the device and not the host.  Each K2 shape carries K2's bound: the bytes
+it must move (the live rows' weights and ids, the count, the 4 output rows
+and the 16 B of every cell in the live rows' neighbourhoods,
+``card_inputs.read_cells``) over the HBM rate; and, where the timed K2
+takes ``paths``, the kernel's own count of its tiles that staged their
+fields.  The last line is a JSON object with the rounds' times, the card's
+name and power limit, and the label.  It needs the card; the timed checkout
+needs only calls that every slice of the port since the slab sims has had.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -48,10 +53,6 @@ import sys
 REPS = 20
 ROUNDS = 5
 SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's clocks
-SEED = 0
-FLIP_BOUND, FLIP_DENSITY = 64, 25.0     # chip_smoke.py's BOUND, DENSITY
-MPM_BOUND = 63                          # chip_smoke.py's MPM_BOUND
-SLAB_WORLD, SLAB_RANK = 4, 1            # chip_smoke.py's phase 31 cut
 
 
 def _ms(fn, torch) -> float:
@@ -70,28 +71,76 @@ def _ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def rank_arrays(scene, bound, rank, size, rng, dev):
-    """Rank ``rank``'s sorted slots in a ``size``-way cut of the scene's
-    seeded particles (seed ``SEED``) with random velocities: its own
-    particles alive, every other slot dead, as the rank holds them in a
-    frame.  Returns (slab, pos, vel, flat, live count)."""
+def _inputs(dev):
+    """Every timed kernel's inputs, by this file's checkout: ``shapes``
+    (name -> K2's fm, w27t, flat, count, live count and bound), and the
+    cube's and cone's tensors of the kernels beside K2."""
     import numpy as np
     import torch
 
-    from fluidsim_tpu_torch.parallel import flip_sharded as fs
+    from fluidsim_tpu_torch.ops import mpm_kernels as mk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.scenes import get_scene
     from fluidsim_tpu_torch.seeding import seed_particles
+    from fluidsim_tpu_torch.utils import card_inputs as ci
 
-    slab = fs.Slab.build(np.asarray(scene.solid), bound, None, dev,
-                         rank=rank, size=size)
-    pos, _ = seed_particles(scene, seed=SEED, dtype="float32")
-    vel = torch.as_tensor(rng.normal(scale=3.0, size=pos.shape)
-                          .astype(np.float32), device=dev)
-    pos = torch.as_tensor(pos, device=dev)
-    alive = fs.owners(slab, pos) == rank
-    pos = torch.where(alive[:, None], pos, fs.SENTINEL)
-    vel = torch.where(alive[:, None], vel, 0.0)
-    pos_s, vel_s, _, flat = fs.sort_slab(slab, pos, vel, alive)
-    return slab, pos_s, vel_s, flat, int(alive.sum())
+    g = torch.Generator(device=dev).manual_seed(ci.SEED)
+    rng = np.random.default_rng(ci.SEED)
+    shapes = {}
+
+    def k2(name, fm, w27t, flat, count=None, live=None):
+        p = flat.shape[0]
+        live = p if live is None else live
+        cells = ci.read_cells(flat, fm.shape[1], fm.shape[-1], live)
+        nbytes = (27 * 4 + 4) * live + 16 * p + 16 * cells + (
+            0 if count is None else 4)
+        shapes[name] = dict(fm=fm, w27t=w27t, flat=flat, count=count, info={
+            "slots": p, "live": live, "rows": int(fm.shape[1]),
+            "read_cells": cells, "bound_mb": nbytes / 1e6,
+            "bound_ms": 1e3 * max(nbytes / ci.HBM_BYTES_PER_S,
+                                  27 * 8 * live / ci.F32_OPS_PER_S)})
+
+    def sorted_state(scene, bound):
+        pos, vel = seed_particles(scene, seed=ci.SEED, dtype="float32")
+        pos_s, vel_s, flat = tk.sort_by_cell(torch.as_tensor(pos, device=dev),
+                                             torch.as_tensor(vel, device=dev),
+                                             bound)
+        return pos_s, vel_s, flat
+
+    n = 2 * ci.FLIP_BOUND + 1
+    flip_scene = get_scene("water_cube_drop", bound=ci.FLIP_BOUND,
+                           density=ci.FLIP_DENSITY)
+    pos_s, _, flat = sorted_state(flip_scene, ci.FLIP_BOUND)
+    w27t = tk.masked_weights_cm(pos_s, ci.FLIP_BOUND)
+    fm = torch.rand((4, n, n, n), generator=g, device=dev)
+    k2("cube", fm, w27t, flat)
+    cube = dict(fm=fm, w27t=w27t, flat=flat, table=tk.shift_expand(fm))
+
+    m = 2 * ci.MPM_BOUND + 1
+    cone_scene = get_scene("mpm_cone", bound=ci.MPM_BOUND)
+    pos_s, vel_s, flat = sorted_state(cone_scene, ci.MPM_BOUND)
+    w27t, gradw = mk.mpm_stencil(pos_s, ci.MPM_BOUND)
+    solid = torch.as_tensor(np.asarray(cone_scene.solid), device=dev)
+    mass, _ = mk.p2g_mpm(w27t, vel_s, tk.cell_starts(flat, m), solid,
+                         ci.MPM_BOUND)
+    k2("cone", mk.density_fields(mass, solid), w27t, flat)
+    cone = dict(gradw=gradw, flat=flat,
+                fm3=torch.rand((3, m, m, m), generator=g, device=dev))
+
+    for scene, bound, weights in (
+            (flip_scene, ci.FLIP_BOUND, lambda p: tk.masked_weights_cm(
+                p, ci.FLIP_BOUND)),
+            (cone_scene, ci.MPM_BOUND,
+             lambda p: mk.mpm_stencil(p, ci.MPM_BOUND)[0])):
+        nb = 2 * bound + 1
+        for size, rank in ((1, 0), (ci.SLAB_WORLD, ci.SLAB_RANK)):
+            slab, pos_s, _, flat, live = ci.rank_arrays(scene, bound, rank,
+                                                        size, rng, dev)
+            count = tk.cell_starts(flat, nb, slab.rows)[-1:]
+            fm = torch.rand((4, slab.rows, nb, nb), generator=g, device=dev)
+            k2(f"slab{slab.rows}", fm, weights(pos_s), flat, count, live)
+    torch.cuda.synchronize()
+    return shapes, cube, cone
 
 
 def main(argv=None) -> int:
@@ -99,64 +148,48 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=here,
-                    help="checkout whose fluidsim_tpu_torch is timed")
+                    help="checkout whose kernels are timed")
     ap.add_argument("--label", default="")
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
-    sys.path.insert(0, root)
-    for name in [m for m in sys.modules if m.startswith("fluidsim_tpu_torch")]:
-        del sys.modules[name]
 
-    import numpy as np
     import torch
-
-    from fluidsim_tpu_torch import native
-    from fluidsim_tpu_torch.ops import mpm_kernels as mk
-    from fluidsim_tpu_torch.ops import transfer_kernels as tk
-    from fluidsim_tpu_torch.scenes import get_scene
-    from fluidsim_tpu_torch.seeding import seed_particles
 
     if not torch.cuda.is_available():
         print("gather_timing: no CUDA device", file=sys.stderr)
         return 1
+    dev = torch.device("cuda")
+    shapes, cube, cone = _inputs(dev)
+
+    if root != here:       # the timed checkout's package in place of this one
+        sys.path.insert(0, root)
+        for name in [m for m in sys.modules
+                     if m.startswith("fluidsim_tpu_torch")]:
+            del sys.modules[name]
+    from fluidsim_tpu_torch import native
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
     if not native.__file__.startswith(root):
         raise RuntimeError(f"imported {native.__file__}, not from {root}")
-    dev = torch.device("cuda")
     native.library()
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    rng = np.random.default_rng(SEED)
+    counts_paths = "paths" in inspect.signature(tk.g2p_gather).parameters
     out = {"label": a.label, "root": os.path.relpath(root, here),
            "shapes": {}}
-    staged_tiles = getattr(tk, "g2p_gather_staged_tiles", None)
 
-    def time_k2(name, fm, w27t, flat, count=None, live=None):
-        res = {"slots": int(flat.shape[0]),
-               "live": int(flat.shape[0] if live is None else live),
-               "rows": int(fm.shape[1])}
-        if staged_tiles is not None:
-            res["staged_tiles"] = list(staged_tiles(flat, fm.shape[-1],
-                                                    count))
+    for name, s in shapes.items():
+        res = dict(s["info"])
+        fm, w27t, flat, count = s["fm"], s["w27t"], s["flat"], s["count"]
+        if counts_paths:
+            paths = torch.zeros(2, dtype=torch.int32, device=dev)
+            tk.g2p_gather(fm, w27t, flat, count, paths=paths)
+            res["staged_tiles"] = paths.tolist()
         res["k2_ms"] = [_ms(lambda: tk.g2p_gather(fm, w27t, flat, count),
                             torch) for _ in range(ROUNDS)]
+        res["share"] = res["bound_ms"] / min(res["k2_ms"])
         out["shapes"][name] = res
         print(f"{a.label} {name}: {res}", file=sys.stderr)
 
-    def sorted_state(scene, bound):
-        pos, vel = seed_particles(scene, seed=SEED, dtype="float32")
-        pos = torch.as_tensor(pos, device=dev)
-        vel = torch.as_tensor(vel, device=dev)
-        pos_s, vel_s, flat = tk.sort_by_cell(pos, vel, bound)
-        return pos_s, vel_s, flat
-
-    # the cube: K2, K2 moments, K7a, K9b
-    n = 2 * FLIP_BOUND + 1
-    flip_scene = get_scene("water_cube_drop", bound=FLIP_BOUND,
-                           density=FLIP_DENSITY)
-    pos_s, _, flat = sorted_state(flip_scene, FLIP_BOUND)
-    w27t = tk.masked_weights_cm(pos_s, FLIP_BOUND)
-    fm = torch.rand((4, n, n, n), generator=g, device=dev)
-    time_k2("cube", fm, w27t, flat)
-    table = tk.shift_expand(fm)
+    fm, w27t, flat, table = (cube[k] for k in ("fm", "w27t", "flat", "table"))
     for key, fn in (
             ("k2_moments_ms", lambda: tk.g2p_moments(fm, w27t, flat)),
             ("k7a_ms", lambda: tk.g2p_gather_table(table, w27t, flat)),
@@ -167,41 +200,10 @@ def main(argv=None) -> int:
              lambda: tk.g2p_gather_spans_launch(table, w27t, flat, True))):
         out[key] = [_ms(fn, torch) for _ in range(ROUNDS)]
         print(f"{a.label} {key}: {out[key]}", file=sys.stderr)
-    del pos_s, flat, w27t, fm, table
-
-    # the cone: K2 on the density gather's fields, K2 gw
-    m = 2 * MPM_BOUND + 1
-    cone = get_scene("mpm_cone", bound=MPM_BOUND)
-    pos_s, vel_s, flat = sorted_state(cone, MPM_BOUND)
-    w27t, gradw = mk.mpm_stencil(pos_s, MPM_BOUND)
-    solid = torch.as_tensor(np.asarray(cone.solid), device=dev)
-    mass, _ = mk.p2g_mpm(w27t, vel_s, tk.cell_starts(flat, m), solid,
-                         MPM_BOUND)
-    ns = ~solid
-    zero = torch.zeros_like(mass)
-    fm = torch.stack([torch.where(ns, mass, 0.0), zero, zero,
-                      ns.to(mass.dtype)])
-    time_k2("cone", fm, w27t, flat)
-    fm3 = torch.rand((3, m, m, m), generator=g, device=dev)
+    fm3, gradw, flat = cone["fm3"], cone["gradw"], cone["flat"]
     out["gw_particles"] = int(flat.shape[0])
     out["gw_ms"] = [_ms(lambda: tk.g2p_gather_gw(fm3, gradw, flat), torch)
                     for _ in range(ROUNDS)]
-    del pos_s, vel_s, flat, w27t, gradw, mass, fm, fm3
-
-    # the slabs of the sharded FLIP and MPM, with the live count
-    for scene, bound, weights in (
-            (flip_scene, FLIP_BOUND, lambda p: tk.masked_weights_cm(
-                p, FLIP_BOUND)),
-            (cone, MPM_BOUND, lambda p: mk.mpm_stencil(p, MPM_BOUND)[0])):
-        nb = 2 * bound + 1
-        for size, rank in ((1, 0), (SLAB_WORLD, SLAB_RANK)):
-            slab, pos_s, _, flat, live = rank_arrays(scene, bound, rank, size,
-                                                     rng, dev)
-            count = tk.cell_starts(flat, nb, slab.rows)[-1:]
-            fm = torch.rand((4, slab.rows, nb, nb), generator=g, device=dev)
-            time_k2(f"slab{slab.rows}", fm, weights(pos_s), flat, count,
-                    live)
-            del slab, pos_s, flat, count, fm
 
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -45,13 +45,13 @@ import statistics
 import subprocess
 import sys
 
+from fluidsim_tpu_torch.utils.card_inputs import (
+    FLIP_BOUND as BOUND, FLIP_DENSITY as DENSITY, SEED, SLAB_RANK, SLAB_WORLD)
+
 REPS = 20
 ROUNDS = 3
 SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's clocks
 COPIES = 3                 # input sets cycled at 129^3
-SEED = 0
-BOUND, DENSITY = 64, 25.0  # chip_smoke.py's scene: 129^3, 1,987,675 particles
-SLAB_WORLD, SLAB_RANK = 4, 1
 
 
 def _ms(fn, torch) -> float:

@@ -182,9 +182,10 @@ def skewed_row_state(seed: int, n: int, big: int, device="cpu"):
 
 
 def gather_edge_cases(p: int, n: int, seed: int = 0, device="cpu"):
-    """K2 inputs that reach each path of its tiles of 256 sorted rows
-    (``csrc/transfer.cu``), each ``(name, fm, w27t, flat, count)`` with
-    ``p`` rows (any ``p``, also one not a multiple of 4), random positive
+    """K2 inputs that reach each path of its tiles of 128 sorted rows
+    (``kGatherTile`` in ``csrc/transfer.cu``), each ``(name, fm, w27t,
+    flat, count)`` with ``p`` rows (any ``p``: one not a multiple of 4, one
+    on either side of a tile's end), random positive
     weights and random fields that are not zero on the box faces:
 
     - ``rows``: about 24 particles a cell along a z run from the end of an

@@ -1,13 +1,16 @@
 """K2's plain version (``transfer_kernels.g2p_gather_plain``, what the K2
 wrapper takes for CPU tensors) against the JAX package's fused gather
 (``pallas_transfer.gather_wv_fused``, ``nout=8``, in interpret mode) on the
-edge cases of the CUDA kernel's tiles of 256 sorted particles
-(``csrc/transfer.cu``): a run of dense cells whose tiles cross (x, y) rows
-and an x plane, particles on every face, edge and corner of the box, live
-counts of 0, of all rows and one that splits a cell's particles, and an odd
-particle count.  The card holds the kernel to the plain version bit for bit
-on the same kinds of cases (``chip_smoke.py``, ``utils/synthetic.
-gather_edge_cases``).
+edge cases of the CUDA kernel's tiles of 128 sorted particles
+(``kGatherTile`` in ``csrc/transfer.cu``): a run of dense cells whose
+tiles cross (x, y) rows and an x plane, particles on every face, edge and
+corner of the box, live counts of 0, of all rows and one that splits a
+cell's particles, and an odd particle count.  The card holds the kernel to
+the plain version bit for bit on the same kinds of cases (``chip_smoke.py``,
+``utils/synthetic.gather_edge_cases``, with 127 and 129 rows on either side
+of a tile's end) and counts which of its two paths each tile took.  Here
+also: ``card_inputs.read_cells``, the cells a gather's bound counts, against
+a loop, and the wrapper refusing the kernel's path count on the CPU.
 
 Fields: the JAX kernel's lane rolls wrap a z shift at the box's z faces
 into the next y row, where the port reads nothing, so the fields given to
@@ -30,7 +33,7 @@ from fluidsim_tpu.ops import pallas_shift as ps
 from fluidsim_tpu.ops import pallas_transfer as pt
 from fluidsim_tpu.ops import transfer_pallas as tp
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
-from fluidsim_tpu_torch.utils import synthetic
+from fluidsim_tpu_torch.utils import card_inputs, synthetic
 
 BOUNDS = (8, 12)
 COUNTS = ("all", "zero", "split", "every")
@@ -183,34 +186,44 @@ def test_faces_bitwise_to_a_numpy_loop(state, case):
             _numpy_gather(fm[:, :nx], w27t, ids, rows).view(np.int32))
 
 
-def _staged_loop(flat, n, live, tile=tk.GATHER_TILE, cap=tk.STAGE_CELLS):
-    """The tiles that stage, one tile at a time: the box of the live base
-    cells widened by one cell holds at most ``cap`` cells."""
-    staged = tiles = 0
-    for p0 in range(0, live, tile):
-        f = flat[p0:min(p0 + tile, live)]
+def _cells_loop(flat, nx, n):
+    """The distinct in-grid cells of the ids' 27-cell neighbourhoods, one
+    id and one offset at a time."""
+    cells = set()
+    for f in flat.tolist():
         x, y, z = f // (n * n), (f // n) % n, f % n
-        cells = ((x.max() - x.min() + 3) * (y.max() - y.min() + 3)
-                 * (z.max() - z.min() + 3))
-        staged += int(cells <= cap)
-        tiles += 1
-    return staged, tiles
+        for o in range(27):
+            c = (x + o // 9 - 1, y + (o // 3) % 3 - 1, z + o % 3 - 1)
+            if 0 <= c[0] < nx and 0 <= c[1] < n and 0 <= c[2] < n:
+                cells.add(c)
+    return len(cells)
 
 
 @pytest.mark.parametrize("case", COUNTS)
-def test_staged_tiles_match_a_loop(state, case):
+def test_read_cells_match_a_loop(state, case):
+    """``card_inputs.read_cells`` of the live rows, on the cube and on a
+    5-row x slab of it (the ids past the slab dead), equals a loop."""
     flat, n = state["flat"], state["n"]
     live = _count(case, flat.numpy())
-    count = None if live is None else torch.tensor([live], dtype=torch.int32)
-    got = tk.g2p_gather_staged_tiles(flat, n, count)
-    want = _staged_loop(flat.numpy().astype(np.int64), n,
-                        flat.shape[0] if live is None else live)
-    assert got == want
-    if case == "every":
-        assert 0 < got[0] < got[1]        # both of K2's paths are taken
+    for nx in (n, 5):
+        ids = flat.clone()
+        cut = int(np.searchsorted(ids.numpy(), nx * n * n))
+        ids[cut:] = nx * n * n
+        rows = cut if live is None else min(live, cut)
+        got = card_inputs.read_cells(ids, nx, n, rows)
+        assert got == _cells_loop(ids[:rows].numpy(), nx, n)
+        assert (got == 0) == (rows == 0)
 
 
-@pytest.mark.parametrize("p", (1, 255, 257, 1001))
+def test_paths_are_refused_on_the_cpu(state):
+    """The path count is the CUDA kernel's: the CPU's plain version has no
+    tiles and refuses it."""
+    with pytest.raises(ValueError, match="paths"):
+        tk.g2p_gather(state["fm"], state["w27t"], state["flat"],
+                      paths=torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("p", (1, 127, 129, 255, 257, 1001))
 def test_synthetic_edge_cases_on_the_cpu(p):
     """``utils/synthetic.gather_edge_cases``, which ``chip_smoke.py`` gives
     the card: the plain version equals the numpy loop on each."""
