@@ -388,20 +388,28 @@ def _require_bitwise(name, a, b, torch):
     print(f"bitwise {name}: equal")
 
 
-def _k2_staged(label, fm, w27t, flat, count, torch):
-    """K2 on the inputs once more, bit for bit against its plain version,
-    with the kernel counting its tiles (``paths``); print and return
-    ``[staged, tiles]``: of its tiles with a live row, how many staged
-    their fields."""
+def _k2_staged(label, fm, w27t, flat, count, torch, moments=False):
+    """K2 (with ``moments`` K2 moments, which takes no count) on the inputs
+    once more, bit for bit against its plain version, with the kernel
+    counting its tiles (``paths``); print and return ``[staged, tiles]``:
+    of its tiles with a live row, how many staged their fields."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
 
     paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
-    _require_bitwise(f"K2 g2p_gather ({label}): against its plain version",
-                     tk.g2p_gather(fm, w27t, flat, count, paths=paths),
-                     tk.g2p_gather_plain(fm, w27t, flat, count), torch)
+    if moments:
+        name = "K2 moments"
+        got = tk.g2p_moments(fm, w27t, flat, paths=paths)
+        want = tk.g2p_moments_plain(fm, w27t, flat)
+    else:
+        name = "K2"
+        got = tk.g2p_gather(fm, w27t, flat, count, paths=paths)
+        want = tk.g2p_gather_plain(fm, w27t, flat, count)
+    _require_bitwise(f"{name} ({label}): against its plain version", got,
+                     want, torch)
     staged, tiles = paths.tolist()
-    print(f"K2 ({label}): {staged} of {tiles} tiles with a live row staged "
-          f"their fields ({staged / max(tiles, 1):.1%}, the kernel's count)")
+    print(f"{name} ({label}): {staged} of {tiles} tiles with a live row "
+          f"staged their fields ({staged / max(tiles, 1):.1%}, the kernel's "
+          "count)")
     return [staged, tiles]
 
 
@@ -415,25 +423,62 @@ def _field_bytes(flat, nx, n, channels, live=None):
 
 
 def _k2_edge_cases(torch):
-    """K2 bit for bit against its plain version on
+    """K2 and K2 moments bit for bit against their plain versions on
     ``utils/synthetic.gather_edge_cases`` at 13^3, 25^3 and 129^3, with
     particle counts of 1, 127, 129, 255, 257, 1001, 4099 and 100,003 (most
-    not a multiple of 4, two on either side of a 128-row tile); across
-    them the kernel must count tiles of both of its paths (staged tiles
+    not a multiple of 4, two on either side of a 128-row tile); K2 moments
+    on the cases without a live count (its entry refuses one).  Across
+    them each kernel must count tiles of both of its paths (staged tiles
     and the direct reads)."""
     from fluidsim_tpu_torch.utils import synthetic
 
-    staged = tiles = 0
+    totals = {False: [0, 0], True: [0, 0]}
     for p, n in ((1, 13), (127, 13), (129, 13), (255, 13), (257, 13),
                  (1001, 13), (4099, 25), (100_003, 129)):
         for name, fm, w27t, flat, count in synthetic.gather_edge_cases(
                 p, n, seed=SEED, device="cuda"):
-            s, t = _k2_staged(f"edge case {name}, {p} rows at {n}^3", fm,
-                              w27t, flat, count, torch)
-            staged, tiles = staged + s, tiles + t
-    if not 0 < staged < tiles:
-        raise AssertionError(f"K2 edge cases: {staged} of {tiles} tiles "
-                             "stage: a path of the kernel went untested")
+            for moments in (False, True) if count is None else (False,):
+                s, t = _k2_staged(f"edge case {name}, {p} rows at {n}^3", fm,
+                                  w27t, flat, count, torch, moments)
+                totals[moments][0] += s
+                totals[moments][1] += t
+    for moments, (staged, tiles) in totals.items():
+        name = "K2 moments" if moments else "K2"
+        print(f"{name} edge cases: {staged} of {tiles} tiles staged")
+        if not 0 < staged < tiles:
+            raise AssertionError(f"{name} edge cases: {staged} of {tiles} "
+                                 "tiles stage: a path of the kernel went "
+                                 "untested")
+
+
+def _moments_bucket_order(sim, torch):
+    """K2 moments bit for bit against its plain version on the
+    window-grouped order that a bucket APIC frame gives its G2P: the
+    bucket sort (``sort_by_cell(method="bucket")``) of the APIC ``sim``'s
+    state, random fields.  Raises if the bucket sort fell back to the full
+    sort."""
+    from fluidsim_tpu_torch.ops import bucket_sort as bs
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    st, B = sim.state, sim.params.bound
+    n = 2 * B + 1
+    fallbacks = bs.bucket_or_sort.fallbacks
+    pos_b, _, flat_b, _ = tk.sort_by_cell(st.pos, st.vel, B,
+                                          extra=st.aff.reshape(-1, 9),
+                                          method="bucket")
+    if bs.bucket_or_sort.fallbacks != fallbacks:
+        raise AssertionError("K2 moments, window-grouped: the bucket sort "
+                             "fell back to the full sort")
+    descents = int((flat_b[1:] < flat_b[:-1]).sum())
+    print(f"K2 moments, window-grouped: the bucket order of the APIC state "
+          f"after its frames, {flat_b.shape[0]} particles, {descents} ids "
+          "below their predecessor")
+    fm = torch.rand((4, n, n, n), device=flat_b.device,
+                    generator=torch.Generator(device=flat_b.device)
+                    .manual_seed(SEED))
+    return _k2_staged("the APIC state in the bucket order", fm,
+                      tk.masked_weights_cm(pos_b, B), flat_b, None, torch,
+                      moments=True)
 
 
 def _k6a_case(name, w27t, vel, flat, n, aff, torch):
@@ -2822,9 +2867,11 @@ def main() -> int:
     fm = tk.gather_fields(vc, B, wall)
     results["g2p_moments"] = _compare(
         "K2 moments g2p_moments", lambda: tk.g2p_moments(fm, w27t, flat),
-        lambda: tk.g2p_moments_plain(fm, w27t, flat), 1e-5,
+        lambda: tk.g2p_moments_plain(fm, w27t, flat), 0.0,
         (w27t, flat), 27 * 44 * P, torch,
         extra_bytes=_field_bytes(flat, n, n, 4))
+    results["g2p_moments"]["staged_tiles"] = _k2_staged(
+        "the APIC state", fm, w27t, flat, None, torch, moments=True)
     vel_a, c_a = apic.g2p_apic(w27t, flat, pos_s, vc, B, wall)
     if not (bool(torch.isfinite(vel_a).all()) and bool(torch.isfinite(c_a).all())):
         raise AssertionError("g2p_apic: non-finite velocity or C")
@@ -2837,6 +2884,10 @@ def main() -> int:
     kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
     ke, apic_launches, *_ = _run_frames(sim, counted, torch)
     kes += ke
+    print(f"apic: kinetic energy of frames 1-{len(kes)} from seed {SEED}: "
+          f"{kes}")
+    results["g2p_moments"]["bucket_order_staged_tiles"] = (
+        _moments_bucket_order(sim, torch))
     del sim
 
     # ---- 8. APIC determinism ----------------------------------------------

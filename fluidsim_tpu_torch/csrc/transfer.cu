@@ -263,42 +263,20 @@ constexpr int kThreads = 256;
 
 constexpr int kMoments = 22;
 
-// The 4 grid values that offset o of a particle with base cell f = (x, y, z)
-// reads.  K2 moments reads the (4, n, n, n) fields at f + off_o and skips a
-// neighbour outside the box (as K2 does); K7a reads column f of the
-// (27, 4, n, n, n) table, which holds 0 for such a neighbour.  Adding w * 0
-// leaves a sum that started at +0 unchanged to the bit, so K2 and K7a agree
-// bit for bit.
-struct NeighbourFields {
-  const float* fm;
-  int nx;                         // the grid's x extent (n for the cube)
-  __device__ __forceinline__ bool load(int o, int f, int x, int y, int z,
-                                       int n, long long ncell,
-                                       float v[4]) const {
-    const int cx = x + (o / 9 - 1);
-    const int cy = y + ((o / 3) % 3 - 1);
-    const int cz = z + (o % 3 - 1);
-    if (cx < 0 || cx >= nx || cy < 0 || cy >= n || cz < 0 || cz >= n)
-      return false;
-    const long long c = ((long long)cx * n + cy) * n + cz;
-    v[0] = __ldg(fm + c);
-    v[1] = __ldg(fm + ncell + c);
-    v[2] = __ldg(fm + 2 * ncell + c);
-    v[3] = __ldg(fm + 3 * ncell + c);
-    return true;
-  }
-};
-
+// The 4 grid values that offset o of a particle with base cell f reads
+// from column f of K7b's (27, 4, n, n, n) table, which holds 0 for a
+// neighbour outside the box, where K2 and K2 moments skip the neighbour.
+// Adding w * 0 leaves a sum that started at +0 unchanged to the bit, so
+// K7a agrees with them bit for bit.
 struct TableColumn {
   const float* table;
-  __device__ __forceinline__ bool load(int o, int f, int, int, int, int,
-                                       long long ncell, float v[4]) const {
+  __device__ __forceinline__ void load(int o, int f, long long ncell,
+                                       float v[4]) const {
     const float* t = table + 4LL * o * ncell + f;
     v[0] = __ldg(t);
     v[1] = __ldg(t + ncell);
     v[2] = __ldg(t + 2 * ncell);
     v[3] = __ldg(t + 3 * ncell);
-    return true;
   }
 };
 
@@ -308,57 +286,90 @@ struct TableColumn {
 struct StagedColumn {
   const float* col;
   int len;
-  __device__ __forceinline__ bool load(int o, int, int, int, int, int,
-                                       long long, float v[4]) const {
+  __device__ __forceinline__ void load(int o, int, long long,
+                                       float v[4]) const {
     const float* t = col + 4 * o * len;
     v[0] = t[0];
     v[1] = t[len];
     v[2] = t[2 * len];
     v[3] = t[3 * len];
-    return true;
   }
 };
 
-// The rows of one particle p with base cell f = (x, y, z): K2's 4 sums
-// (gather_rows) or K2 moments' 22 (moment_rows), each over the 27 offsets in
-// order from +0, the grid values read through src.  K7a and K9b run this
-// code with their own sources, K2 its tiles (gather_sums) in the same order,
-// so they agree bit for bit.
+// s + sign * x for a factor sign in {-1, 0, 1} known at compile time: the
+// term of a factor 0 is skipped and a factor -1 is a subtraction.  For a
+// finite x the bits are those of s + x * (float)sign: x * 0 is +-0, and
+// adding +-0 to a sum that started at +0 leaves it unchanged (such a sum
+// is never -0); x * -1 is -x exactly.
+__device__ __forceinline__ void add_signed(float& s, float x, int sign) {
+  if (sign > 0)
+    s += x;
+  else if (sign < 0)
+    s -= x;
+}
+
+// The rows of K2 moments a thread sums: all 22, or with two threads a
+// particle den, vnum, mbar and M (13) or F (9).
+enum MomentPart { kAllRows, kNoF, kOnlyF };
+
+__device__ __forceinline__ bool moment_row_of(MomentPart part, int r) {
+  const bool f_row = r >= 7 && r < 16;
+  return part == kAllRows || (part == kOnlyF) == f_row;
+}
+
+// Offset o's terms of the 22 moments (their part), from the weight w and
+// the grid values v of the neighbour at off_o: wf = w * v, and
+//   row 0 den += wf.w, rows 1-3 vnum_c += wf_c, rows 4-6 mbar_k += wf.w
+//   off_k, rows 7-15 F_{c,k} += wf_c off_k (row 7 + 3c + k), rows 16-21
+//   M_kl += wf.w off_k off_l over the pairs (00, 01, 02, 11, 12, 22),
+// each factor of 0 skipped (add_signed).  Rows 0-3 take every offset, so
+// a non-finite grid value still reaches den or vnum.
+template <MomentPart kPart>
+__device__ __forceinline__ void moment_add(float (&s)[kMoments], int o,
+                                           float w, float4 v) {
+  const int off[3] = {o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1};
+  const int kPairK[6] = {0, 0, 0, 1, 1, 2};
+  const int kPairL[6] = {0, 1, 2, 1, 2, 2};
+  const float wf[4] = {w * v.x, w * v.y, w * v.z, w * v.w};
+  if constexpr (kPart != kOnlyF) {
+    s[0] += wf[3];
+    s[1] += wf[0];
+    s[2] += wf[1];
+    s[3] += wf[2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) add_signed(s[4 + k], wf[3], off[k]);
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      add_signed(s[16 + i], wf[3], off[kPairK[i]] * off[kPairL[i]]);
+  }
+  if constexpr (kPart != kNoF) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) add_signed(s[7 + 3 * ch + k], wf[ch], off[k]);
+  }
+}
+
+// The rows of one particle p with base cell f: K2's 4 sums (gather_rows) or
+// K2 moments' 22 (moment_rows), each over the 27 offsets in order from +0,
+// the grid values read through src.  K7a and K9b run this code with their
+// own sources; K2 and K2 moments their tiles (tile_neighbours) in the same
+// order and through the same moment_add, so they agree bit for bit.
 template <class Src>
 __device__ __forceinline__ void moment_rows(const Src& src,
                                             const float* __restrict__ w27t,
                                             float* __restrict__ out, int f,
-                                            int n, long long ncell,
-                                            long long p, long long np) {
-  const int x = f / (n * n);
-  const int y = (f / n) % n;
-  const int z = f % n;
-  const int kPairK[6] = {0, 0, 0, 1, 1, 2};
-  const int kPairL[6] = {0, 1, 2, 1, 2, 2};
+                                            long long ncell, long long p,
+                                            long long np) {
   float acc[kMoments];
 #pragma unroll
   for (int r = 0; r < kMoments; ++r) acc[r] = 0.f;
 #pragma unroll
   for (int o = 0; o < 27; ++o) {
-    const int off[3] = {o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1};
     float v[4];
-    if (!src.load(o, f, x, y, z, n, ncell, v)) continue;
-    const float w = w27t[(long long)o * np + p];
-    const float wf[4] = {w * v[0], w * v[1], w * v[2], w * v[3]};
-    acc[0] += wf[3];
-    acc[1] += wf[0];
-    acc[2] += wf[1];
-    acc[3] += wf[2];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) acc[4 + k] += wf[3] * (float)off[k];
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        acc[7 + 3 * ch + k] += wf[ch] * (float)off[k];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      acc[16 + i] += wf[3] * (float)(off[kPairK[i]] * off[kPairL[i]]);
+    src.load(o, f, ncell, v);
+    moment_add<kAllRows>(acc, o, w27t[(long long)o * np + p],
+                         make_float4(v[0], v[1], v[2], v[3]));
   }
 #pragma unroll
   for (int r = 0; r < kMoments; ++r) out[r * np + p] = acc[r];
@@ -368,15 +379,12 @@ template <class Src>
 __device__ __forceinline__ void gather_rows(const Src& src,
                                             const float* __restrict__ w27t,
                                             float* __restrict__ out, int f,
-                                            int n, long long ncell,
-                                            long long p, long long np) {
-  const int x = f / (n * n);
-  const int y = (f / n) % n;
-  const int z = f % n;
+                                            long long ncell, long long p,
+                                            long long np) {
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   for (int o = 0; o < 27; ++o) {
     float v[4];
-    if (!src.load(o, f, x, y, z, n, ncell, v)) continue;
+    src.load(o, f, ncell, v);
     const float w = w27t[(long long)o * np + p];
     s0 += w * v[0];
     s1 += w * v[1];
@@ -393,12 +401,12 @@ template <bool kMom, class Src>
 __device__ __forceinline__ void contract_rows(const Src& src,
                                               const float* __restrict__ w27t,
                                               float* __restrict__ out, int f,
-                                              int n, long long ncell,
-                                              long long p, long long np) {
+                                              long long ncell, long long p,
+                                              long long np) {
   if constexpr (kMom)
-    moment_rows(src, w27t, out, f, n, ncell, p, np);
+    moment_rows(src, w27t, out, f, ncell, p, np);
   else
-    gather_rows(src, w27t, out, f, n, ncell, p, np);
+    gather_rows(src, w27t, out, f, ncell, p, np);
 }
 
 // The particles a gather reads: the first *count of the np rows when the
@@ -418,24 +426,23 @@ __device__ __forceinline__ bool dead_row(const int* __restrict__ count,
   }
 }
 
-// K2 moments (kMom, 22 rows) on an (nx, n, n) grid, and K7a on the table (4
-// or 22 rows): a thread per sorted particle.
+// K7a on the table (4 or 22 rows): a thread per sorted particle.
 template <bool kMom, bool kCount, class Src>
 __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
                                 const int* __restrict__ flat,
                                 const int* __restrict__ count,
-                                float* __restrict__ out, int n,
-                                long long ncell, long long np) {
+                                float* __restrict__ out, long long ncell,
+                                long long np) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= np || dead_row<kCount>(count, out, kMom ? kMoments : 4, p, np))
     return;
-  contract_rows<kMom>(src, w27t, out, flat[p], n, ncell, p, np);
+  contract_rows<kMom>(src, w27t, out, flat[p], ncell, p, np);
 }
 
-// ---- K2: the G2P gather, a tile of sorted particles a block -------------
+// ---- K2 and K2 moments: a tile of sorted particles a block ---------------
 
-constexpr int kGatherTile = 128;   // particles a tile, a thread each
-constexpr int kGatherBlocks = 8;   // blocks an SM: at most 64 registers
+constexpr int kGatherTile = 128;   // particles a tile
+constexpr int kGatherBlocks = 8;   // K2's blocks an SM: at most 64 registers
 constexpr int kStageCells = 1024;  // float4 cells a tile may stage (16 KB)
 
 // Zeros into rows 0..3 of out at [p0, p0 + len), by the block: 16-byte
@@ -466,10 +473,12 @@ struct GatherBox {
   bool staged;
 };
 
-// The box of a tile's live particles, by the whole block (it synchronises):
-// f is the thread's id when alive.  Each extent is a min and a max reduced
-// over the live ids, so the box holds every live particle's neighbours
-// whatever their order (the bucket path's window-grouped order too).
+// The box of a tile's live particles, by the whole block of kWarps warps
+// (it synchronises): f is the thread's id when alive.  Each extent is a min
+// and a max reduced over the live ids, so the box holds every live
+// particle's neighbours whatever their order (the bucket path's
+// window-grouped order too).
+template <int kWarps = kGatherTile / 32>
 __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int n,
                                                 int (*red)[6]) {
   const int c[3] = {f / (n * n), (f / n) % n, f % n};
@@ -487,7 +496,7 @@ __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int n,
   for (int k = 0; k < 6; ++k) {
     m[k] = red[0][k];
 #pragma unroll
-    for (int i = 1; i < kGatherTile / 32; ++i) m[k] = min(m[k], red[i][k]);
+    for (int i = 1; i < kWarps; ++i) m[k] = min(m[k], red[i][k]);
   }
   GatherBox b;          // (lo, -hi) of each axis -> origin lo - 1, extent
   b.x0 = m[0] - 1;
@@ -522,30 +531,27 @@ __device__ __forceinline__ void stage_box(const GatherBox& b,
   __syncthreads();
 }
 
-// One particle's 4 sums over the 27 offsets in order from +0, its weights
-// w[o] in registers, its grid values from the staged box or from the
-// fields (a neighbour outside the grid skipped).  A staged zero adds w * 0,
-// which leaves a sum that started at +0 unchanged to the bit (see
-// NeighbourFields), so both give the same bits.
-__device__ __forceinline__ void gather_sums(const float (&w)[27], int f,
-                                            int nx, int n, long long ncell,
-                                            const float* __restrict__ fm,
-                                            const GatherBox& b,
-                                            const float4* box, float s[4]) {
+// The 27 offsets o of a particle with base cell f, in order: add(o, v) with
+// v the 4 grid values at f + off_o, from the staged box or from the fields
+// (a neighbour outside the grid skipped).  A staged zero adds w * 0 where
+// the direct read skips, which leaves a sum that started at +0 unchanged
+// to the bit (see add_signed), so both give the same bits.  add is a
+// functor whose sums live in registers (GatherSums, MomentSums).
+template <class Add>
+__device__ __forceinline__ void tile_neighbours(int f, int nx, int n,
+                                                long long ncell,
+                                                const float* __restrict__ fm,
+                                                const GatherBox& b,
+                                                const float4* box, Add& add) {
   const int nn = n * n;
   const int x = f / nn, y = (f / n) % n, z = f % n;
   if (b.staged) {
     const int zs = b.bz, ys = b.by * b.bz;
     const int c0 = (x - b.x0) * ys + (y - b.y0) * zs + (z - b.z0);
 #pragma unroll
-    for (int o = 0; o < 27; ++o) {
-      const float4 v =
-          box[c0 + (o / 9 - 1) * ys + ((o / 3) % 3 - 1) * zs + (o % 3 - 1)];
-      s[0] += w[o] * v.x;
-      s[1] += w[o] * v.y;
-      s[2] += w[o] * v.z;
-      s[3] += w[o] * v.w;
-    }
+    for (int o = 0; o < 27; ++o)
+      add(o, box[c0 + (o / 9 - 1) * ys + ((o / 3) % 3 - 1) * zs +
+                 (o % 3 - 1)]);
     return;
   }
   const bool in_x[3] = {x > 0, true, x + 1 < nx};
@@ -556,15 +562,25 @@ __device__ __forceinline__ void gather_sums(const float (&w)[27], int f,
     if (!(in_x[o / 9] && in_y[(o / 3) % 3] && in_z[o % 3])) continue;
     const float* q = fm + f + (o / 9 - 1) * nn + ((o / 3) % 3 - 1) * n +
                      (o % 3 - 1);
-    s[0] += w[o] * __ldg(q);
-    s[1] += w[o] * __ldg(q + ncell);
-    s[2] += w[o] * __ldg(q + 2 * ncell);
-    s[3] += w[o] * __ldg(q + 3 * ncell);
+    add(o, make_float4(__ldg(q), __ldg(q + ncell), __ldg(q + 2 * ncell),
+                       __ldg(q + 3 * ncell)));
   }
 }
 
-// K2: a block per tile of kGatherTile sorted particles (see the note at
-// the top).
+// K2's 4 sums of one particle, its 27 weights in registers.
+struct GatherSums {
+  float w[27];
+  float s[4];
+  __device__ __forceinline__ void operator()(int o, float4 v) {
+    s[0] += w[o] * v.x;
+    s[1] += w[o] * v.y;
+    s[2] += w[o] * v.z;
+    s[3] += w[o] * v.w;
+  }
+};
+
+// K2: a block per tile of kGatherTile sorted particles, a thread each (see
+// the note at the top).
 template <bool kCount>
 __global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
     g2p_gather_kernel(const float* __restrict__ fm,
@@ -588,9 +604,10 @@ __global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
   const bool alive = j < nlive;
   const long long p = p0 + j;
   const int f = alive ? __ldg(flat + p) : 0;
-  float w[27];                         // all 27 loads in flight at once
+  GatherSums acc;                      // all 27 weight loads in flight
 #pragma unroll
-  for (int o = 0; o < 27; ++o) w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
+  for (int o = 0; o < 27; ++o)
+    acc.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
   const GatherBox b = gather_box(f, alive, n, red);
   if (paths != nullptr && j == 0) {    // the path taken: (staged, tiles)
     if (b.staged) atomicAdd(paths, 1);
@@ -598,10 +615,122 @@ __global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
   }
   if (b.staged) stage_box(b, fm, nx, n, ncell, box);
   if (j >= len) return;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  if (alive) gather_sums(w, f, nx, n, ncell, fm, b, box, s);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) out[r * np + p] = s[r];
+  for (int r = 0; r < 4; ++r) acc.s[r] = 0.f;
+  if (alive) tile_neighbours(f, nx, n, ncell, fm, b, box, acc);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) out[r * np + p] = acc.s[r];
+}
+
+// cp.async of one f32 into shared memory, and the wait for a thread's
+// copies.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K2 moments' sums of one particle (its rows kPart), its 27 weights in
+// registers or, with kSharedW, read from its column sw of the tile's
+// staged (27, kGatherTile) weights.
+template <MomentPart kPart, bool kSharedW>
+struct MomentSums {
+  float w[kSharedW ? 1 : 27];
+  const float* sw;
+  float s[kMoments];
+  __device__ __forceinline__ void operator()(int o, float4 v) {
+    if constexpr (kSharedW)
+      moment_add<kPart>(s, o, sw[o * kGatherTile], v);
+    else
+      moment_add<kPart>(s, o, w[o], v);
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int r = 0; r < kMoments; ++r) s[r] = 0.f;
+  }
+  __device__ __forceinline__ void store(float* __restrict__ out, long long p,
+                                        long long np) const {
+#pragma unroll
+    for (int r = 0; r < kMoments; ++r)
+      if (moment_row_of(kPart, r)) out[r * np + p] = s[r];
+  }
+};
+
+// One particle's rows kPart from the staged weights.
+template <MomentPart kPart>
+__device__ __forceinline__ void staged_weight_moments(
+    const float* sw, int f, int nx, int n, long long ncell,
+    const float* __restrict__ fm, const GatherBox& b, const float4* box,
+    float* __restrict__ out, long long p, long long np) {
+  MomentSums<kPart, true> acc;
+  acc.sw = sw;
+  acc.zero();
+  tile_neighbours(f, nx, n, ncell, fm, b, box, acc);
+  acc.store(out, p, np);
+}
+
+// K2 moments: a block per tile of kGatherTile sorted particles (see the
+// note at the top), in the designs probed on the H100: the 27 weights in
+// registers (kSharedW false), or copied by cp.async into shared memory
+// beside the box (kSharedW), with one or two threads a particle (kRoles;
+// with two, the first takes den, vnum, mbar and M, the second F).
+template <bool kSharedW, int kRoles, int kMinBlocks>
+__global__ void __launch_bounds__(kRoles * kGatherTile, kMinBlocks)
+    g2p_moments_kernel(const float* __restrict__ fm,
+                       const float* __restrict__ w27t,
+                       const int* __restrict__ flat, float* __restrict__ out,
+                       int nx, int n, long long np, int* __restrict__ paths) {
+  constexpr int kBlock = kRoles * kGatherTile;
+  __shared__ int red[kBlock / 32][6];
+  __shared__ float4 box[kStageCells];
+  __shared__ float sw[kSharedW ? 27 * kGatherTile : 1];
+  const long long ncell = (long long)nx * n * n;
+  const long long p0 = (long long)blockIdx.x * kGatherTile;
+  const int j = threadIdx.x % kGatherTile;
+  const int len = (int)min((long long)kGatherTile, np - p0);
+  const bool alive = j < len;
+  const long long p = p0 + j;
+  const int f = alive ? __ldg(flat + p) : 0;
+  MomentSums<kAllRows, false> acc;     // the register design's
+  if constexpr (kSharedW) {
+    for (int i = threadIdx.x; i < 27 * kGatherTile; i += kBlock) {
+      const int o = i / kGatherTile, q = i - o * kGatherTile;
+      if (q < len) copy_async4(sw + i, w27t + o * np + p0 + q);
+    }
+  } else {                             // all 27 weight loads in flight
+#pragma unroll
+    for (int o = 0; o < 27; ++o)
+      acc.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
+  }
+  const GatherBox b = gather_box<kBlock / 32>(f, alive, n, red);
+  if (paths != nullptr && threadIdx.x == 0) {   // (staged, tiles)
+    if (b.staged) atomicAdd(paths, 1);
+    atomicAdd(paths + 1, 1);
+  }
+  if (b.staged) stage_box(b, fm, nx, n, ncell, box);
+  if constexpr (kSharedW) {
+    copy_async_wait();
+    __syncthreads();
+  }
+  if (!alive) return;
+  if constexpr (!kSharedW) {
+    acc.zero();
+    tile_neighbours(f, nx, n, ncell, fm, b, box, acc);
+    acc.store(out, p, np);
+  } else if constexpr (kRoles == 1) {
+    staged_weight_moments<kAllRows>(sw + j, f, nx, n, ncell, fm, b, box, out,
+                                    p, np);
+  } else if (threadIdx.x < kGatherTile) {
+    staged_weight_moments<kNoF>(sw + j, f, nx, n, ncell, fm, b, box, out, p,
+                                np);
+  } else {
+    staged_weight_moments<kOnlyF>(sw + j, f, nx, n, ncell, fm, b, box, out,
+                                  p, np);
+  }
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -1434,11 +1563,11 @@ __global__ void __launch_bounds__(kThreads)
   // an id out of order or outside the box is clamped into the arrays
   if (staged) {
     const int d = min(max(f - f0, 0), m - 1);
-    contract_rows<kMom>(StagedColumn{cols + d, m}, w27t, out, f, n, ncell, p,
+    contract_rows<kMom>(StagedColumn{cols + d, m}, w27t, out, f, ncell, p,
                         np);
   } else {
     const int fc = (int)min(max((long long)f, 0LL), ncell - 1);
-    contract_rows<kMom>(TableColumn{table}, w27t, out, fc, n, ncell, p, np);
+    contract_rows<kMom>(TableColumn{table}, w27t, out, fc, ncell, p, np);
   }
 }
 
@@ -1485,20 +1614,22 @@ extern "C" int fs_chunk_fill(const int* cell_start, const int* chunk_start,
   return (int)cudaGetLastError();
 }
 
-// The gathers of K2 moments and K7a: fields (4, nx, n, n), or the table
-// (27, 4, nx, n, n); count as in dead_row (nullptr: every row).
-template <bool kMom, class Src>
-int launch_rows(Src src, const float* w27t, const int* flat, const int* count,
-                float* out, int nx, int n, long long np, void* stream) {
+// K7a's gathers of the table (27, 4, nx, n, n); count as in dead_row
+// (nullptr: every row).
+template <bool kMom>
+int launch_rows(const float* table, const float* w27t, const int* flat,
+                const int* count, float* out, int nx, int n, long long np,
+                void* stream) {
   if (np == 0) return 0;
   const unsigned blocks = (unsigned)((np + kThreads - 1) / kThreads);
   const long long ncell = (long long)nx * n * n;
+  const TableColumn src{table};
   if (count != nullptr)
     g2p_rows_kernel<kMom, true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        src, w27t, flat, count, out, n, ncell, np);
+        src, w27t, flat, count, out, ncell, np);
   else
     g2p_rows_kernel<kMom, false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        src, w27t, flat, count, out, n, ncell, np);
+        src, w27t, flat, count, out, ncell, np);
   return (int)cudaGetLastError();
 }
 
@@ -1518,27 +1649,67 @@ extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
   return (int)cudaGetLastError();
 }
 
+template <bool kSharedW, int kRoles, int kMinBlocks>
+int launch_moments(const float* fm, const float* w27t, const int* flat,
+                   float* out, int nx, int n, long long np, int* paths,
+                   cudaStream_t st) {
+  const unsigned tiles = (unsigned)((np + kGatherTile - 1) / kGatherTile);
+  g2p_moments_kernel<kSharedW, kRoles, kMinBlocks>
+      <<<tiles, kRoles * kGatherTile, 0, st>>>(fm, w27t, flat, out, nx, n, np,
+                                              paths);
+  return (int)cudaGetLastError();
+}
+
+// K2 moments in the design `variant`: 0 the weights in registers (at most
+// 128 a thread), 1 the same at most 80, 2 the weights copied into shared
+// memory, 3 the same with two threads a particle.  No path gathers the
+// moments with a live count: a count is refused.
+extern "C" int fs_g2p_moments_variant(const float* fm, const float* w27t,
+                                      const int* flat, const int* count,
+                                      float* out, int nx, int n, long long np,
+                                      int* paths, int variant, void* stream) {
+  if (count != nullptr) return (int)cudaErrorInvalidValue;
+  if (np == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (variant) {
+    case 0:
+      return launch_moments<false, 1, 4>(fm, w27t, flat, out, nx, n, np, paths,
+                                         st);
+    case 1:
+      return launch_moments<false, 1, 6>(fm, w27t, flat, out, nx, n, np, paths,
+                                         st);
+    case 2:
+      return launch_moments<true, 1, 6>(fm, w27t, flat, out, nx, n, np, paths,
+                                        st);
+    case 3:
+      return launch_moments<true, 2, 3>(fm, w27t, flat, out, nx, n, np, paths,
+                                        st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int fs_g2p_moments(const float* fm, const float* w27t,
                               const int* flat, const int* count, float* out,
-                              int nx, int n, long long np, void* stream) {
-  return launch_rows<true>(NeighbourFields{fm, nx}, w27t, flat, count, out,
-                           nx, n, np, stream);
+                              int nx, int n, long long np, int* paths,
+                              void* stream) {
+  return fs_g2p_moments_variant(fm, w27t, flat, count, out, nx, n, np, paths,
+                                0, stream);
 }
 
 extern "C" int fs_g2p_gather_table(const float* table, const float* w27t,
                                    const int* flat, const int* count,
                                    float* out, int nx, int n, long long np,
                                    void* stream) {
-  return launch_rows<false>(TableColumn{table}, w27t, flat, count, out, nx, n,
-                            np, stream);
+  return launch_rows<false>(table, w27t, flat, count, out, nx, n, np,
+                            stream);
 }
 
 extern "C" int fs_g2p_moments_table(const float* table, const float* w27t,
                                     const int* flat, const int* count,
                                     float* out, int nx, int n, long long np,
                                     void* stream) {
-  return launch_rows<true>(TableColumn{table}, w27t, flat, count, out, nx, n,
-                           np, stream);
+  return launch_rows<true>(table, w27t, flat, count, out, nx, n, np,
+                           stream);
 }
 
 extern "C" int fs_g2p_gather_gw(const float* fm, const float* gradw,

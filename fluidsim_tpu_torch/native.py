@@ -45,11 +45,13 @@ _SIGNATURES = {
                              _P),
     "fs_chunk_fill": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P),
     # the gathers: src, weights, ids, live count (or None), out, nx, n, P
-    # (K2 then its tile-path counts, or None)
+    # (K2 and K2 moments then their tile-path counts, or None)
     "fs_g2p_gather": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                       ctypes.c_longlong, _P, _P),
     "fs_g2p_moments": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, _P),
+                       ctypes.c_longlong, _P, _P),
+    "fs_g2p_moments_variant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_longlong, _P, ctypes.c_int, _P),
     "fs_g2p_gather_gw": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_longlong, _P),
     "fs_g2p_gather_table": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

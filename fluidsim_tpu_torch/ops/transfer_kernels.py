@@ -579,6 +579,18 @@ def _launch_gather(name: str, entry: str, src: torch.Tensor, lead: tuple,
     return out
 
 
+def _check_paths(name: str, fm: torch.Tensor, paths: torch.Tensor | None):
+    """Refuse ``paths`` on the CPU, whose plain versions have no tiles, and
+    check it on the card: a (2,) int32 tensor beside the fields."""
+    if paths is None:
+        return None
+    if fm.device.type == "cpu":
+        raise ValueError(f"{name}: paths counts the CUDA kernel's tiles; "
+                         "the CPU's plain version has none")
+    native.check_tensor("paths", paths, torch.int32, (2,), fm.device)
+    return paths.data_ptr()
+
+
 def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor, flat_s: torch.Tensor,
                count: torch.Tensor | None = None,
                paths: torch.Tensor | None = None) -> torch.Tensor:
@@ -593,16 +605,11 @@ def g2p_gather(fm: torch.Tensor, w27t: torch.Tensor, flat_s: torch.Tensor,
     adds to ``paths[1]`` its tiles that hold a live row, and to
     ``paths[0]`` those of them that staged their fields.  The plain version
     has no tiles, so CPU tensors refuse it."""
+    paths_ptr = _check_paths("g2p_gather", fm, paths)
     if fm.device.type == "cpu":
-        if paths is not None:
-            raise ValueError("g2p_gather: paths counts the CUDA kernel's "
-                             "tiles; the CPU's plain version has none")
         return g2p_gather_plain(fm, w27t, flat_s, count)
-    if paths is not None:
-        native.check_tensor("paths", paths, torch.int32, (2,), fm.device)
     out = _launch_gather("g2p_gather", "fs_g2p_gather", fm, (), w27t,
-                         flat_s, 4, count,
-                         (None if paths is None else paths.data_ptr(),))
+                         flat_s, 4, count, (paths_ptr,))
     g2p_gather.launches += 1
     return out
 
@@ -672,21 +679,41 @@ def g2p_moments_table_plain(table: torch.Tensor, w27t: torch.Tensor,
     return _moment_sums(_table_columns(table, flat_s), w27t)
 
 
-def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor,
-                flat_s: torch.Tensor) -> torch.Tensor:
+def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor, flat_s: torch.Tensor,
+                paths: torch.Tensor | None = None) -> torch.Tensor:
     """K2 moments: the (22, P) f32 offset moments of ``g2p_moments_plain``
-    (neighbours outside the box read 0).  CUDA tensors launch
-    ``fs_g2p_moments`` (``csrc/transfer.cu``); CPU tensors take
-    ``g2p_moments_plain``."""
+    (neighbours outside the box read 0), ``fm`` (4, n, n, n) or (4, nx, n,
+    n).  CUDA tensors launch ``fs_g2p_moments`` (``csrc/transfer.cu``),
+    bit for bit the plain version on finite fields; CPU tensors take
+    ``g2p_moments_plain``.
+
+    ``paths``, a diagnostic as ``g2p_gather``'s (a (2,) int32 tensor on the
+    card): the kernel adds to ``paths[1]`` its tiles and to ``paths[0]``
+    those that staged their fields; CPU tensors refuse it."""
+    paths_ptr = _check_paths("g2p_moments", fm, paths)
     if fm.device.type == "cpu":
         return g2p_moments_plain(fm, w27t, flat_s)
     out = _launch_gather("g2p_moments", "fs_g2p_moments", fm, (), w27t,
-                         flat_s, MOMENT_ROWS)
+                         flat_s, MOMENT_ROWS, None, (paths_ptr,))
     g2p_moments.launches += 1
     return out
 
 
 g2p_moments.launches = 0
+
+MOMENT_VARIANTS = 4   # the designs of fs_g2p_moments_variant
+
+
+def g2p_moments_variant(fm: torch.Tensor, w27t: torch.Tensor,
+                        flat_s: torch.Tensor, variant: int,
+                        paths: torch.Tensor | None = None) -> torch.Tensor:
+    """K2 moments in one of its probed designs (``fs_g2p_moments_variant``
+    in ``csrc/transfer.cu``), for timing them against each other on the
+    card; each gives ``g2p_moments``' bits.  CUDA tensors only."""
+    paths_ptr = _check_paths("g2p_moments_variant", fm, paths)
+    return _launch_gather("g2p_moments_variant", "fs_g2p_moments_variant",
+                          fm, (), w27t, flat_s, MOMENT_ROWS, None,
+                          (paths_ptr, variant))
 
 
 def g2p_moments_table(table: torch.Tensor, w27t: torch.Tensor,

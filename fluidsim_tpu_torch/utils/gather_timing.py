@@ -3,6 +3,7 @@ beside it, timed on the card, so that two checkouts of the port can be
 compared in one call.
 
     python3 -m fluidsim_tpu_torch.utils.gather_timing [--root DIR] [--label L]
+        [--variants]
 
 ``--root`` names the checkout whose kernels are built and timed (default:
 the one holding this file).  The inputs are always made by this file's
@@ -35,9 +36,21 @@ it must move (the live rows' weights and ids, the count, the 4 output rows
 and the 16 B of every cell in the live rows' neighbourhoods,
 ``card_inputs.read_cells``) over the HBM rate; and, where the timed K2
 takes ``paths``, the kernel's own count of its tiles that staged their
-fields.  The last line is a JSON object with the rounds' times, the card's
-name and power limit, and the label.  It needs the card; the timed checkout
-needs only calls that every slice of the port since the slab sims has had.
+fields.  K2 moments on the cube carries its bound likewise (the weights
+and ids, its 22 output rows and 16 B a cell read), its share of it and,
+where the timed ``g2p_moments`` takes ``paths``, its staged tiles.
+``--variants`` times each design of ``g2p_moments_variant`` as well, each
+first held bit for bit to ``g2p_moments_plain`` on the cube and on
+``utils/synthetic.gather_edge_cases`` (the timed checkout must have it).
+
+Then ``FlipSim(mode="apic")`` steps ``APIC_FRAMES`` frames of the cube from
+seed 0, as ``chip_smoke.py``'s phases 6-7 do (2 warm-up and 10 timed),
+and their kinetic energies are printed: two checkouts whose K2 moments
+agree give the same energies to the bit.
+
+The last line is a JSON object with the rounds' times, the card's name and
+power limit, and the label.  It needs the card; the timed checkout needs
+only calls that every slice of the port since the slab sims has had.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ import sys
 
 REPS = 20
 ROUNDS = 5
+APIC_FRAMES = 12
 SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's clocks
 
 
@@ -143,6 +157,78 @@ def _inputs(dev):
     return shapes, cube, cone
 
 
+def _moments(tk, fm, w27t, flat, label, torch):
+    """K2 moments on the cube: its rounds, its bound (the weights and ids,
+    the 22 output rows, 16 B at each cell the rows read) and share, and
+    where the timed wrapper takes ``paths`` its kernel's tile count."""
+    from fluidsim_tpu_torch.utils import card_inputs as ci
+
+    p, n = flat.shape[0], fm.shape[-1]
+    cells = ci.read_cells(flat, n, n)
+    nbytes = (27 * 4 + 4) * p + 4 * tk.MOMENT_ROWS * p + 16 * cells
+    res = {"read_cells": cells, "bound_mb": nbytes / 1e6,
+           "bound_ms": 1e3 * max(nbytes / ci.HBM_BYTES_PER_S,
+                                 27 * 44 * p / ci.F32_OPS_PER_S)}
+    if "paths" in inspect.signature(tk.g2p_moments).parameters:
+        paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
+        tk.g2p_moments(fm, w27t, flat, paths=paths)
+        res["staged_tiles"] = paths.tolist()
+    res["ms"] = [_ms(lambda: tk.g2p_moments(fm, w27t, flat), torch)
+                 for _ in range(ROUNDS)]
+    res["share"] = res["bound_ms"] / min(res["ms"])
+    print(f"{label} k2_moments: {res}", file=sys.stderr)
+    return res
+
+
+def _moment_variants(tk, fm, w27t, flat, label, torch):
+    """Each design of ``g2p_moments_variant``: bit for bit
+    ``g2p_moments_plain`` on the cube and on the count-free
+    ``synthetic.gather_edge_cases``, then its rounds on the cube and its
+    tile count there."""
+    from fluidsim_tpu_torch.utils import synthetic
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    plain = tk.g2p_moments_plain(fm, w27t, flat)
+    edges = [(f"{name} {p}", case, tk.g2p_moments_plain(*case))
+             for p, n in ((1, 13), (127, 13), (129, 13), (1001, 13),
+                          (4099, 25), (100_003, 129))
+             for name, *case, count in synthetic.gather_edge_cases(
+                 p, n, device=fm.device) if count is None]
+    res = {}
+    for v in range(tk.MOMENT_VARIANTS):
+        paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
+        if not same(tk.g2p_moments_variant(fm, w27t, flat, v, paths), plain):
+            raise AssertionError(f"K2 moments variant {v} differs from its "
+                                 "plain version on the cube")
+        staged = 0
+        for name, case, want in edges:
+            e_paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
+            if not same(tk.g2p_moments_variant(*case, v, e_paths), want):
+                raise AssertionError(f"K2 moments variant {v} differs from "
+                                     f"its plain version on {name}")
+            staged += int(e_paths[0])
+        res[v] = {"staged_tiles": paths.tolist(), "edge_staged": staged,
+                  "ms": [_ms(lambda: tk.g2p_moments_variant(fm, w27t, flat,
+                                                            v), torch)
+                         for _ in range(ROUNDS)]}
+        print(f"{label} k2_moments variant {v}: {res[v]}", file=sys.stderr)
+    return res
+
+
+def _apic_energies(dev):
+    """The kinetic energies of ``APIC_FRAMES`` APIC frames of the cube
+    from seed 0, through the timed checkout's ``FlipSim``."""
+    from fluidsim_tpu_torch.models.flip import FlipSim
+    from fluidsim_tpu_torch.utils import card_inputs as ci
+
+    sim = FlipSim("water_cube_drop", bound=ci.FLIP_BOUND,
+                  density=ci.FLIP_DENSITY, seed=ci.SEED, device=dev,
+                  mode="apic")
+    return [float(sim.step()["kinetic_energy"]) for _ in range(APIC_FRAMES)]
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -150,6 +236,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=here,
                     help="checkout whose kernels are timed")
     ap.add_argument("--label", default="")
+    ap.add_argument("--variants", action="store_true",
+                    help="also time each design of g2p_moments_variant")
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
 
@@ -190,8 +278,11 @@ def main(argv=None) -> int:
         print(f"{a.label} {name}: {res}", file=sys.stderr)
 
     fm, w27t, flat, table = (cube[k] for k in ("fm", "w27t", "flat", "table"))
+    out["k2_moments"] = _moments(tk, fm, w27t, flat, a.label, torch)
+    if a.variants:
+        out["k2_moments_variants"] = _moment_variants(tk, fm, w27t, flat,
+                                                      a.label, torch)
     for key, fn in (
-            ("k2_moments_ms", lambda: tk.g2p_moments(fm, w27t, flat)),
             ("k7a_ms", lambda: tk.g2p_gather_table(table, w27t, flat)),
             ("k7a_moments_ms",
              lambda: tk.g2p_moments_table(table, w27t, flat)),
@@ -204,6 +295,10 @@ def main(argv=None) -> int:
     out["gw_particles"] = int(flat.shape[0])
     out["gw_ms"] = [_ms(lambda: tk.g2p_gather_gw(fm3, gradw, flat), torch)
                     for _ in range(ROUNDS)]
+    del shapes, cube, cone, fm, w27t, flat, table, fm3, gradw
+    out["apic_kinetic_energy"] = _apic_energies(dev)
+    print(f"{a.label} APIC kinetic energies: {out['apic_kinetic_energy']}",
+          file=sys.stderr)
 
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

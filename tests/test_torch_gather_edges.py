@@ -1,16 +1,20 @@
-"""K2's plain version (``transfer_kernels.g2p_gather_plain``, what the K2
-wrapper takes for CPU tensors) against the JAX package's fused gather
-(``pallas_transfer.gather_wv_fused``, ``nout=8``, in interpret mode) on the
-edge cases of the CUDA kernel's tiles of 128 sorted particles
+"""K2's and K2 moments' plain versions (``transfer_kernels.g2p_gather_plain``
+and ``g2p_moments_plain``, what the wrappers take for CPU tensors) against
+the JAX package's fused gather (``pallas_transfer.gather_wv_fused``,
+``nout=8`` and ``nout=24``, in interpret mode) on the
+edge cases of the CUDA kernels' tiles of 128 sorted particles
 (``kGatherTile`` in ``csrc/transfer.cu``): a run of dense cells whose
 tiles cross (x, y) rows and an x plane, particles on every face, edge and
 corner of the box, live counts of 0, of all rows and one that splits a
 cell's particles, and an odd particle count.  The card holds the kernel to
 the plain version bit for bit on the same kinds of cases (``chip_smoke.py``,
 ``utils/synthetic.gather_edge_cases``, with 127 and 129 rows on either side
-of a tile's end) and counts which of its two paths each tile took.  Here
-also: ``card_inputs.read_cells``, the cells a gather's bound counts, against
-a loop, and the wrapper refusing the kernel's path count on the CPU.
+of a tile's end) and counts which of its two paths each tile took.  K2
+moments skips the terms whose offset factor is 0 and subtracts for a
+factor of -1; a numpy loop in that order equals the plain version (which
+adds every term) bit for bit on ``gather_edge_cases``.  Here also:
+``card_inputs.read_cells``, the cells a gather's bound counts, against a
+loop, and both wrappers refusing their kernels' path count on the CPU.
 
 Fields: the JAX kernel's lane rolls wrap a z shift at the box's z faces
 into the next y row, where the port reads nothing, so the fields given to
@@ -18,10 +22,11 @@ both are zero on the box faces, as the frame's wall mask makes them (the
 mask channel is the within-wall mask).  With fields that are not zero there,
 the plain version is held bit for bit to a numpy loop instead.
 
-Tolerances: the gathered rows are f32 sums of 27 products, the JAX kernel's
-in another order (its one-hot matmuls): atol 1e-5 / rtol 1e-5, the bound
-``tests/test_torch_transfer.py`` holds the transfer sums to.  Rows past the
-live count must be exactly 0.
+Tolerances: the gathered rows and moments are f32 sums of 27 products, the
+JAX kernel's in another order (its one-hot matmuls): atol 1e-5 / rtol 1e-5,
+the bound ``tests/test_torch_transfer.py`` holds the transfer sums to.
+Rows past the live count, and the JAX kernel's rows 22-23, must be exactly
+0.
 """
 
 import jax.numpy as jnp
@@ -88,7 +93,8 @@ def _count(case, flat):
 def state(request):
     """Both packages' sorted particles and weights at one bound, random
     fields zero on the box faces (channel 3 the within-wall mask), and the
-    JAX gather's 4 rows of them."""
+    JAX gather's 4 rows (``nout=8``) and 24 moment rows (``nout=24``) of
+    them."""
     bound = request.param
     n = 2 * bound + 1
     rng = np.random.default_rng(18 + bound)
@@ -110,6 +116,9 @@ def state(request):
                      (2 * lay.lh, lay.lwr - n * n)))
     ref = pt.gather_wv_fused(fm_hp, wv, jflat, n, w=lay.w, t=lay.t,
                              interpret=True, cols=tp.cols_of(wv), lh=lay.lh)
+    moments = pt.gather_wv_fused(fm_hp, wv, jflat, n, w=lay.w, t=lay.t,
+                                 interpret=True, nout=24,
+                                 cols=tp.cols_of(wv), lh=lay.lh)
     p = pos.shape[0]
     ref = np.asarray(ref)
     assert not ref[4:, :p].any()
@@ -119,7 +128,20 @@ def state(request):
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jp))
     return dict(bound=bound, n=n, pos=tpos, flat=tflat,
                 w27t=tk.masked_weights_cm(tpos, bound),
-                fm=torch.as_tensor(fm), ref=ref[:4, :p])
+                fm=torch.as_tensor(fm), ref=ref[:4, :p],
+                ref_moments=np.asarray(moments)[:, :p])
+
+
+def test_moments_match_the_jax_gather(state):
+    """K2 moments' 22 rows are the JAX gather's rows 0-21 (the 24-row
+    contraction), whose rows 22-23 are 0."""
+    jax_moments = state["ref_moments"]
+    out = tk.g2p_moments(state["fm"], state["w27t"], state["flat"])
+    assert out.shape == (tk.MOMENT_ROWS, state["flat"].shape[0])
+    np.testing.assert_allclose(out.numpy(), jax_moments[:tk.MOMENT_ROWS],
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(jax_moments[tk.MOMENT_ROWS:], 0.0)
+    assert float(np.abs(jax_moments[7:16]).max()) > 0.1   # F is not all 0
 
 
 @pytest.mark.parametrize("case", COUNTS)
@@ -215,12 +237,63 @@ def test_read_cells_match_a_loop(state, case):
         assert (got == 0) == (rows == 0)
 
 
-def test_paths_are_refused_on_the_cpu(state):
-    """The path count is the CUDA kernel's: the CPU's plain version has no
-    tiles and refuses it."""
+@pytest.mark.parametrize("gather", ("g2p_gather", "g2p_moments"))
+def test_paths_are_refused_on_the_cpu(state, gather):
+    """The path count is the CUDA kernels': the CPU's plain versions have
+    no tiles and refuse it."""
     with pytest.raises(ValueError, match="paths"):
-        tk.g2p_gather(state["fm"], state["w27t"], state["flat"],
-                      paths=torch.zeros(2, dtype=torch.int32))
+        getattr(tk, gather)(state["fm"], state["w27t"], state["flat"],
+                            paths=torch.zeros(2, dtype=torch.int32))
+
+
+_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def _numpy_moments(fm, w27t, flat):
+    """K2 moments' function as a numpy loop in the CUDA kernel's order: for
+    each offset in turn, ``wf = w * value`` in f32 (a neighbour outside the
+    grid reading 0); den and vnum add ``wf``, and each other row adds it
+    for an offset factor of 1, subtracts it for -1 and skips it for 0."""
+    nx, n = fm.shape[1], fm.shape[-1]
+    x, y, z = flat // (n * n), (flat // n) % n, flat % n
+    out = np.zeros((tk.MOMENT_ROWS, flat.shape[0]), np.float32)
+    for o in range(27):
+        off = (o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1)
+        cx, cy, cz = x + off[0], y + off[1], z + off[2]
+        inb = ((cx >= 0) & (cx < nx) & (cy >= 0) & (cy < n) & (cz >= 0)
+               & (cz < n))
+        vals = fm[:, np.clip(cx, 0, nx - 1), np.clip(cy, 0, n - 1),
+                  np.clip(cz, 0, n - 1)]
+        wf = w27t[o] * np.where(inb, vals, np.float32(0))
+        terms = [(0, wf[3], 1)] + [(1 + c, wf[c], 1) for c in range(3)]
+        terms += [(4 + k, wf[3], off[k]) for k in range(3)]
+        terms += [(7 + 3 * c + k, wf[c], off[k]) for c in range(3)
+                  for k in range(3)]
+        terms += [(16 + i, wf[3], off[k] * off[m])
+                  for i, (k, m) in enumerate(_PAIRS)]
+        for r, t, sign in terms:
+            if sign > 0:
+                out[r] = out[r] + t
+            elif sign < 0:
+                out[r] = out[r] - t
+    return out
+
+
+@pytest.mark.parametrize("p", (1, 127, 129, 255, 257, 1001))
+def test_moments_skip_zero_factors_bitwise(p):
+    """``utils/synthetic.gather_edge_cases`` without a live count (the
+    cases ``chip_smoke.py`` gives K2 moments on the card): the plain
+    version, which adds ``wf * off`` for every offset, equals the numpy
+    loop that skips a factor of 0 and subtracts for -1, bit for bit."""
+    for name, fm, w27t, flat, count in synthetic.gather_edge_cases(
+            p, n=13, device="cpu"):
+        if count is not None:
+            continue
+        out = tk.g2p_moments(fm, w27t, flat)
+        np.testing.assert_array_equal(
+            out.numpy().view(np.int32),
+            _numpy_moments(fm.numpy(), w27t.numpy(), flat.numpy().astype(
+                np.int64)).view(np.int32), err_msg=name)
 
 
 @pytest.mark.parametrize("p", (1, 127, 129, 255, 257, 1001))
