@@ -33,11 +33,12 @@ Phases, each of which raises on failure (nonzero exit):
    plain version there and on ``utils/synthetic.gather_edge_cases`` (tiles
    across rows and planes, box faces, live counts of 0, P and one inside a
    tile, a window-grouped order, a slab; 1 to 100,003 rows at 13^3, 25^3
-   and 129^3), each state's share of K2 tiles that staged their fields
-   counted by the kernel (``paths``) and printed, both paths required
-   across the edge cases; the bound of each gather of fields (K2, K2
-   moments, K2 gw) counts the fields at the cells in the live rows'
-   neighbourhoods, which is all it must read;
+   and 129^3), and K2 moments on those without a count, each state's share
+   of tiles that staged their fields counted by the kernel (``paths``) and
+   printed, both paths of each kernel required across the edge cases; the
+   bound of each gather of fields (K2, K2 moments, K2 gw) counts the fields
+   at the cells in the live rows' neighbourhoods, which is all it must
+   read;
 4. run ``FlipSim`` (FLIP) for warm-up and timed frames: finite energy,
    particles in the box, the projection's outer tolerance met, every
    kernel launched by the timed frames the number of times the frame's CG
@@ -47,9 +48,13 @@ Phases, each of which raises on failure (nonzero exit):
    kinetic energies;
 6. the APIC kernels (K1 aff, K2 moments) against their plain versions at the
    APIC configuration's shapes, timed as in phase 3, K1 aff with the
-   checks of K1 in phase 3 (``p2g_scatter_affine_chunked``);
+   checks of K1 in phase 3 (``p2g_scatter_affine_chunked``), K2 moments
+   bit for bit with its count of staged tiles;
 7. ``FlipSim(mode="apic")`` at the same size: warm-up and timed frames with
-   the checks of phase 4 and the launch counts of all six kernels;
+   the checks of phase 4 and the launch counts of all six kernels, every
+   frame's kinetic energy printed (two checkouts compare on them); then K2
+   moments bit for bit on the bucket sort of the final state, the
+   window-grouped order a bucket APIC frame gives it;
 8. determinism of the APIC frames, as phase 5;
 9. reference: a small scene stepped on the card in FLIP, APIC and PIC mode
    matches the same scene stepped on the CPU, where every kernel wrapper

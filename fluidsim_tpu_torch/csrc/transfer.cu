@@ -18,10 +18,10 @@
 // takes nothing, as a cell outside the box does.  A rank's slots end with
 // dead ones, whose id nx n^2 sorts them last; cell_start[nx n^2] is then
 // the live count.  K1 never reaches them (its plan covers the cell ranges
-// only); the gathers take that count as `count`, a device int read by the
-// kernel (nullptr: all P rows), and write zeros to the rows past it, so a
-// dead slot's id, which decodes to row nx, reads no real cell and no host
-// read sizes the launch.  A cube call (nx = n, count nullptr) launches the
+// only); the gathers but K2 moments (which no slab path launches) take
+// that count as `count`, a device int read by the kernel (nullptr: all P
+// rows), and write zeros to the rows past it, so a dead slot's id, which
+// decodes to row nx, reads no real cell and no host read sizes the launch.  A cube call (nx = n, count nullptr) launches the
 // gathers built without the count test (kCount false).  K2 reads the count
 // once a tile of particles and tests rows only in the tile that straddles
 // it.
@@ -107,7 +107,7 @@
 //     (99% of the tiles of the 129^3 FLIP state; the rest read the fields
 //     directly, the offsets unrolled, neighbours outside the grid skipped).
 //   A staged zero adds w * 0 where the direct read skips: the same bits
-//   (see NeighbourFields).  With `paths` given (two device ints), thread 0
+//   (see tile_neighbours).  With `paths` given (two device ints), thread 0
 //   of each tile with a live row adds 1 to paths[1], and to paths[0] when
 //   its tile stages: the kernel's own count of the path it took.
 //   A cp.async-fed persistent tile that double-buffered the weights in
@@ -118,12 +118,41 @@
 //   (_contract_mat): the 22 live rows, from wf = w27t[o,p] * fm[:, base+off_o]
 //     row 0 den = sum wf3, rows 1-3 sum wf_c, rows 4-6 sum wf3 off_k,
 //     rows 7-15 sum wf_c off_k (row 7+3c+k), rows 16-21 sum wf3 off_k off_l
-//     over the pairs (00, 01, 02, 11, 12, 22).
-//   Output (22, P) f32.  Bound on the H100: memory; per particle 108 B of
-//   weights, 4 B of id, 88 B of output, the grid values from cache; ~432 MB
-//   at 129^3 / 2M particles.  Design: a thread per sorted particle with 22
-//   register accumulators; the offsets are compile-time constants in
-//   {-1, 0, 1}, so every product by an offset is exact.
+//     over the pairs (00, 01, 02, 11, 12, 22),
+//   each over the 27 offsets in order from +0, neighbours outside the grid
+//   skipped.  Output (22, P) f32, bit for bit
+//   transfer_kernels.g2p_moments_plain (and K7a and K9b moments) on finite
+//   fields.  No path gives it a live count (APIC has no sharded frame, as
+//   in JAX): the entry refuses one.
+//   The contract of the zero terms: a term whose offset factor is 0 is
+//   skipped and a factor of -1 is a subtraction (moment_add, add_signed).
+//   The plain version multiplies every term by its factor; on finite fields
+//   the bits are the same (x * 0 is +-0, which leaves a sum that started at
+//   +0 unchanged, and x * -1 is -x exactly).  On a non-finite field value
+//   they may differ (inf * 0 is NaN where a skipped term adds nothing), but
+//   rows 0-3 take every offset, so the particle's velocity is non-finite
+//   all the same and check_finite still catches it.  The sources build with
+//   --fmad=false, which keeps nvcc from folding x * 0; skipping takes ~180
+//   multiplies and ~180 adds of exact +-0 a particle out (~880 -> ~520 FP32
+//   instructions).
+//   Bound on the H100: memory.  Per particle 108 B of weights, 4 B of id and
+//   88 B of output, and 16 B at each cell the particles read: 399.0 MB at
+//   129^3 / 1,987,675 particles (91,134 cells read), 0.1191 ms at 3.35 TB/s.
+//   A thread per particle that loaded each weight inside its 27-offset loop
+//   and tested each neighbour against the box (4 scalar field loads an
+//   offset) ran at 44% of it (0.2704 ms, NVIDIA H100 80GB HBM3, 700.00 W).
+//   Design: K2's tile (gather_box, stage_box, tile_neighbours), a block per
+//   kGatherTile = 128 sorted particles: each thread loads its id and all 27
+//   weights into registers before any field read, the block reduces and
+//   stages the box as K2 does (the fields read directly when it is larger
+//   than kStageCells), and each thread keeps its 22 sums in registers; at
+//   most 128 registers a thread (it takes 72: 7 blocks an SM).  With `paths`
+//   it counts its tiles and the staged ones as K2 does.  On the same card
+//   (PERF.md §6) it ran at 0.160 ms at 129^3 (74% of the bound); slower
+//   there: the tile's 27 x 128 weights copied into shared memory by
+//   cp.async beside the box (0.175 ms), and two threads a particle on those
+//   staged weights, one summing den, vnum, mbar and M, the other F
+//   (0.189 ms).
 //
 // K2 gw fs_g2p_gather_gw replaces the same TPU gather with contract='gw',
 //   nout=16: out[3c+k, p] = sum_o gW[p,o,k] * fm[c, base(p) + off_o] for
@@ -192,10 +221,10 @@
 //   Bound on the H100: memory.  Per particle 108 B of weights, 4 B of id and
 //   16 or 88 B of output, plus 432 B of table per distinct base cell: the
 //   sorted particles of one cell read the same 108 values (L1 broadcast).
-//   Design: K2 moments' kernel, templated on where a particle's grid values
-//   come from (NeighbourFields or TableColumn), so the accumulators are one
-//   code and the offsets are summed in K2's order: the materialised G2P
-//   equals the fused one bit for bit.
+//   Design: a thread per particle through the row contractions that K9b
+//   shares (gather_rows, moment_rows, templated on where a particle's grid
+//   values come from: TableColumn here), the offsets summed in K2's order:
+//   the materialised G2P equals the fused one bit for bit.
 //
 // K9a fs_p2g_scatter_spans replaces fluidsim_tpu/ops/pallas_transfer.py:1500
 //   scatter_wv_spans (_scatter_wv_spans_kernel, its plan build_spans): K6a's
@@ -308,68 +337,74 @@ __device__ __forceinline__ void add_signed(float& s, float x, int sign) {
     s -= x;
 }
 
-// The rows of K2 moments a thread sums: all 22, or with two threads a
-// particle den, vnum, mbar and M (13) or F (9).
-enum MomentPart { kAllRows, kNoF, kOnlyF };
-
-__device__ __forceinline__ bool moment_row_of(MomentPart part, int r) {
-  const bool f_row = r >= 7 && r < 16;
-  return part == kAllRows || (part == kOnlyF) == f_row;
-}
-
-// Offset o's terms of the 22 moments (their part), from the weight w and
-// the grid values v of the neighbour at off_o: wf = w * v, and
+// K2 moments' terms of offset o, from the weight w and the grid values v
+// of the neighbour at off_o: wf = w * v, and
 //   row 0 den += wf.w, rows 1-3 vnum_c += wf_c, rows 4-6 mbar_k += wf.w
 //   off_k, rows 7-15 F_{c,k} += wf_c off_k (row 7 + 3c + k), rows 16-21
 //   M_kl += wf.w off_k off_l over the pairs (00, 01, 02, 11, 12, 22),
-// each factor of 0 skipped (add_signed).  Rows 0-3 take every offset, so
-// a non-finite grid value still reaches den or vnum.
-template <MomentPart kPart>
+// each factor of 0 skipped and -1 subtracted (add_signed).  Rows 0-3 take
+// every offset, so a non-finite grid value still reaches den or vnum.
 __device__ __forceinline__ void moment_add(float (&s)[kMoments], int o,
                                            float w, float4 v) {
   const int off[3] = {o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1};
   const int kPairK[6] = {0, 0, 0, 1, 1, 2};
   const int kPairL[6] = {0, 1, 2, 1, 2, 2};
   const float wf[4] = {w * v.x, w * v.y, w * v.z, w * v.w};
-  if constexpr (kPart != kOnlyF) {
-    s[0] += wf[3];
-    s[1] += wf[0];
-    s[2] += wf[1];
-    s[3] += wf[2];
+  s[0] += wf[3];
+  s[1] += wf[0];
+  s[2] += wf[1];
+  s[3] += wf[2];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) add_signed(s[4 + k], wf[3], off[k]);
+  for (int k = 0; k < 3; ++k) add_signed(s[4 + k], wf[3], off[k]);
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
-      add_signed(s[16 + i], wf[3], off[kPairK[i]] * off[kPairL[i]]);
-  }
-  if constexpr (kPart != kNoF) {
+  for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
+    for (int k = 0; k < 3; ++k) add_signed(s[7 + 3 * ch + k], wf[ch], off[k]);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) add_signed(s[7 + 3 * ch + k], wf[ch], off[k]);
-  }
+  for (int i = 0; i < 6; ++i)
+    add_signed(s[16 + i], wf[3], off[kPairK[i]] * off[kPairL[i]]);
 }
 
 // The rows of one particle p with base cell f: K2's 4 sums (gather_rows) or
 // K2 moments' 22 (moment_rows), each over the 27 offsets in order from +0,
 // the grid values read through src.  K7a and K9b run this code with their
-// own sources; K2 and K2 moments their tiles (tile_neighbours) in the same
-// order and through the same moment_add, so they agree bit for bit.
+// own sources, K2 and K2 moments their tiles (tile_neighbours) in the same
+// order, so they agree bit for bit.  moment_rows multiplies every term by
+// its offset factor, where moment_add skips a factor of 0: the same bits
+// for finite values (add_signed); with the skip K9b moments ran 15% slower
+// on the H100 (PERF.md §6).
 template <class Src>
 __device__ __forceinline__ void moment_rows(const Src& src,
                                             const float* __restrict__ w27t,
                                             float* __restrict__ out, int f,
                                             long long ncell, long long p,
                                             long long np) {
+  const int kPairK[6] = {0, 0, 0, 1, 1, 2};
+  const int kPairL[6] = {0, 1, 2, 1, 2, 2};
   float acc[kMoments];
 #pragma unroll
   for (int r = 0; r < kMoments; ++r) acc[r] = 0.f;
 #pragma unroll
   for (int o = 0; o < 27; ++o) {
+    const int off[3] = {o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1};
     float v[4];
     src.load(o, f, ncell, v);
-    moment_add<kAllRows>(acc, o, w27t[(long long)o * np + p],
-                         make_float4(v[0], v[1], v[2], v[3]));
+    const float w = w27t[(long long)o * np + p];
+    const float wf[4] = {w * v[0], w * v[1], w * v[2], w * v[3]};
+    acc[0] += wf[3];
+    acc[1] += wf[0];
+    acc[2] += wf[1];
+    acc[3] += wf[2];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[4 + k] += wf[3] * (float)off[k];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        acc[7 + 3 * ch + k] += wf[ch] * (float)off[k];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      acc[16 + i] += wf[3] * (float)(off[kPairK[i]] * off[kPairL[i]]);
   }
 #pragma unroll
   for (int r = 0; r < kMoments; ++r) out[r * np + p] = acc[r];
@@ -443,6 +478,7 @@ __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
 
 constexpr int kGatherTile = 128;   // particles a tile
 constexpr int kGatherBlocks = 8;   // K2's blocks an SM: at most 64 registers
+constexpr int kMomentBlocks = 4;   // K2 moments': at most 128 (it takes 72)
 constexpr int kStageCells = 1024;  // float4 cells a tile may stage (16 KB)
 
 // Zeros into rows 0..3 of out at [p0, p0 + len), by the block: 16-byte
@@ -473,12 +509,10 @@ struct GatherBox {
   bool staged;
 };
 
-// The box of a tile's live particles, by the whole block of kWarps warps
-// (it synchronises): f is the thread's id when alive.  Each extent is a min
-// and a max reduced over the live ids, so the box holds every live
-// particle's neighbours whatever their order (the bucket path's
-// window-grouped order too).
-template <int kWarps = kGatherTile / 32>
+// The box of a tile's live particles, by the whole block (it synchronises):
+// f is the thread's id when alive.  Each extent is a min and a max reduced
+// over the live ids, so the box holds every live particle's neighbours
+// whatever their order (the bucket path's window-grouped order too).
 __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int n,
                                                 int (*red)[6]) {
   const int c[3] = {f / (n * n), (f / n) % n, f % n};
@@ -496,7 +530,7 @@ __device__ __forceinline__ GatherBox gather_box(int f, bool alive, int n,
   for (int k = 0; k < 6; ++k) {
     m[k] = red[0][k];
 #pragma unroll
-    for (int i = 1; i < kWarps; ++i) m[k] = min(m[k], red[i][k]);
+    for (int i = 1; i < kGatherTile / 32; ++i) m[k] = min(m[k], red[i][k]);
   }
   GatherBox b;          // (lo, -hi) of each axis -> origin lo - 1, extent
   b.x0 = m[0] - 1;
@@ -622,115 +656,47 @@ __global__ void __launch_bounds__(kGatherTile, kGatherBlocks)
   for (int r = 0; r < 4; ++r) out[r * np + p] = acc.s[r];
 }
 
-// cp.async of one f32 into shared memory, and the wait for a thread's
-// copies.
-__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// K2 moments' sums of one particle (its rows kPart), its 27 weights in
-// registers or, with kSharedW, read from its column sw of the tile's
-// staged (27, kGatherTile) weights.
-template <MomentPart kPart, bool kSharedW>
+// K2 moments' 22 sums of one particle, its 27 weights in registers.
 struct MomentSums {
-  float w[kSharedW ? 1 : 27];
-  const float* sw;
+  float w[27];
   float s[kMoments];
   __device__ __forceinline__ void operator()(int o, float4 v) {
-    if constexpr (kSharedW)
-      moment_add<kPart>(s, o, sw[o * kGatherTile], v);
-    else
-      moment_add<kPart>(s, o, w[o], v);
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int r = 0; r < kMoments; ++r) s[r] = 0.f;
-  }
-  __device__ __forceinline__ void store(float* __restrict__ out, long long p,
-                                        long long np) const {
-#pragma unroll
-    for (int r = 0; r < kMoments; ++r)
-      if (moment_row_of(kPart, r)) out[r * np + p] = s[r];
+    moment_add(s, o, w[o], v);
   }
 };
 
-// One particle's rows kPart from the staged weights.
-template <MomentPart kPart>
-__device__ __forceinline__ void staged_weight_moments(
-    const float* sw, int f, int nx, int n, long long ncell,
-    const float* __restrict__ fm, const GatherBox& b, const float4* box,
-    float* __restrict__ out, long long p, long long np) {
-  MomentSums<kPart, true> acc;
-  acc.sw = sw;
-  acc.zero();
-  tile_neighbours(f, nx, n, ncell, fm, b, box, acc);
-  acc.store(out, p, np);
-}
-
-// K2 moments: a block per tile of kGatherTile sorted particles (see the
-// note at the top), in the designs probed on the H100: the 27 weights in
-// registers (kSharedW false), or copied by cp.async into shared memory
-// beside the box (kSharedW), with one or two threads a particle (kRoles;
-// with two, the first takes den, vnum, mbar and M, the second F).
-template <bool kSharedW, int kRoles, int kMinBlocks>
-__global__ void __launch_bounds__(kRoles * kGatherTile, kMinBlocks)
+// K2 moments: a block per tile of kGatherTile sorted particles, a thread
+// each (see the note at the top); 27 weights and 22 sums in registers.
+__global__ void __launch_bounds__(kGatherTile, kMomentBlocks)
     g2p_moments_kernel(const float* __restrict__ fm,
                        const float* __restrict__ w27t,
                        const int* __restrict__ flat, float* __restrict__ out,
                        int nx, int n, long long np, int* __restrict__ paths) {
-  constexpr int kBlock = kRoles * kGatherTile;
-  __shared__ int red[kBlock / 32][6];
+  __shared__ int red[kGatherTile / 32][6];
   __shared__ float4 box[kStageCells];
-  __shared__ float sw[kSharedW ? 27 * kGatherTile : 1];
   const long long ncell = (long long)nx * n * n;
   const long long p0 = (long long)blockIdx.x * kGatherTile;
-  const int j = threadIdx.x % kGatherTile;
+  const int j = threadIdx.x;
   const int len = (int)min((long long)kGatherTile, np - p0);
   const bool alive = j < len;
   const long long p = p0 + j;
   const int f = alive ? __ldg(flat + p) : 0;
-  MomentSums<kAllRows, false> acc;     // the register design's
-  if constexpr (kSharedW) {
-    for (int i = threadIdx.x; i < 27 * kGatherTile; i += kBlock) {
-      const int o = i / kGatherTile, q = i - o * kGatherTile;
-      if (q < len) copy_async4(sw + i, w27t + o * np + p0 + q);
-    }
-  } else {                             // all 27 weight loads in flight
+  MomentSums acc;                      // all 27 weight loads in flight
 #pragma unroll
-    for (int o = 0; o < 27; ++o)
-      acc.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
-  }
-  const GatherBox b = gather_box<kBlock / 32>(f, alive, n, red);
-  if (paths != nullptr && threadIdx.x == 0) {   // (staged, tiles)
+  for (int o = 0; o < 27; ++o)
+    acc.w[o] = alive ? __ldg(w27t + o * np + p) : 0.f;
+  const GatherBox b = gather_box(f, alive, n, red);
+  if (paths != nullptr && j == 0) {    // the path taken: (staged, tiles)
     if (b.staged) atomicAdd(paths, 1);
     atomicAdd(paths + 1, 1);
   }
   if (b.staged) stage_box(b, fm, nx, n, ncell, box);
-  if constexpr (kSharedW) {
-    copy_async_wait();
-    __syncthreads();
-  }
   if (!alive) return;
-  if constexpr (!kSharedW) {
-    acc.zero();
-    tile_neighbours(f, nx, n, ncell, fm, b, box, acc);
-    acc.store(out, p, np);
-  } else if constexpr (kRoles == 1) {
-    staged_weight_moments<kAllRows>(sw + j, f, nx, n, ncell, fm, b, box, out,
-                                    p, np);
-  } else if (threadIdx.x < kGatherTile) {
-    staged_weight_moments<kNoF>(sw + j, f, nx, n, ncell, fm, b, box, out, p,
-                                np);
-  } else {
-    staged_weight_moments<kOnlyF>(sw + j, f, nx, n, ncell, fm, b, box, out,
-                                  p, np);
-  }
+#pragma unroll
+  for (int r = 0; r < kMoments; ++r) acc.s[r] = 0.f;
+  tile_neighbours(f, nx, n, ncell, fm, b, box, acc);
+#pragma unroll
+  for (int r = 0; r < kMoments; ++r) out[r * np + p] = acc.s[r];
 }
 
 // ---- K1: the chunked pull of every mode --------------------------------
@@ -1649,51 +1615,17 @@ extern "C" int fs_g2p_gather(const float* fm, const float* w27t,
   return (int)cudaGetLastError();
 }
 
-template <bool kSharedW, int kRoles, int kMinBlocks>
-int launch_moments(const float* fm, const float* w27t, const int* flat,
-                   float* out, int nx, int n, long long np, int* paths,
-                   cudaStream_t st) {
-  const unsigned tiles = (unsigned)((np + kGatherTile - 1) / kGatherTile);
-  g2p_moments_kernel<kSharedW, kRoles, kMinBlocks>
-      <<<tiles, kRoles * kGatherTile, 0, st>>>(fm, w27t, flat, out, nx, n, np,
-                                              paths);
-  return (int)cudaGetLastError();
-}
-
-// K2 moments in the design `variant`: 0 the weights in registers (at most
-// 128 a thread), 1 the same at most 80, 2 the weights copied into shared
-// memory, 3 the same with two threads a particle.  No path gathers the
-// moments with a live count: a count is refused.
-extern "C" int fs_g2p_moments_variant(const float* fm, const float* w27t,
-                                      const int* flat, const int* count,
-                                      float* out, int nx, int n, long long np,
-                                      int* paths, int variant, void* stream) {
-  if (count != nullptr) return (int)cudaErrorInvalidValue;
-  if (np == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (variant) {
-    case 0:
-      return launch_moments<false, 1, 4>(fm, w27t, flat, out, nx, n, np, paths,
-                                         st);
-    case 1:
-      return launch_moments<false, 1, 6>(fm, w27t, flat, out, nx, n, np, paths,
-                                         st);
-    case 2:
-      return launch_moments<true, 1, 6>(fm, w27t, flat, out, nx, n, np, paths,
-                                        st);
-    case 3:
-      return launch_moments<true, 2, 3>(fm, w27t, flat, out, nx, n, np, paths,
-                                        st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
+// No path gathers the moments with a live count: a count is refused.
 extern "C" int fs_g2p_moments(const float* fm, const float* w27t,
                               const int* flat, const int* count, float* out,
                               int nx, int n, long long np, int* paths,
                               void* stream) {
-  return fs_g2p_moments_variant(fm, w27t, flat, count, out, nx, n, np, paths,
-                                0, stream);
+  if (count != nullptr) return (int)cudaErrorInvalidValue;
+  if (np == 0) return 0;
+  const unsigned tiles = (unsigned)((np + kGatherTile - 1) / kGatherTile);
+  g2p_moments_kernel<<<tiles, kGatherTile, 0, (cudaStream_t)stream>>>(
+      fm, w27t, flat, out, nx, n, np, paths);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fs_g2p_gather_table(const float* table, const float* w27t,

@@ -50,8 +50,6 @@ _SIGNATURES = {
                       ctypes.c_longlong, _P, _P),
     "fs_g2p_moments": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                        ctypes.c_longlong, _P, _P),
-    "fs_g2p_moments_variant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_longlong, _P, ctypes.c_int, _P),
     "fs_g2p_gather_gw": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_longlong, _P),
     "fs_g2p_gather_table": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

@@ -701,20 +701,6 @@ def g2p_moments(fm: torch.Tensor, w27t: torch.Tensor, flat_s: torch.Tensor,
 
 g2p_moments.launches = 0
 
-MOMENT_VARIANTS = 4   # the designs of fs_g2p_moments_variant
-
-
-def g2p_moments_variant(fm: torch.Tensor, w27t: torch.Tensor,
-                        flat_s: torch.Tensor, variant: int,
-                        paths: torch.Tensor | None = None) -> torch.Tensor:
-    """K2 moments in one of its probed designs (``fs_g2p_moments_variant``
-    in ``csrc/transfer.cu``), for timing them against each other on the
-    card; each gives ``g2p_moments``' bits.  CUDA tensors only."""
-    paths_ptr = _check_paths("g2p_moments_variant", fm, paths)
-    return _launch_gather("g2p_moments_variant", "fs_g2p_moments_variant",
-                          fm, (), w27t, flat_s, MOMENT_ROWS, None,
-                          (paths_ptr, variant))
-
 
 def g2p_moments_table(table: torch.Tensor, w27t: torch.Tensor,
                       flat_s: torch.Tensor) -> torch.Tensor:

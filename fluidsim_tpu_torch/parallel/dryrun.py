@@ -83,11 +83,12 @@ def _rank_main(rank: int, fn, world: int, store: str, device: str,
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, device: str = "cpu", args: tuple = (),
+def run_ranks(fn, world: int, device: str = "cuda", args: tuple = (),
               timeout_s: float = TIMEOUT_S):
     """Run ``fn(rank, world, device, *args)`` in ``world`` spawned
     processes joined in one process group (a ``file://`` store in a
-    temporary directory).  ``fn`` must be a module-level function of a
+    temporary directory), on the card unless ``device`` is ``"cpu"``
+    (gloo there, NCCL on the card).  ``fn`` must be a module-level function of a
     module the children can import without the caller's.  Raises if a rank
     fails or the run takes longer than ``timeout_s``; every child is gone
     when it returns."""

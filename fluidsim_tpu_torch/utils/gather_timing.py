@@ -3,7 +3,6 @@ beside it, timed on the card, so that two checkouts of the port can be
 compared in one call.
 
     python3 -m fluidsim_tpu_torch.utils.gather_timing [--root DIR] [--label L]
-        [--variants]
 
 ``--root`` names the checkout whose kernels are built and timed (default:
 the one holding this file).  The inputs are always made by this file's
@@ -39,9 +38,6 @@ takes ``paths``, the kernel's own count of its tiles that staged their
 fields.  K2 moments on the cube carries its bound likewise (the weights
 and ids, its 22 output rows and 16 B a cell read), its share of it and,
 where the timed ``g2p_moments`` takes ``paths``, its staged tiles.
-``--variants`` times each design of ``g2p_moments_variant`` as well, each
-first held bit for bit to ``g2p_moments_plain`` on the cube and on
-``utils/synthetic.gather_edge_cases`` (the timed checkout must have it).
 
 Then ``FlipSim(mode="apic")`` steps ``APIC_FRAMES`` frames of the cube from
 seed 0, as ``chip_smoke.py``'s phases 6-7 do (2 warm-up and 10 timed),
@@ -180,43 +176,6 @@ def _moments(tk, fm, w27t, flat, label, torch):
     return res
 
 
-def _moment_variants(tk, fm, w27t, flat, label, torch):
-    """Each design of ``g2p_moments_variant``: bit for bit
-    ``g2p_moments_plain`` on the cube and on the count-free
-    ``synthetic.gather_edge_cases``, then its rounds on the cube and its
-    tile count there."""
-    from fluidsim_tpu_torch.utils import synthetic
-
-    def same(a, b):
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-    plain = tk.g2p_moments_plain(fm, w27t, flat)
-    edges = [(f"{name} {p}", case, tk.g2p_moments_plain(*case))
-             for p, n in ((1, 13), (127, 13), (129, 13), (1001, 13),
-                          (4099, 25), (100_003, 129))
-             for name, *case, count in synthetic.gather_edge_cases(
-                 p, n, device=fm.device) if count is None]
-    res = {}
-    for v in range(tk.MOMENT_VARIANTS):
-        paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
-        if not same(tk.g2p_moments_variant(fm, w27t, flat, v, paths), plain):
-            raise AssertionError(f"K2 moments variant {v} differs from its "
-                                 "plain version on the cube")
-        staged = 0
-        for name, case, want in edges:
-            e_paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
-            if not same(tk.g2p_moments_variant(*case, v, e_paths), want):
-                raise AssertionError(f"K2 moments variant {v} differs from "
-                                     f"its plain version on {name}")
-            staged += int(e_paths[0])
-        res[v] = {"staged_tiles": paths.tolist(), "edge_staged": staged,
-                  "ms": [_ms(lambda: tk.g2p_moments_variant(fm, w27t, flat,
-                                                            v), torch)
-                         for _ in range(ROUNDS)]}
-        print(f"{label} k2_moments variant {v}: {res[v]}", file=sys.stderr)
-    return res
-
-
 def _apic_energies(dev):
     """The kinetic energies of ``APIC_FRAMES`` APIC frames of the cube
     from seed 0, through the timed checkout's ``FlipSim``."""
@@ -236,8 +195,6 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=here,
                     help="checkout whose kernels are timed")
     ap.add_argument("--label", default="")
-    ap.add_argument("--variants", action="store_true",
-                    help="also time each design of g2p_moments_variant")
     a = ap.parse_args(argv)
     root = os.path.abspath(a.root)
 
@@ -279,9 +236,6 @@ def main(argv=None) -> int:
 
     fm, w27t, flat, table = (cube[k] for k in ("fm", "w27t", "flat", "table"))
     out["k2_moments"] = _moments(tk, fm, w27t, flat, a.label, torch)
-    if a.variants:
-        out["k2_moments_variants"] = _moment_variants(tk, fm, w27t, flat,
-                                                      a.label, torch)
     for key, fn in (
             ("k7a_ms", lambda: tk.g2p_gather_table(table, w27t, flat)),
             ("k7a_moments_ms",

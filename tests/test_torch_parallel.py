@@ -396,3 +396,14 @@ def test_pcg_reduce_fn_keeps_the_local_sums():
     # bnorm2, then per iteration one scalar and one stacked pair
     assert calls.count(torch.Size([2])) == plain.iters + 1
     assert calls.count(torch.Size([])) == plain.iters + 1
+
+
+def test_run_ranks_defaults_to_the_card():
+    """``dryrun.run_ranks`` runs on the card unless the caller asks for the
+    CPU, as the port's other entry points do."""
+    import inspect
+
+    from fluidsim_tpu_torch.parallel import dryrun
+
+    assert inspect.signature(dryrun.run_ranks).parameters[
+        "device"].default == "cuda"
