@@ -372,7 +372,7 @@ __device__ __forceinline__ void moment_add(float (&s)[kMoments], int o,
 // order, so they agree bit for bit.  moment_rows multiplies every term by
 // its offset factor, where moment_add skips a factor of 0: the same bits
 // for finite values (add_signed); with the skip K9b moments ran 15% slower
-// on the H100 (PERF.md §6).
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
 template <class Src>
 __device__ __forceinline__ void moment_rows(const Src& src,
                                             const float* __restrict__ w27t,

@@ -88,10 +88,10 @@ def run_ranks(fn, world: int, device: str = "cuda", args: tuple = (),
     """Run ``fn(rank, world, device, *args)`` in ``world`` spawned
     processes joined in one process group (a ``file://`` store in a
     temporary directory), on the card unless ``device`` is ``"cpu"``
-    (gloo there, NCCL on the card).  ``fn`` must be a module-level function of a
-    module the children can import without the caller's.  Raises if a rank
-    fails or the run takes longer than ``timeout_s``; every child is gone
-    when it returns."""
+    (gloo there, NCCL on the card).  ``fn`` must be a module-level
+    function of a module the children can import without the caller's.
+    Raises if a rank fails or the run takes longer than ``timeout_s``;
+    every child is gone when it returns."""
     with tempfile.TemporaryDirectory(prefix="fluidsim_ranks_") as tmp:
         store = "file://" + os.path.join(tmp, "store")
         ctx = mp.spawn(_rank_main, args=(fn, world, store, device, timeout_s,
