@@ -478,7 +478,7 @@ __global__ void g2p_rows_kernel(Src src, const float* __restrict__ w27t,
 
 constexpr int kGatherTile = 128;   // particles a tile
 constexpr int kGatherBlocks = 8;   // K2's blocks an SM: at most 64 registers
-constexpr int kMomentBlocks = 4;   // K2 moments': at most 128 (it takes 72)
+constexpr int kMomentBlocks = 4;   // K2 moments': 128 registers (72 used; 64 spill)
 constexpr int kStageCells = 1024;  // float4 cells a tile may stage (16 KB)
 
 // Zeros into rows 0..3 of out at [p0, p0 + len), by the block: 16-byte
