@@ -22,7 +22,7 @@ the reference's outer divergence-correction loop (relative error <= 0.1)
 and its quirks (gradient at dt/10 strength, gravity re-applied per pass),
 unless ``compat_projection=False`` asks for the textbook projection.  The
 JAX package's XLA and chunked transfer schedules select no other function
-and have no counterpart here; the sharded sims are not ported yet.
+and have no counterpart here; the slab-sharded sims are in ``parallel/``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Semi-implicit snow Material Point Method frame on PyTorch — the
 counterpart of ``fluidsim_tpu/models/mpm.py`` on its kernel path (the
-Pallas transfer pipeline of ``ops/mpm_pallas.py``).
+Pallas transfer pipeline of ``ops/mpm_pallas.py``), and with
+``kernel="flip"`` on its naive path, the one JAX path that honours it.
 
 One ``mpm_step`` is
 
@@ -14,7 +15,10 @@ One ``mpm_step`` is
   advection with solid bounce (restitution 0, ``cround_out``)
 
 with every field a dense f32 tensor on one device, grid fields
-channel-major.  The ``hybrid`` operator solves with the exact corotated
+channel-major.  The transfer spline (``kernel``) chooses the (27, P)
+table of the mass and momentum P2G, the Jacobi stiffness P2G and the
+FLIP delta; the density gather and gradW (K1 fg, K2 gw) always read the
+MPM spline's, as in the JAX package.  The ``hybrid`` operator solves with the exact corotated
 Hessian under an iteration cap and, where that stops short of the
 tolerance, solves again with its SPD Gauss-Newton part: a host branch on
 the same test as the JAX package's ``lax.cond``.
@@ -58,8 +62,12 @@ class MpmParams:
     ``1 + beta dt^2 precond_gamma (2 mu0 + lam0) rho / m``, with ``rho``
     the P2G of ``volume * mu / mu0`` (one more K1 launch a frame).
 
-    ``kernel`` must be "mpm": the JAX package's kernel path (its Pallas
-    transfers) always uses the MPM spline, and so does the port.
+    ``kernel`` is the transfer spline, "mpm" or "flip".  With "flip" the
+    mass and momentum P2G, the Jacobi stiffness P2G and the FLIP delta
+    read a second table, the FLIP spline's, under the JAX naive path's
+    target masks (``mpm_kernels.p2g_flip_spline``); the density gather
+    and gradW keep the MPM spline.  JAX's fast and Pallas schedules
+    ignore the field; the port honours it on every schedule.
     ``fast_transfer``, ``pallas_transfer``, ``pallas_interpret`` and
     ``sort_particles`` choose among the JAX package's XLA and Pallas
     schedules; the port accepts and keeps them, but they change nothing on
@@ -100,10 +108,9 @@ class MpmParams:
         if self.precond not in ("none", "jacobi"):
             raise ValueError(f"precond {self.precond!r}: expected 'none' or "
                              "'jacobi'")
-        if self.kernel != "mpm":
-            raise ValueError(f"kernel {self.kernel!r}: the MPM frame uses "
-                             "the MPM spline only, as the JAX package's "
-                             "kernel path does")
+        if self.kernel not in ("mpm", "flip"):
+            raise ValueError(f"kernel {self.kernel!r}: expected 'mpm' or "
+                             "'flip'")
 
     @property
     def mu0(self) -> float:
@@ -151,7 +158,16 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
     # one chunk plan for the frame's K1 and K1 fg launches (the card's only)
     plan = (tk.chunk_plan(cell_start, pos.shape[0]) if cell_start.is_cuda
             else None)
-    mass, mom = mk.p2g_mpm(w27t, vel, cell_start, solid, B, plan)
+    if params.kernel == "flip":
+        # the FLIP spline's table: the mass, momentum and stiffness P2G and
+        # the FLIP delta read it, with the JAX naive path's masks
+        wt = tk.masked_weights_cm(pos, B, "flip")
+        mass, mom = mk.p2g_flip_spline(wt, vel, cell_start, solid, B, plan)
+        momentum = mk.momentum_flip_spline
+    else:
+        wt = w27t
+        mass, mom = mk.p2g_mpm(wt, vel, cell_start, solid, B, plan)
+        momentum = lambda *args: mk.p2g_mpm(*args)[1]
     heavy = mass > thr
     velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
                        0.0)
@@ -187,8 +203,8 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
         # the stiffness density rides in the first velocity channel of K1
         s = volume * (mu / params.mu0)
         zero = torch.zeros_like(s)
-        _, mom_d = mk.p2g_mpm(w27t, torch.stack([s, zero, zero], dim=-1),
-                              cell_start, solid, B, plan)
+        mom_d = momentum(wt, torch.stack([s, zero, zero], dim=-1),
+                         cell_start, solid, B, plan)
         dscale = params.precond_gamma * (2.0 * params.mu0 + params.lam0)
         diag = 1.0 + beta_dt2 * dscale * mom_d[0] / mass_safe[0]
         precond = lambda r: torch.where(active[None], r / diag[None], r)
@@ -231,7 +247,7 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
 
     # FLIP advection
     dvc = cell_center_velocity_cm(velg) - cell_center_velocity_cm(velb)
-    vel = vel + mk.flip_delta(w27t, flat, dvc, B, params.wall)
+    vel = vel + mk.flip_delta(wt, flat, dvc, B, params.wall)
     speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
     max_speed = torch.max(speed)
     max_dt = torch.tensor(params.max_dt, **f32)

@@ -7,12 +7,18 @@ the FLIP frame), and the frame's stencil is computed once: the MPM weights
 ``w27t`` (27, P) and the weight gradients ``gradw`` (81, P).  The TPU
 pipeline's haloed ids, packed 128-row columns, window-local ids and chunked
 pack were workarounds for its memory system and have no counterpart here.
+With ``MpmParams(kernel="flip")`` the frame builds a second table ``wt``,
+the FLIP spline's (``masked_weights_cm(pos, bound, "flip")``), for the
+transfers that the JAX naive path runs on ``params.kernel``:
 
-  mass and momentum P2G         K1 (``p2g_scatter``) on ``w27t``
-  frame-0 density               K2 (``g2p_gather``) of the mass
+  mass and momentum P2G         K1 (``p2g_scatter``) on ``w27t``; "flip":
+                                two K1 on ``wt`` (``p2g_flip_spline``)
+  Jacobi stiffness P2G          K1 on ``w27t``; "flip": K1 on ``wt``
+  frame-0 density               K2 (``g2p_gather``) of the mass on ``w27t``
   velocity gradient, Hessian    K2 gw (``g2p_gather_gw``) on ``gradw``
   grid force                    K1 fg (``p2g_scatter_force``) on ``gradw``
-  FLIP delta                    ``transfer_kernels.g2p`` on ``w27t``
+  FLIP delta                    ``transfer_kernels.g2p`` (K2) on ``w27t``;
+                                "flip": on ``wt``
 
 Grid fields are channel-major, (3, N, N, N).
 """
@@ -79,6 +85,28 @@ def p2g_mpm(w27t, vel_s, cell_start, solid, bound: int, plan=None):
     return accn[0], accn[1:4]
 
 
+def momentum_flip_spline(wt, vel_s, cell_start, solid, bound: int,
+                         plan=None):
+    """Channel-major momentum (3,N,N,N) by K1 on the FLIP spline's table
+    ``wt``, masked as the JAX naive path's ``transfer.p2g_velocity``: the
+    non-solid cells within ``|c| <= bound - 2``."""
+    accn = tk.p2g_scatter(wt, vel_s, cell_start, 2 * bound + 1, plan)
+    return tk.p2g_masks(accn, solid, bound)[1]
+
+
+def p2g_flip_spline(wt, vel_s, cell_start, solid, bound: int, plan=None):
+    """Mass (N,N,N) and momentum (3,N,N,N) on the FLIP spline's table
+    ``wt`` with the JAX naive path's masks, two K1 launches: the momentum
+    as ``momentum_flip_spline``, the mass (``transfer.p2g_mass``) the sum
+    of the positive weights over every non-solid cell.  The spline's outer
+    piece can round to a tiny negative (down to -1.8e-7), which the mass
+    drops and the momentum keeps."""
+    mom = momentum_flip_spline(wt, vel_s, cell_start, solid, bound, plan)
+    acc = tk.p2g_scatter(torch.where(wt > 0, wt, 0.0), vel_s, cell_start,
+                         2 * bound + 1, plan)
+    return torch.where(~solid, acc[0], 0.0), mom
+
+
 def density_fields(mass, solid):
     """K2's (4, ...) fields for the density gather: the mass masked to the
     non-solid cells, two zero channels and the non-solid mask, as the TPU
@@ -110,7 +138,8 @@ def gradv_gather(velg, gradw, flat_s, solid):
 
 def flip_delta(w27t, flat_s, dvc, bound: int, wall: int):
     """FLIP velocity delta: the FLIP gather of the cell-centred velocity
-    change ``dvc`` (3,N,N,N) with the MPM weights, normalised over the
+    change ``dvc`` (3,N,N,N) with the weights ``w27t`` (the MPM spline's,
+    or with ``kernel="flip"`` the FLIP spline's), normalised over the
     cells within ``|c| <= wall``.  (P, 3)."""
     return tk.g2p(w27t, flat_s, dvc, bound, wall)
 

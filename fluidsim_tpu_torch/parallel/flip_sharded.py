@@ -364,7 +364,7 @@ def sharded_flip_step(params: FlipParams, slab: Slab, cap: int, mig_cap: int,
     pos, vel, alive, flat = sort_slab(slab, state.pos, state.vel, state.alive)
 
     # P2G on the transfer slab: K1 over the alive prefix, halos folded back
-    w27t = tk.masked_weights_cm(pos, b, "flip")
+    w27t = tk.masked_weights_cm(pos, b, params.kernel)
     cell_start = tk.cell_starts(flat, n, slab.rows)
     count = cell_start[-1:]                  # the alive prefix, on the device
     acc = slab.fold(tk.p2g_scatter(w27t, vel, cell_start, n), W, dim=1)
@@ -501,10 +501,13 @@ class ShardedFlipSim(LostParticleMonitor):
     backend must match it (``resolve_device``).
 
     ``params.mode`` is "flip" or "pic" (which, as in the JAX sharded step,
-    differs from "flip" only in the bounce's restitution) and the
-    preconditioner "chebyshev" or "jacobi"; the JAX schedule fields
+    differs from "flip" only in the bounce's restitution), the
+    preconditioner "chebyshev" or "jacobi", and ``params.kernel`` the
+    transfer spline of the slab's P2G (K1) and delta gather (K2), "flip"
+    or "mpm", as in ``FlipSim``.  The JAX schedule fields
     (``pallas_transfer``, ``pallas_interpret``, ``fast_transfer``) are
-    accepted and change nothing."""
+    accepted and change nothing; of the JAX sharded step's paths only its
+    XLA one (``fast_transfer=False``) honours ``kernel``."""
 
     def __init__(self, scene: Scene | str = "water_cube_drop",
                  params: FlipParams | None = None, group=None, seed: int = 0,
@@ -521,9 +524,9 @@ class ShardedFlipSim(LostParticleMonitor):
         if params.preconditioner not in ("chebyshev", "jacobi"):
             raise ValueError(f"preconditioner {params.preconditioner!r}: the "
                              "sharded solve takes 'chebyshev' or 'jacobi'")
-        if params.sort_method != "full" or params.kernel != "flip":
-            raise ValueError("the sharded FLIP sorts fully and transfers with "
-                             "the FLIP spline")
+        if params.sort_method != "full":
+            raise ValueError(f"sort_method {params.sort_method!r}: the "
+                             "sharded FLIP sorts fully")
         device = resolve_device(device, group)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -276,7 +276,9 @@ class ShardedMpmSim(LostParticleMonitor):
     with the same arguments, as ``ShardedFlipSim``.  The scene's default
     parameters detect a walls-only solid and resolve ``hessian="auto"``
     as ``MpmSim`` does; the JAX schedule fields are accepted and change
-    nothing."""
+    nothing.  ``params.kernel`` must be "mpm": no JAX sharded MPM path
+    transfers on the FLIP spline (its slab step always takes the MPM
+    weights), so there is no reference to hold that frame to."""
 
     def __init__(self, scene: Scene | str = "mpm_cone",
                  params: MpmParams | None = None, group=None, seed: int = 0,
@@ -295,6 +297,9 @@ class ShardedMpmSim(LostParticleMonitor):
                 and np.array_equal(np.asarray(scene.solid),
                                    scene.spec.wall_mask())):
             params = dataclasses.replace(params, walls_only_solid=True)
+        if params.kernel != "mpm":
+            raise ValueError(f"kernel {params.kernel!r}: the sharded MPM "
+                             "transfers on the MPM spline only")
         params = dataclasses.replace(params, hessian=params.operator)
         device = resolve_device(device, group)
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -93,12 +93,25 @@ def test_sharded_flip_matches_jax(world, tmp_path):
     assert (port["state_pos"][dead] == SENTINEL).all()
 
 
-def test_world_one_matches_flip_sim():
-    """One rank, no process group: the slab is the box with its halos."""
-    single = FlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+def _params(scene, **kw):
+    from fluidsim_tpu_torch import FlipParams
+
+    return FlipParams(bound=BOUND, wall=scene.spec.wall, dx=scene.spec.dx,
+                      gravity=tuple(scene.gravity), **kw)
+
+
+@pytest.mark.parametrize("kernel", ["flip", "mpm"])
+def test_world_one_matches_flip_sim(kernel):
+    """One rank, no process group: the slab is the box with its halos, on
+    either transfer spline."""
+    from fluidsim_tpu_torch import get_scene
+
+    scene = get_scene("water_cube_drop", bound=BOUND, density=DENSITY)
+    single = FlipSim(scene, params=_params(scene, kernel=kernel),
                      device="cpu")
-    sim = ShardedFlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
+    sim = ShardedFlipSim(scene, params=_params(scene, kernel=kernel),
                          device="cpu")
+    assert sim.params.kernel == single.params.kernel == kernel
     assert sim.num_particles == single.num_particles
     assert sim.slab.rows == 2 * BOUND + 1 + 4
     for f in range(FRAMES):
@@ -117,6 +130,52 @@ def test_world_one_matches_flip_sim():
         assert torch.equal(getattr(sim.state, field)[:p],
                            getattr(single.state, field)), field
     assert torch.equal(sim.state.pressure, single.state.pressure)
+
+
+def test_world_one_mpm_spline_matches_jax_xla_path():
+    """``kernel="mpm"`` at world size 1, in this process, against the JAX
+    sharded step on one CPU device on its XLA path (``fast_transfer=False,
+    pallas_transfer=False``), the one JAX sharded path that honours
+    ``kernel``.  Its occupancy keeps the positive weights only (the port's,
+    as its fused and Pallas paths, every weight), so fluid cells may differ
+    where both occupancies are below 1e-6 in magnitude; its unstable slab
+    sort may order a cell's particles otherwise, so the positions compare
+    as sets, within 2e-3.  Measured: kinetic energy 173.70, 10,790.08,
+    16,834.13 against 173.70, 10,790.81, 16,835.05 (6.8e-5 and 5.5e-5
+    relative at frames 1-2; the port's ``FlipSim(kernel="mpm")`` gives
+    10,790.08 and 16,834.13 too), outer passes 1, 7, 2 and CG iterations
+    0, 60, 18 on both sides, 239 fluid cells against 243 at frame 1 (the 4
+    apart of occupancy below 1e-6), positions within 1.5e-3 after frame
+    2."""
+    scene = jget_scene("water_cube_drop", bound=BOUND, density=DENSITY)
+    jparams = jflip.FlipParams(bound=BOUND, wall=scene.spec.wall,
+                               fast_transfer=False, pallas_transfer=False,
+                               kernel="mpm")
+    jsim = jsharded.ShardedFlipSim(
+        scene, params=jparams, mesh=Mesh(np.asarray(jax.devices()[:1]),
+                                         ("x",)))
+    sim = ShardedFlipSim(device="cpu", params=_params(scene, kernel="mpm"),
+                         **_SCENE)
+    p = sim.num_particles
+    np.testing.assert_array_equal(sim.state.pos[:p].numpy(),
+                                  np.asarray(jsim.state.pos)[:p])
+    solid = scene.solid
+    for f in range(FRAMES):
+        m, j = sim.step(), jsim.step()
+        np.testing.assert_allclose(float(m["kinetic_energy"]),
+                                   float(j["kinetic_energy"]), rtol=1e-4,
+                                   err_msg=f"frame {f}")
+        for key in ("outer_iters", "cg_iters", "num_alive"):
+            assert m[key] == int(j[key]), (key, f)
+        assert int(m["lost"]) == 0 == int(j["lost"])
+        to, jo = m["occupancy"].numpy(), np.asarray(j["occupancy"])
+        apart = ((to > 0) != (jo > 0)) & ~solid
+        assert (np.abs(to[apart]) < 1e-6).all(), f
+        assert (np.abs(jo[apart]) < 1e-6).all(), f
+    jst = _jax_state(jsim)
+    np.testing.assert_allclose(
+        _alive_sorted(sim.state.pos.numpy(), sim.state.alive.numpy()),
+        _alive_sorted(jst["pos"], jst["alive"]), atol=2e-3)
 
 
 def test_migration_across_four_ranks_matches_one_rank(tmp_path):

@@ -162,3 +162,13 @@ def test_world_one_matches_mpm_sim():
     for field in ("pos", "vel", "FE", "FP", "volume"):
         assert torch.equal(getattr(sim.state, field)[:p],
                            getattr(single.state, field)), field
+
+
+def test_sharded_mpm_refuses_the_flip_spline():
+    """No JAX sharded MPM path transfers on the FLIP spline, so the port
+    has no reference for that frame and refuses it."""
+    from fluidsim_tpu_torch import MpmParams
+
+    with pytest.raises(ValueError, match="kernel"):
+        ShardedMpmSim("mpm_cone", density=5.0, device="cpu",
+                      params=MpmParams(kernel="flip"))
