@@ -2,8 +2,9 @@
 """Drive the PyTorch port's FLIP, APIC, MPM and bucket-sort paths, the
 materialised G2P, the span and unhaloed shift entry points, the
 row-layout transfers, config-driven runs (multigrid, the clean
-projection, MPM Jacobi), the slab-sharded FLIP and MPM and the MPM frame
-on the FLIP transfer spline on one NVIDIA GPU and check them.
+projection, MPM Jacobi), the slab-sharded FLIP and MPM, the MPM frame
+on the FLIP transfer spline and the reference-scale validation runs on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py   # water_cube_drop at 129^3 (~1.99M particles),
                             # mpm_cone at 127^3 (473,798 particles)
@@ -252,12 +253,38 @@ size 1 on NCCL, ``water_cube_drop`` at 129^3, 3 frames against
 ``FlipSim(kernel="mpm")`` with phase 32's checks and launch counts, the
 state bit for bit ``FlipSim``'s.
 
+Phase 37, run after phase 36 and before phase 30: the validation runs
+(``fluidsim_tpu_torch/validation``), each through its module's functions
+with its oracle, the launches of its frames counted from 0 and checked.
+(a) ``soak_500`` for 60 frames at 121^3 (689,210 compat-seeded
+particles) against ``docs/ke_trace_500frames.json``, and frames 0-39 of
+that run against the C++ record ``docs/parity_full_121cube.json`` as
+``ke_parity flip`` holds them (free fall < 5%, median < 25%, correlation
+> 0.99).  (b) ``soak_mpm`` for 60 frames of the compat-seeded 31^3 cone
+against ``docs/mpm_trace_500frames.json``; ``ke_parity mpm`` for 60
+frames (median < 5e-4, max < 5e-3, dt within 1e-4 of
+``docs/mpm_parity_cone.json``), and again on the CPU: the card's
+energies within 5e-3 of the CPU's, the CPU's within the same gates;
+``soak_mpm_scaled`` at 127^3 for 20
+frames (finite, confined, det FP > 0).  (c) ``validate_config5`` at
+257^3 (9,826,000 particles) for 3 frames in a process group of this
+process alone: ``ShardedFlipSim`` against ``FlipSim`` frame by frame,
+none lost, the state bit for bit.  (d) ``validate_mpm_shape`` at 255^3
+(3,939,805 particles) for 2 frames, the same for ``ShardedMpmSim``
+against ``MpmSim``.  (e) On (c)'s ``FlipSim`` after its frames K1 and K2
+(its particles sorted, random velocities) and K3 and K4 (its last
+frame's fields), on (d)'s ``MpmSim`` K1 fg and K2 gw, each against its
+plain version as in phase 3 and bit for bit against its order function
+or plain version, timed with its bound: entries ``<kernel>_257`` and
+``<kernel>_255`` with the launches of (c) and (d).
+
 The line before the last is a JSON object with one entry per kernel (and
 one per slab shape of phase 31, ``<kernel>_slab<rows>``, with the
 launches of the sharded path at world size 1 and the slab in ``slab``:
 "rank 0 of 1" is the shape that path launches, "rank 1 of 4" one rank's
 of a 4-way run, which ``python -m fluidsim_tpu_torch.parallel.dryrun
---full`` drives on four cards); the last line is
+--full`` drives on four cards; and one per shape of phase 37e, with its
+path's launches and the shape in ``shape``); the last line is
 ``{"ok": true, "device": {...}}``.  An entry's ``ms`` is its
 wrapper's time, except for K9a and K9b: theirs is the time of their kernels
 alone (``*_launch``), without the wrapper's wait on the host for the order
@@ -267,7 +294,6 @@ its wrapper's copy of the end ids to the host and its wait on it.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
@@ -771,14 +797,45 @@ def _card_against_cpu(mode, bound, make_sim, dev):
           f"particles, 3 frames, {msg}")
 
 
+def _cone_inputs(sim, label, torch):
+    """What phase 10's kernels read on the sorted state of the MPM sim
+    ``sim``: (sorted velocities, cell ids, the (27, P) weights, the (81, P)
+    gradW, cell starts, the mass grid, the grid velocity, the force
+    scatter's per-particle (P, 9) matrices -V P0 FE^T)."""
+    from fluidsim_tpu_torch.core.splines import cround
+    from fluidsim_tpu_torch.ops import mpm_kernels as mk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.ops.svd3 import (det3, hardening, mm3,
+                                             piola_linearized)
+
+    prm, st = sim.params, sim.state
+    B, n, P = prm.bound, 2 * prm.bound + 1, sim.num_particles
+    pos_s, vel_s, fe, fp, vol, flat = mk.sort_mpm(st.pos, st.vel, st.FE,
+                                                  st.FP, st.volume, B)
+    w27t, gradw = mk.mpm_stencil(pos_s, B)
+    cs = tk.cell_starts(flat, n)
+    mass, mom = mk.p2g_mpm(w27t, vel_s, cs, sim.solid, B)
+    heavy = mass > prm.mass_threshold
+    velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
+                       0.0)
+    mu, lam = hardening(prm.mu0, prm.lam0, prm.hardening_eps, det3(fp),
+                        exponent_cap=prm.hardening_max)
+    p0, _, _ = piola_linearized(fe, mu, lam)
+    valid = torch.all(torch.abs(cround(pos_s)) <= B, dim=-1)
+    m9 = (torch.where(valid, -vol, 0.0)[:, None]
+          * mm3(p0, fe.transpose(-1, -2)).reshape(P, 9)).contiguous()
+    print(f"{label}: {int(heavy.sum())} cells above the mass threshold, "
+          f"max|M| {float(m9.abs().max()):.4g}, "
+          f"max|velg| {float(velg.abs().max()):.4g}")
+    return vel_s, flat, w27t, gradw, cs, mass, velg, m9
+
+
 def _mpm_solves(m, params):
     """The number of CG solves of an MPM frame, and whether the solve its
     velocity came from converged before its cap."""
-    if params.hessian == "hybrid" and m["spd_fallback"] == 0:
-        return 1, m["cg_iters"] < params.cg_hybrid_cap
-    spd_iters = m["cg_iters"] - (params.cg_hybrid_cap
-                                 if params.hessian == "hybrid" else 0)
-    return 1 + m["spd_fallback"], spd_iters < params.cg_maxiter
+    from fluidsim_tpu_torch.models.mpm import frame_solves
+
+    return frame_solves(params, m["cg_iters"], m["spd_fallback"])
 
 
 def _run_mpm_frames(sim, counted, torch, label="mpm"):
@@ -1943,37 +2000,16 @@ def _surface_trace_phase(dev, counted, torch, np, tmp, on_ms):
 SHARD_SMALL = dict(bound=8, density=3.0)   # phase 34's FLIP scene
 
 
-@contextlib.contextmanager
-def _one_rank_group():
-    """A process group of this process alone: NCCL on a ``file://`` store
-    in a scratch directory of the checkout, every collective limited to
-    300 s; destroyed on leaving."""
-    import datetime
-    import tempfile
-
-    import torch.distributed as dist
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory(dir=root,
-                                     prefix="_runtime_smoke_group_") as tmp:
-        dist.init_process_group(
-            "nccl", init_method="file://" + os.path.join(tmp, "store"),
-            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
-        try:
-            yield
-        finally:
-            dist.destroy_process_group()
-
-
-def _slab_kernels(where, path, results, cases, torch):
+def _slab_kernels(where, path, results, cases, torch, field="slab"):
     """``_compare`` each case (key, label, kernel, plain, tolerance,
     inputs, ops, order function or None[, bytes read past the inputs]) of
-    the sharded path ``path`` and hold it bit for bit to its order
-    function, or with None to its plain version."""
+    the path ``path`` (by default a sharded one's slab ``where``) and hold
+    it bit for bit to its order function, or with None to its plain
+    version."""
     for key, label, kernel, plain, tol, inputs, ops, order, *extra in cases:
         results[key] = _compare(f"{label} ({where})", kernel, plain, tol,
                                 inputs, ops, torch, extra_bytes=sum(extra))
-        results[key].update(slab=where, path=path)
+        results[key].update({field: where, "path": path})
         _require_bitwise(f"{label} ({where}): against its "
                          f"{'order function' if order else 'plain version'}",
                          kernel(), (order or plain)(), torch)
@@ -2214,6 +2250,7 @@ def _cone_slab_cases(scene, rank, size, rng, g, dev, torch, np):
 def _slab_phase(dev, torch, np, solve_fields):
     """Phase 31 (see the module docstring).  Returns the kernels' numbers
     by ``<kernel>_slab<rows>``."""
+    from fluidsim_tpu_torch.parallel import dryrun
     from fluidsim_tpu_torch.scenes import get_scene
 
     t_phase = time.perf_counter()
@@ -2222,7 +2259,7 @@ def _slab_phase(dev, torch, np, solve_fields):
     g = torch.Generator(device=dev).manual_seed(SEED)
     flip_scene = get_scene("water_cube_drop", bound=BOUND, density=DENSITY)
     cone = get_scene("mpm_cone", bound=MPM_BOUND)
-    with _one_rank_group():
+    with dryrun.process_group(dev):
         for size in (1, SLAB_WORLD):
             rank = 0 if size == 1 else SLAB_RANK
             where = f"rank {rank} of {size}"
@@ -2251,10 +2288,11 @@ def _sharded_flip_phase(dev, counted, torch, flip_ms):
     at 129^3, 2 warm-up and ``FRAMES`` timed frames, against ``FlipSim`` on
     the card frame by frame.  Returns the timed frames' launches."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.parallel import dryrun
     from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
 
     t_phase = time.perf_counter()
-    with _one_rank_group():
+    with dryrun.process_group(dev):
         ref = _flip_sim(dev)
         sim = ShardedFlipSim("water_cube_drop", bound=BOUND, density=DENSITY,
                              seed=SEED)
@@ -2329,11 +2367,12 @@ def _sharded_mpm_phase(dev, counted, torch, mpm_ms):
     ``MpmSim`` on the card.  Returns the timed frames' launches."""
     from fluidsim_tpu_torch.models.mpm import MpmSim
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.parallel import dryrun
     from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
 
     t_phase = time.perf_counter()
     frames = MPM_SHARD_FRAMES
-    with _one_rank_group():
+    with dryrun.process_group(dev):
         ref = MpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED, device=dev)
         sim = ShardedMpmSim("mpm_cone", bound=MPM_BOUND, seed=SEED)
         p = sim.num_particles
@@ -2404,10 +2443,11 @@ def _sharded_card_against_cpu(dev, torch):
     the CPU (a gloo group of the same process), as phases 9 and 13."""
     import torch.distributed as dist
 
+    from fluidsim_tpu_torch.parallel import dryrun
     from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
     from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
 
-    with _one_rank_group():
+    with dryrun.process_group(dev):
         gloo = dist.new_group([0], backend="gloo")
         for kind in ("flip", "mpm"):
             if kind == "flip":
@@ -2778,6 +2818,7 @@ def _sharded_flip_mpm_spline(dev, counted, torch):
     launches."""
     from fluidsim_tpu_torch.models.flip import FlipParams, FlipSim
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.parallel import dryrun
     from fluidsim_tpu_torch.parallel.flip_sharded import ShardedFlipSim
     from fluidsim_tpu_torch.scenes import get_scene
 
@@ -2785,7 +2826,7 @@ def _sharded_flip_mpm_spline(dev, counted, torch):
     scene = get_scene("water_cube_drop", bound=BOUND, density=DENSITY)
     params = FlipParams(bound=BOUND, wall=scene.spec.wall, dx=scene.spec.dx,
                         gravity=tuple(scene.gravity), kernel="mpm")
-    with _one_rank_group():
+    with dryrun.process_group(dev):
         ref = FlipSim(scene, params=params, seed=SEED, device=dev)
         sim = ShardedFlipSim(scene, params=params, seed=SEED)
         p = sim.num_particles
@@ -2876,6 +2917,266 @@ def _spline_phase(dev, counted, torch, mpm_particles, mpm_ms, mpm_cg,
             {"mpm_flip_spline": launches, "sharded_flip_mpm_spline": shard})
 
 
+# ---- phase 37: the validation runs (after 36, before phase 30) -----------
+
+VALID_FRAMES = 60          # 37a's FLIP soak and 37b's MPM runs
+PARITY_FRAMES = 40         # 37a's frames held to the C++ record
+CONFIG5_FRAMES = 3         # 37c
+MPM_SHAPE_FRAMES = 2       # 37d
+SCALED_BOUND, SCALED_FRAMES = 63, 20   # soak_mpm_scaled's run at 127^3
+
+
+def _quiet(figures):
+    """A validation run's figures without its per-frame lists."""
+    return {k: v for k, v in figures.items() if not isinstance(v, list)
+            or k == "failures"}
+
+
+def _col(rows, key):
+    return [r[key] for r in rows]
+
+
+def _require_pass(label, figures):
+    print(f"{label}: {json.dumps(_quiet(figures))}")
+    if not figures["pass"]:
+        raise AssertionError(f"{label}: the oracle failed")
+
+
+def _path_launches(label, counted, want):
+    """The launches since the counts were set to 0, against ``want``
+    (kernel -> count, or None where any positive count will do; every
+    other kernel 0)."""
+    got = {fn.__name__: fn.launches for fn in counted}
+    print(f"{label}: launches {json.dumps(got)}")
+    bad = [k for k, v in got.items()
+           if (v != want[k] if want.get(k) is not None
+               else (v > 0) != (k in want))]
+    if bad:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def _flip_want(params, outer, cg):
+    """A FLIP path's launches from its frames' outer passes and CG
+    iterations (as phase 4 counts them)."""
+    k3, k4 = _stencil_launches(params)
+    solves = sum(outer) + sum(cg)
+    frames = len(outer)
+    return {"p2g_scatter": frames, "chunk_fill": frames,
+            "g2p_gather": frames, "apply_laplacian": k3 * solves,
+            "cheb_steps": k4 * solves}
+
+
+def _mpm_want(params, cg, spd):
+    """An MPM path's launches from its frames' CG iterations and SPD
+    fallbacks (as phase 11 counts them)."""
+    applies = sum(c + _mpm_solves({"cg_iters": c, "spd_fallback": s},
+                                  params)[0] for c, s in zip(cg, spd))
+    frames = len(cg)
+    return {"p2g_scatter": frames, "chunk_fill": frames,
+            "g2p_gather": 2 * frames, "p2g_scatter_force": frames + applies,
+            "g2p_gather_gw": frames + applies}
+
+
+def _mpm_path_want():
+    return {k: None for k in ("p2g_scatter", "chunk_fill", "g2p_gather",
+                              "p2g_scatter_force", "g2p_gather_gw")}
+
+
+def _kernels_257(sim, last, torch):
+    """Phase 37e on ``validate_config5``'s ``FlipSim`` after its frames: K1
+    and K2 on its particles sorted with random velocities, K3 and K4 on its
+    last frame's fields, as phase 3 holds them; entries ``<kernel>_257``."""
+    import numpy as np
+
+    from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
+    from fluidsim_tpu_torch.ops import pressure as pr
+    from fluidsim_tpu_torch.ops import stencil_kernels as sk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
+
+    B, wall = sim.params.bound, sim.params.wall
+    n, P = 2 * B + 1, sim.num_particles
+    where = f"{n}^3, {P} particles"
+    dev = sim.state.pos.device
+    vel = torch.as_tensor(np.random.default_rng(SEED).normal(
+        scale=3.0, size=(P, 3)).astype(np.float32), device=dev)
+    pos_s, vel_s, flat = tk.sort_by_cell(sim.state.pos, vel, B)
+    del vel
+    w27t = tk.masked_weights_cm(pos_s, B)
+    cs = tk.cell_starts(flat, n)
+    plan = tk.chunk_plan(cs, P)
+    acc = tk.p2g_scatter(w27t, vel_s, cs, n, plan)
+    fm = tk.gather_fields(cell_center_velocity_cm(
+        normalize_velocity_cm(acc[0], acc[1:4])), B, wall)
+    del acc
+    results = {}
+    _slab_kernels(where, "validate_config5", results, [
+        ("p2g_scatter_257", "K1 p2g_scatter",
+         lambda: tk.p2g_scatter(w27t, vel_s, cs, n, plan),
+         lambda: tk.p2g_scatter_plain(w27t, vel_s, cs, n), 1e-5,
+         (w27t, vel_s, cs), 27 * 7 * P,
+         lambda: tk.p2g_scatter_chunked(w27t, vel_s, plan, n)),
+        ("g2p_gather_257", "K2 g2p_gather",
+         lambda: tk.g2p_gather(fm, w27t, flat),
+         lambda: tk.g2p_gather_plain(fm, w27t, flat), 1e-5, (w27t, flat),
+         27 * 8 * P, None, _field_bytes(flat, n, n, 4))], torch, "shape")
+    results["p2g_scatter_257"].update(_k1_order_checks(
+        f"K1, {where}", lambda c, pl: tk.p2g_scatter(w27t, vel_s, c, n, pl),
+        lambda pl: tk.p2g_scatter_chunked(w27t, vel_s, pl, n), cs, n, P,
+        torch))
+    results["g2p_gather_257"]["staged_tiles"] = _k2_staged(
+        where, fm, w27t, flat, None, torch)
+    del pos_s, vel_s, flat, w27t, cs, plan, fm
+    fluid = (last["occupancy"] > 0) & ~sim.solid
+    dt = last["dt_used"]
+    adiag = pr.laplacian_diag(fluid, sim.solid, dt, 1.0, 1.0)
+    z = torch.where(fluid, sim.state.pressure, 0.0)
+    fields = dict(z=z, adiag=adiag, d=0.5 * z, scale=float(dt),
+                  r=sk.apply_laplacian_plain(z, adiag, float(dt)))
+    print(f"{where}: last frame's {int(fluid.sum())} fluid cells, dt "
+          f"{float(dt):.6g}, max|p| {float(z.abs().max()):.4g}")
+    for key, entry in _stencil_cases(f"the {n}^3 frame", fields, None,
+                                     torch).items():
+        entry.update(shape=where, path="validate_config5")
+        results[f"{key}_257"] = entry
+    return results
+
+
+def _kernels_255(sim, torch):
+    """Phase 37e on ``validate_mpm_shape``'s ``MpmSim`` after its frames:
+    K1 fg and K2 gw as phase 10 runs them; entries ``<kernel>_255``."""
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+
+    n, P = 2 * sim.params.bound + 1, sim.num_particles
+    where = f"{n}^3, {P} particles"
+    vel_s, flat, w27t, gradw, cs, mass, velg, m9 = _cone_inputs(
+        sim, where, torch)
+    del vel_s, w27t, mass
+    plan = tk.chunk_plan(cs, P)
+    fm = torch.where(~sim.solid[None], velg, 0.0)
+    results = {}
+    _slab_kernels(where, "validate_mpm_shape", results, [
+        ("p2g_scatter_force_255", "K1 fg p2g_scatter_force",
+         lambda: tk.p2g_scatter_force(gradw, m9, cs, n, plan),
+         lambda: tk.p2g_scatter_force_plain(gradw, m9, cs, n), 1e-5,
+         (gradw, m9, cs), 27 * 18 * P,
+         lambda: tk.p2g_scatter_force_chunked(gradw, m9, plan, n)),
+        ("g2p_gather_gw_255", "K2 gw g2p_gather_gw",
+         lambda: tk.g2p_gather_gw(fm, gradw, flat),
+         lambda: tk.g2p_gather_gw_plain(fm, gradw, flat), 1e-5,
+         (gradw, flat), 27 * 18 * P,
+         lambda: tk.g2p_gather_gw_ordered(fm, gradw, flat),
+         _field_bytes(flat, n, n, 3))], torch, "shape")
+    results["p2g_scatter_force_255"].update(_k1_order_checks(
+        f"K1 fg, {where}",
+        lambda c, pl: tk.p2g_scatter_force(gradw, m9, c, n, pl),
+        lambda pl: tk.p2g_scatter_force_chunked(gradw, m9, pl, n), cs, n, P,
+        torch))
+    return results
+
+
+def _validation_phase(dev, counted, torch):
+    """Phase 37 (see the module docstring).  Returns (the kernels' entries
+    at 257^3 and 255^3, the launches of each validation path)."""
+    from fluidsim_tpu_torch.parallel import dryrun
+    import numpy as np
+
+    from fluidsim_tpu_torch.validation import (
+        ke_parity, soak_500, soak_mpm, soak_mpm_scaled, traces,
+        validate_config5, validate_mpm_shape)
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # ---- 37a. FLIP at 121^3: the soak's first frames, the C++ record ----
+    _zero_counts(counted)
+    sim, rows, secs = soak_500.run(VALID_FRAMES, device=dev)
+    launches["soak_500"] = _path_launches(
+        "soak_500", counted,
+        _flip_want(sim.params, _col(rows, "outer_iters"), _col(rows, "cg_iters")))
+    _require_pass(f"soak_500, {VALID_FRAMES} frames",
+                  soak_500.figures(sim, rows, secs, dev, recorded=True))
+    _require_pass(f"ke_parity flip, frames 0-{PARITY_FRAMES - 1} of that run",
+                  ke_parity.flip(PARITY_FRAMES, ke=_col(rows, "kinetic_energy"),
+                                 device=dev))
+    del sim, rows
+    # ---- 37b. MPM at 31^3, and the scaled soak's first frames at 127^3 --
+    _zero_counts(counted)
+    sim, rows, secs = soak_mpm.run(VALID_FRAMES, device=dev)
+    launches["soak_mpm"] = _path_launches(
+        "soak_mpm", counted,
+        _mpm_want(sim.params, _col(rows, "cg_iters"), _col(rows, "spd_fallback")))
+    _require_pass(f"soak_mpm, {VALID_FRAMES} frames",
+                  soak_mpm.figures(sim, rows, secs, dev, recorded=True))
+    _zero_counts(counted)
+    parity = ke_parity.mpm(VALID_FRAMES, device=dev)
+    launches["ke_parity_mpm"] = _path_launches("ke_parity mpm", counted,
+                                               _mpm_path_want())
+    _require_pass(f"ke_parity mpm, {VALID_FRAMES} frames", parity)
+    # the same run on the CPU: how far the card's frames part from it, and
+    # the CPU run's own distance from the C++ record
+    on_cpu = ke_parity.mpm(VALID_FRAMES, device="cpu")
+    apart = traces.rel_err(parity["ke"], on_cpu["ke"])
+    print("ke_parity mpm, card against CPU: " + json.dumps({
+        "rel_max": float(apart.max()), "rel_median": float(np.median(apart)),
+        "rel_every10": apart[::10].tolist(),
+        "cpu_parity": on_cpu["parity"], "cpu_frames_secs":
+        on_cpu["frames_secs"]}))
+    if not (on_cpu["pass"] and apart.max() < 5e-3):
+        raise AssertionError("ke_parity mpm: the card's frames part from the "
+                             "CPU's by more than the record's 5e-3 gate")
+    _zero_counts(counted)
+    sim, rows, seed_secs, cum = soak_mpm_scaled.run(SCALED_FRAMES,
+                                                    SCALED_BOUND, dev)
+    launches["soak_mpm_scaled"] = _path_launches(
+        "soak_mpm_scaled", counted,
+        _mpm_want(sim.params, [int(c) for c in _col(rows, "cg_iters")],
+                  [int(s) for s in _col(rows, "spd_fallback")]))
+    # too short for the trajectory test: held to finite, confined, det FP > 0
+    label = f"soak_mpm_scaled --bound {SCALED_BOUND}, {SCALED_FRAMES} frames"
+    scaled = soak_mpm_scaled.figures(sim, rows, seed_secs, cum, dev)
+    print(f"{label}: {json.dumps(_quiet(scaled))}")
+    if not scaled["sound"]:
+        raise AssertionError(f"{label}: not finite, not confined or det FP "
+                             "<= 0")
+    del sim, rows
+    results = {}
+    # ---- 37c. FLIP at 257^3 beside the sharded FLIP at world size 1 -----
+    with dryrun.process_group(dev):
+        _zero_counts(counted)
+        torch.cuda.reset_peak_memory_stats()
+        figs, sim, last = validate_config5.run(frames=CONFIG5_FRAMES,
+                                               device=dev, keep=True)
+        want = _flip_want(sim.params, figs["outer_iters_single"]
+                          + figs["outer_iters_sharded"],
+                          figs["cg_iters_single"] + figs["cg_iters_sharded"])
+        launches["validate_config5"] = _path_launches("validate_config5",
+                                                      counted, want)
+        _require_pass(f"validate_config5, world 1, {CONFIG5_FRAMES} frames",
+                      figs)
+        # ---- 37e. K1-K4 at 257^3 -----------------------------------------
+        results.update(_kernels_257(sim, last, torch))
+        del sim, last
+    # ---- 37d. MPM at 255^3 beside the sharded MPM at world size 1 -------
+    with dryrun.process_group(dev):
+        _zero_counts(counted)
+        torch.cuda.reset_peak_memory_stats()
+        figs, sim, _ = validate_mpm_shape.run(frames=MPM_SHAPE_FRAMES,
+                                              device=dev, keep=True)
+        launches["validate_mpm_shape"] = _path_launches(
+            "validate_mpm_shape", counted,
+            _mpm_want(sim.params, figs["cg_iters_single"]
+                      + figs["cg_iters_sharded"], figs["spd_fallback_single"]
+                      + figs["spd_fallback_sharded"]))
+        _require_pass(f"validate_mpm_shape, world 1, {MPM_SHAPE_FRAMES} "
+                      "frames", figs)
+        # ---- 37e. K1 fg and K2 gw at 255^3 -------------------------------
+        results.update(_kernels_255(sim, torch))
+        del sim
+    print(f"phase 37: {time.perf_counter() - t_phase:.2f} s")
+    return results, launches
+
+
 def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
                     mpm_particles, before_last):
     """Phases 27-30, in a scratch directory inside the checkout that is
@@ -2895,6 +3196,20 @@ def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
         before_last()
         _surface_trace_phase(dev, counted, torch, np, tmp, on_ms)
     return {"cli_fluid": fluid, "cli_mpm": mpm}
+
+
+def _shape_suffix(key: str) -> str:
+    """The shape a kernel's entry was taken at past its main path's:
+    ``_slab<rows>`` (phase 31) or ``_257`` / ``_255`` (phase 37), else
+    ""."""
+    if "_slab" in key:
+        return "_slab" + key.rsplit("_slab", 1)[1]
+    return next((s for s in ("_257", "_255") if key.endswith(s)), "")
+
+
+def _base_kernel(key: str) -> str:
+    suffix = _shape_suffix(key)
+    return key[:-len(suffix)] if suffix else key
 
 
 def main() -> int:
@@ -2920,8 +3235,7 @@ def main() -> int:
     from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
     from fluidsim_tpu_torch.core.gridspec import cell_center_velocity_cm
     from fluidsim_tpu_torch.core.splines import cround
-    from fluidsim_tpu_torch.ops.svd3 import (det3, hardening, mm3, mv3,
-                                             piola_linearized)
+    from fluidsim_tpu_torch.ops.svd3 import mv3
     from fluidsim_tpu_torch.utils import synthetic
 
     dev = torch.device("cuda:0")
@@ -3103,24 +3417,8 @@ def main() -> int:
     print(f"scene mpm_cone bound {B} grid {n}^3 particles {P} "
           f"operator {prm.hessian}")
     kes = [float(sim.step()["kinetic_energy"]) for _ in range(2)]
-    st = sim.state
-    pos_s, vel_s, fe, fp, vol, flat = mk.sort_mpm(st.pos, st.vel, st.FE,
-                                                  st.FP, st.volume, B)
-    w27t, gradw = mk.mpm_stencil(pos_s, B)
-    cs = tk.cell_starts(flat, n)
-    mass, mom = mk.p2g_mpm(w27t, vel_s, cs, sim.solid, B)
-    heavy = mass > prm.mass_threshold
-    velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
-                       0.0)
-    mu, lam = hardening(prm.mu0, prm.lam0, prm.hardening_eps, det3(fp),
-                        exponent_cap=prm.hardening_max)
-    p0, _, _ = piola_linearized(fe, mu, lam)
-    valid = torch.all(torch.abs(cround(pos_s)) <= B, dim=-1)
-    m9 = (torch.where(valid, -vol, 0.0)[:, None]
-          * mm3(p0, fe.transpose(-1, -2)).reshape(P, 9)).contiguous()
-    print(f"mpm frame 2 state: {int(heavy.sum())} cells above the mass "
-          f"threshold, max|M| {float(m9.abs().max()):.4g}, "
-          f"max|velg| {float(velg.abs().max()):.4g}")
+    vel_s, flat, w27t, gradw, cs, mass, velg, m9 = _cone_inputs(
+        sim, "mpm frame 2 state", torch)
     plan = tk.chunk_plan(cs, P)
     cone = _compare(
         "K1 p2g_scatter (cone state)",
@@ -3186,8 +3484,7 @@ def main() -> int:
     cone_k2["staged_tiles"] = _k2_staged("the cone state", fm_d, w27t, flat,
                                          None, torch)
     results["g2p_gather"]["mpm_cone"] = cone_k2
-    del pos_s, vel_s, fe, fp, vol, flat, w27t, gradw, cs, plan, cone
-    del mass, mom, heavy, velg, mu, lam, p0, valid, m9, fm, fm_d
+    del vel_s, flat, w27t, gradw, cs, plan, cone, mass, velg, m9, fm, fm_d
 
     # ---- 11. the MPM main path: the two frames above were its warm-up -----
     ke, mpm_launches, mpm_cg, mpm_ms, mpm_spd = _run_mpm_frames(
@@ -3322,6 +3619,10 @@ def main() -> int:
         sharded["spline"], spline_launches = _spline_phase(
             dev, counted, torch, mpm_particles, mpm_ms, mpm_cg, mpm_spd)
         sharded["launches"].update(spline_launches)
+        # ---- 37. the validation runs -----------------------------------
+        shapes, valid_launches = _validation_phase(dev, counted, torch)
+        sharded["results"].update(shapes)
+        sharded["launches"].update(valid_launches)
 
     runtime_launches = _runtime_phases(dev, counted, torch, flip_particles,
                                        flip_ms, mpm_particles, sharded_phases)
@@ -3370,21 +3671,20 @@ def main() -> int:
                                entry_launches),
         "gather_rows_cm": ("rows.cu", "pallas_transfer.py:225", row_launches),
         "scatter_rows_cm": ("rows.cu", "pallas_transfer.py:332", row_launches)}
-    # the slab shapes of phase 31, by the sharded path that runs each
-    shard_flip = sharded["launches"]["sharded_flip"]
-    shard_mpm = sharded["launches"]["sharded_mpm"]
-    for key in sorted(k for k in results if "_slab" in k):
-        name = key.rsplit("_slab", 1)[0]
-        src, rep, _ = sources[name]
-        sources[key] = (src, rep, shard_mpm if results[key].get("path")
-                        == "sharded_mpm" else shard_flip)
+    # the slab shapes of phase 31 and the shapes of phase 37, each with the
+    # launches of the path that runs it (the slab stencils': the sharded
+    # FLIP's)
+    for key in sorted(k for k in results if _shape_suffix(k)):
+        src, rep, _ = sources[_base_kernel(key)]
+        path = results[key].get("path", "sharded_flip")
+        sources[key] = (src, rep, sharded["launches"][path])
     paths = {"flip": flip_launches, "apic": apic_launches, "mpm": mpm_launches,
              "flip_bucket": bucket_launches,
              "g2p_materialised": table_launches,
              "shift_entry_points": entry_launches,
              "row_transfers": row_launches, **config_launches,
              **runtime_launches, **sharded["launches"]}
-    base = lambda key: key.rsplit("_slab", 1)[0]
+    base = _base_kernel
     kernels = [{"name": name, "route": "cuda", "source": csrc + src,
                 "replaces": "fluidsim_tpu/ops/" + rep,
                 "launches": launches[base(name)], **results[name],

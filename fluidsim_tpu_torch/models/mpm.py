@@ -279,6 +279,17 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
     return new_state, metrics
 
 
+def frame_solves(params: MpmParams, cg_iters: int,
+                 spd_fallback: int) -> tuple[int, bool]:
+    """(The CG solves of a frame with these metrics, whether the solve its
+    velocity came from stopped before its cap.)"""
+    if params.hessian == "hybrid" and spd_fallback == 0:
+        return 1, cg_iters < params.cg_hybrid_cap
+    spd_iters = cg_iters - (params.cg_hybrid_cap
+                            if params.hessian == "hybrid" else 0)
+    return 1 + spd_fallback, spd_iters < params.cg_maxiter
+
+
 class MpmSim:
     """The MPM simulation: owns the state on one device and runs the frame
     loop.  ``device`` is "cuda" unless the caller asks for another (the

@@ -37,6 +37,7 @@ and it imports only torch, numpy and the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import os
@@ -108,6 +109,44 @@ def run_ranks(fn, world: int, device: str = "cuda", args: tuple = (),
                 if proc.is_alive():
                     proc.terminate()
                 proc.join()
+
+
+def launched() -> bool:
+    """Whether a launcher started this process as one of its ranks."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+@contextlib.contextmanager
+def process_group(device: str | torch.device,
+                  timeout_s: float = TIMEOUT_S):
+    """The process group a command runs in, destroyed on leaving: the
+    launcher's (``RANK``, ``WORLD_SIZE`` and ``MASTER_ADDR`` in the
+    environment, as ``torchrun`` sets them; the GPU from ``LOCAL_RANK``;
+    one torch thread a rank on the CPU), or without one a group of this
+    process alone on a ``file://`` store in a temporary directory.  NCCL
+    on the card, gloo on the CPU; every collective limited to
+    ``timeout_s``.  ``device`` is a name or a ``torch.device``.  Yields
+    (rank, world size)."""
+    cuda = torch.device(device).type == "cuda"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    with tempfile.TemporaryDirectory(prefix="fluidsim_group_") as tmp:
+        if launched():
+            rank, world = (int(os.environ["RANK"]),
+                           int(os.environ["WORLD_SIZE"]))
+            init = "env://"
+            if cuda:
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            else:
+                torch.set_num_threads(1)
+        else:
+            rank, world = 0, 1
+            init = "file://" + os.path.join(tmp, "store")
+        dist.init_process_group("nccl" if cuda else "gloo", init_method=init,
+                                rank=rank, world_size=world, timeout=timeout)
+        try:
+            yield rank, world
+        finally:
+            dist.destroy_process_group()
 
 
 def _check(ok: bool, msg: str):
@@ -438,22 +477,13 @@ def main(argv=None) -> int:
                     "across the ranks instead of the dry run")
     a = ap.parse_args(argv)
     rank_fn = full_rank if a.full else dryrun_rank
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-        if a.device.startswith("cuda"):
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        else:
-            torch.set_num_threads(1)
-        dist.init_process_group("nccl" if a.device.startswith("cuda")
-                                else "gloo", init_method="env://",
-                                timeout=datetime.timedelta(seconds=a.timeout))
-        try:
-            rank_fn(rank, world, a.device)
-        except Exception:
-            traceback.print_exc()
-            return 1
-        finally:
-            dist.destroy_process_group()
+    if launched():
+        with process_group(a.device, a.timeout) as (rank, world):
+            try:
+                rank_fn(rank, world, a.device)
+            except Exception:
+                traceback.print_exc()
+                return 1
         if rank == 0:
             print("dryrun OK")
         return 0

@@ -10,7 +10,9 @@ chunk plan, the order of the three K1 modes and K8b's tile plan, and a
 and a Jacobi-preconditioned MPM frame, a sharded FLIP and MPM frame
 on a one-rank gloo group, and the tools: one public function of each
 tool module, the ``raytrace`` and ``view`` commands on a small ``.vdb``
-and the package's four lazy names."""
+and the package's four lazy names; and every ``validation`` module, with
+an oracle on a recorded trace, a scaled-soak frame and both sharded
+validators at world size 1."""
 
 import subprocess
 import sys
@@ -188,6 +190,19 @@ elif sys.argv[1] == "tools":
                          "--device", "cpu"]) == 0
         assert os.path.exists(os.path.join(tmp, "v_0001.png"))
     m = {"kinetic_energy": out[0].sum()}
+elif sys.argv[1] == "validation":
+    from fluidsim_tpu_torch.validation import (
+        cg_trace, ke_parity, soak_500, soak_mpm, soak_mpm_scaled, traces,
+        validate_config5, validate_mpm_shape)
+    rec = traces.load(traces.FLIP_PARITY)
+    assert traces.flip_parity_oracle(rec["tpu"], rec["cpp"])["pass"]
+    assert ke_parity.SEEDERS and soak_500.KEYS and soak_mpm.KEYS
+    assert cg_trace.RECORDS
+    assert soak_mpm_scaled.run(1, 4, "cpu")[1][0]["kinetic_energy"] > 0
+    assert validate_config5.run(6, 2.0, 1, "cpu")[0]["pass"]
+    figs = validate_mpm_shape.run(6, 1, "cpu")[0]
+    assert figs["pass"]
+    m = {"kinetic_energy": figs["kinetic_energy_single"][0]}
 else:
     sim = FlipSim("water_cube_drop", bound=6, density=2.0, device="cpu",
                   mode=sys.argv[1])
@@ -201,7 +216,8 @@ print("ke", float(m["kinetic_energy"]))
 
 @pytest.mark.parametrize("mode", ["flip", "apic", "mpm", "flip-bucket",
                                   "flip-table", "rows", "synthetic",
-                                  "config", "cli", "sharded", "tools"])
+                                  "config", "cli", "sharded", "tools",
+                                  "validation"])
 def test_port_runs_without_jax(mode):
     root = Path(__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _SCRIPT, mode], cwd=root,
