@@ -44,7 +44,7 @@ from fluidsim_tpu_torch.ops.pcg import pcg
 from fluidsim_tpu_torch.ops.transfer import normalize_velocity_cm
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
-from fluidsim_tpu_torch.utils.profiling import check_finite
+from fluidsim_tpu_torch.utils.profiling import check_finite, host_wait, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,7 +215,8 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
     dx, rho = params.dx, params.rho
     pcg_rtol = params.pcg_rtol or auto_pcg_rtol(fluid.shape[0])
     adiag = pr.laplacian_diag(fluid, solid, dt, rho, dx, dtype=velg.dtype)
-    scale = float(dt / (rho * dx * dx))     # f32 value, read once per frame
+    # the f32 value, read once per frame
+    scale = host_wait("project.scale", float, dt / (rho * dx * dx))
     apply_a = lambda q: sk.apply_laplacian(q, adiag, scale)
     precond = _preconditioner(params, adiag, scale, fluid, solid, dt, apply_a)
 
@@ -235,7 +236,8 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
 
     if not params.compat_projection:
         no_g = (0.0, 0.0, 0.0)
-        gv = torch.tensor(g, dtype=velg.dtype, device=velg.device)
+        gv = host_wait("upload.gravity", torch.tensor, g, dtype=velg.dtype,
+                       device=velg.device)
         velg = velg + gv[:, None, None, None] * dt * fluid.to(velg.dtype)[None]
         b = pr.divergence_rhs(velg, pr.set_rhs(velg, fluid, solid, no_g, dt,
                                                dx), fluid, solid, dx)
@@ -258,7 +260,8 @@ def project(params: FlipParams, velg, fluid, solid, dt, p0=None):
 
     velg, err, cg_tot, b2, p = one_pass(velg, p)
     n = 1
-    while n < params.max_outer and bool(err > params.outer_tol):
+    while n < params.max_outer and host_wait("project.outer", bool,
+                                             err > params.outer_tol):
         velg, err, iters, b2, p = one_pass(velg, p)
         n += 1
         cg_tot += iters
@@ -275,47 +278,60 @@ def flip_step(params: FlipParams, solid: torch.Tensor, state: FlipState):
     sort = params.sort_method
     fused = sort == "full"       # the bucket order feeds the unfused P2G
     if params.mode == "apic":
-        pos, vel, flat, aff_flat = tk.sort_by_cell(
-            state.pos, state.vel, B, extra=aff.reshape(-1, 9), method=sort)
-        aff = aff_flat.reshape(-1, 3, 3)
-        w27t = tk.masked_weights_cm(pos, B, params.kernel)   # P2G and G2P
-        weights, mom, occ = apic.p2g_apic(w27t, pos, vel, aff, flat, solid,
-                                          B, fused_scatter=fused)
+        with span("sort"):
+            pos, vel, flat, aff_flat = tk.sort_by_cell(
+                state.pos, state.vel, B, extra=aff.reshape(-1, 9),
+                method=sort)
+            aff = aff_flat.reshape(-1, 3, 3)
+        with span("weights"):
+            w27t = tk.masked_weights_cm(pos, B, params.kernel)  # P2G, G2P
+        with span("P2G"):
+            weights, mom, occ = apic.p2g_apic(w27t, pos, vel, aff, flat,
+                                              solid, B, fused_scatter=fused)
     else:
-        pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B,
-                                         method=sort)
-        w27t = tk.masked_weights_cm(pos, B, params.kernel)
-        weights, mom, occ = tk.p2g(w27t, vel, flat, solid, B,
-                                   fused_scatter=fused)
-    velg = normalize_velocity_cm(weights, mom)
-    fluid = (occ > 0) & ~solid
+        with span("sort"):
+            pos, vel, flat = tk.sort_by_cell(state.pos, state.vel, B,
+                                             method=sort)
+        with span("weights"):
+            w27t = tk.masked_weights_cm(pos, B, params.kernel)
+        with span("P2G"):
+            weights, mom, occ = tk.p2g(w27t, vel, flat, solid, B,
+                                       fused_scatter=fused)
+    with span("P2G"):
+        velg = normalize_velocity_cm(weights, mom)
+        fluid = (occ > 0) & ~solid
     velb = velg
 
-    velg, err, n_outer, cg_iters, div_rms, pressure = project(
-        params, velg, fluid, solid, dt, p0=state.pressure)
+    with span("projection"):
+        velg, err, n_outer, cg_iters, div_rms, pressure = project(
+            params, velg, fluid, solid, dt, p0=state.pressure)
 
-    vc_new = cell_center_velocity_cm(velg)
-    if params.mode == "apic":
-        vel, aff = apic.g2p_apic(w27t, flat, pos, vc_new, B, wall)
-        e = 0.5
-    elif params.mode == "flip":
-        vel = vel + tk.g2p(w27t, flat, vc_new - cell_center_velocity_cm(velb),
-                           B, wall)
-        e = 0.0
-    else:
-        vel = tk.g2p(w27t, flat, vc_new, B, wall)
-        e = 0.5
+    with span("G2P"):
+        vc_new = cell_center_velocity_cm(velg)
+        if params.mode == "apic":
+            vel, aff = apic.g2p_apic(w27t, flat, pos, vc_new, B, wall)
+            e = 0.5
+        elif params.mode == "flip":
+            vel = vel + tk.g2p(w27t, flat,
+                               vc_new - cell_center_velocity_cm(velb), B, wall)
+            e = 0.0
+        else:
+            vel = tk.g2p(w27t, flat, vc_new, B, wall)
+            e = 0.5
 
-    # CFL
-    speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
-    max_speed = torch.max(speed)
-    max_dt = torch.tensor(params.max_dt, dtype=vel.dtype, device=vel.device)
-    dt_new = torch.where(max_speed != 0,
-                         torch.minimum(max_dt, params.dx / max_speed), max_dt)
+    with span("advection"):
+        # CFL
+        speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+        max_speed = torch.max(speed)
+        max_dt = host_wait("upload.max_dt", torch.tensor, params.max_dt,
+                           dtype=vel.dtype, device=vel.device)
+        dt_new = torch.where(max_speed != 0,
+                             torch.minimum(max_dt, params.dx / max_speed),
+                             max_dt)
 
-    pos, vel = advect_bounce(
-        pos, vel, dt_new, solid, B, e, rounding="round",
-        analytic_wall=params.wall if params.walls_only_solid else None)
+        pos, vel = advect_bounce(
+            pos, vel, dt_new, solid, B, e, rounding="round",
+            analytic_wall=params.wall if params.walls_only_solid else None)
 
     new_state = FlipState(pos=pos, vel=vel, dt=dt_new, t=state.t + dt_new,
                           frame=state.frame + 1, pressure=pressure, aff=aff)
@@ -440,7 +456,9 @@ class FlipSim:
         return int(self.state.pos.shape[0])
 
     def step(self) -> Dict[str, Any]:
-        self.state, metrics = flip_step(self.params, self.solid, self.state)
+        with span("frame"):
+            self.state, metrics = flip_step(self.params, self.solid,
+                                            self.state)
         return metrics
 
     def steps(self, k: int) -> Dict[str, Any]:

@@ -41,6 +41,7 @@ from fluidsim_tpu_torch.ops.pcg import pcg
 from fluidsim_tpu_torch.ops.svd3 import clamp_singular, det3, hardening, mm3
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
+from fluidsim_tpu_torch.utils.profiling import host_wait, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,111 +152,130 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
     hess = params.operator
     f32 = dict(dtype=state.pos.dtype, device=state.pos.device)
 
-    pos, vel, fe_in, fp_in, volume_in, flat = mk.sort_mpm(
-        state.pos, state.vel, state.FE, state.FP, state.volume, B)
-    w27t, gradw = mk.mpm_stencil(pos, B)
-    cell_start = tk.cell_starts(flat, n)
+    with span("sort"):
+        pos, vel, fe_in, fp_in, volume_in, flat = mk.sort_mpm(
+            state.pos, state.vel, state.FE, state.FP, state.volume, B)
+    with span("stencil"):
+        w27t, gradw = mk.mpm_stencil(pos, B)
+    with span("cell ranges"):
+        cell_start = tk.cell_starts(flat, n)
     # one chunk plan for the frame's K1 and K1 fg launches (the card's only)
-    plan = (tk.chunk_plan(cell_start, pos.shape[0]) if cell_start.is_cuda
-            else None)
-    if params.kernel == "flip":
-        # the FLIP spline's table: the mass, momentum and stiffness P2G and
-        # the FLIP delta read it, with the JAX naive path's masks
-        wt = tk.masked_weights_cm(pos, B, "flip")
-        mass, mom = mk.p2g_flip_spline(wt, vel, cell_start, solid, B, plan)
-        momentum = mk.momentum_flip_spline
-    else:
-        wt = w27t
-        mass, mom = mk.p2g_mpm(wt, vel, cell_start, solid, B, plan)
-        momentum = lambda *args: mk.p2g_mpm(*args)[1]
-    heavy = mass > thr
-    velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
-                       0.0)
+    with span("chunk plan"):
+        plan = (tk.chunk_plan(cell_start, pos.shape[0]) if cell_start.is_cuda
+                else None)
+    with span("P2G"):
+        if params.kernel == "flip":
+            # the FLIP spline's table: the mass, momentum and stiffness P2G
+            # and the FLIP delta read it, with the JAX naive path's masks
+            wt = tk.masked_weights_cm(pos, B, "flip")
+            mass, mom = mk.p2g_flip_spline(wt, vel, cell_start, solid, B,
+                                           plan)
+            momentum = mk.momentum_flip_spline
+        else:
+            wt = w27t
+            mass, mom = mk.p2g_mpm(wt, vel, cell_start, solid, B, plan)
+            momentum = lambda *args: mk.p2g_mpm(*args)[1]
+        heavy = mass > thr
+        velg = torch.where(heavy[None],
+                           mom / torch.where(heavy, mass, 1.0)[None], 0.0)
     # the volumes come from the density of frame 0 only, but the gather
     # runs every frame, as in the JAX package
-    dens = mk.density(mass, w27t, flat, solid)
-    vol0 = 1.0 / torch.where(dens > 0, dens, 1.0)
-    volume = torch.where(state.frame == 0, vol0, volume_in)
+    with span("density"):
+        dens = mk.density(mass, w27t, flat, solid)
+        vol0 = 1.0 / torch.where(dens > 0, dens, 1.0)
+        volume = torch.where(state.frame == 0, vol0, volume_in)
 
     active = heavy & ~solid
     velb = velg
 
     # explicit forces and the implicit solve
-    mu, lam = hardening(params.mu0, params.lam0, params.hardening_eps,
-                        det3(fp_in), exponent_cap=params.hardening_max)
+    with span("hardening"):
+        mu, lam = hardening(params.mu0, params.lam0, params.hardening_eps,
+                            det3(fp_in), exponent_cap=params.hardening_max)
     fns = mk.make_force_fns(pos, fe_in, volume, mu, lam, gradw, cell_start,
                             flat, active, solid, B, hessian=hess, plan=plan)
-    f0 = fns[0]()
-    mass_safe = torch.where(active, mass, 1.0)[None]
-    g = torch.tensor(params.gravity, **f32)[:, None, None, None]
-    b = torch.where(active[None], velg + dt * (f0 / mass_safe + g), 0.0)
-    beta_dt2 = params.beta * dt * dt
+    with span("solve"):
+        f0 = fns[0]()
+        mass_safe = torch.where(active, mass, 1.0)[None]
+        g = host_wait("upload.gravity", torch.tensor, params.gravity,
+                      **f32)[:, None, None, None]
+        b = torch.where(active[None], velg + dt * (f0 / mass_safe + g), 0.0)
+        beta_dt2 = params.beta * dt * dt
 
-    def matvec_of(dforce):
-        def matvec(wv):
-            df = dforce(torch.where(active[None], wv, 0.0))
-            out = wv + beta_dt2 * (-df) / mass_safe
-            return torch.where(active[None], out, wv)
-        return matvec
+        def matvec_of(dforce):
+            def matvec(wv):
+                df = dforce(torch.where(active[None], wv, 0.0))
+                out = wv + beta_dt2 * (-df) / mass_safe
+                return torch.where(active[None], out, wv)
+            return matvec
 
-    precond = None
-    if params.precond == "jacobi":
-        # the stiffness density rides in the first velocity channel of K1
-        s = volume * (mu / params.mu0)
-        zero = torch.zeros_like(s)
-        mom_d = momentum(wt, torch.stack([s, zero, zero], dim=-1),
-                         cell_start, solid, B, plan)
-        dscale = params.precond_gamma * (2.0 * params.mu0 + params.lam0)
-        diag = 1.0 + beta_dt2 * dscale * mom_d[0] / mass_safe[0]
-        precond = lambda r: torch.where(active[None], r / diag[None], r)
+        precond = None
+        if params.precond == "jacobi":
+            # the stiffness density rides in the first velocity channel of K1
+            s = volume * (mu / params.mu0)
+            zero = torch.zeros_like(s)
+            mom_d = momentum(wt, torch.stack([s, zero, zero], dim=-1),
+                             cell_start, solid, B, plan)
+            dscale = params.precond_gamma * (2.0 * params.mu0 + params.lam0)
+            diag = 1.0 + beta_dt2 * dscale * mom_d[0] / mass_safe[0]
+            precond = lambda r: torch.where(active[None], r / diag[None], r)
 
-    # CG starts at x0 = b: A = I + O(beta dt^2), so b is near the solution
-    if hess == "hybrid":
-        res_f = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
-                    rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap)
-        bnorm2 = torch.sum((b * b).to(torch.float32))
-        rtol32 = torch.tensor(params.cg_rtol, dtype=torch.float32,
-                              device=b.device)
-        ok = bool(res_f.residual.to(torch.float32) ** 2 <= rtol32 ** 2 * bnorm2)
-        if ok:
-            solve_x, cg_iters, cg_resid = res_f.x, res_f.iters, res_f.residual
+        # CG starts at x0 = b: A = I + O(beta dt^2), so b is near the solution
+        if hess == "hybrid":
+            res_f = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
+                        rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap)
+            bnorm2 = torch.sum((b * b).to(torch.float32))
+            rtol32 = host_wait("upload.cg_rtol", torch.tensor, params.cg_rtol,
+                               dtype=torch.float32, device=b.device)
+            ok = host_wait("solve.hybrid_check", bool,
+                           res_f.residual.to(torch.float32) ** 2
+                           <= rtol32 ** 2 * bnorm2)
+            if ok:
+                solve_x, cg_iters, cg_resid = (res_f.x, res_f.iters,
+                                               res_f.residual)
+            else:
+                res = pcg(matvec_of(fns[2]), b, x0=b, precond=precond,
+                          rtol=params.cg_rtol, maxiter=params.cg_maxiter)
+                solve_x, cg_iters, cg_resid = (res.x, res_f.iters + res.iters,
+                                               res.residual)
+            spd_used = 0 if ok else 1
         else:
-            res = pcg(matvec_of(fns[2]), b, x0=b, precond=precond,
+            res = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
                       rtol=params.cg_rtol, maxiter=params.cg_maxiter)
-            solve_x, cg_iters, cg_resid = res.x, res_f.iters + res.iters, \
-                res.residual
-        spd_used = 0 if ok else 1
-    else:
-        res = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
-                  rtol=params.cg_rtol, maxiter=params.cg_maxiter)
-        solve_x, cg_iters, cg_resid = res.x, res.iters, res.residual
-        spd_used = 1 if hess == "spd" else 0
-    velg = torch.where(active[None], solve_x, 0.0)
+            solve_x, cg_iters, cg_resid = res.x, res.iters, res.residual
+            spd_used = 1 if hess == "spd" else 0
+        velg = torch.where(active[None], solve_x, 0.0)
 
     # deformation gradient update, with the deformation-increment limiter
-    gradv = mk.gradv_gather(velg, gradw, flat, solid)
-    gmax = torch.amax(torch.abs(gradv), dim=(-2, -1))
-    scale_g = torch.clamp(params.max_gradv_dt
-                          / torch.clamp(dt * gmax, min=1e-12), max=1.0)
-    gradv = gradv * scale_g[:, None, None]
-    eye = torch.eye(3, **f32)
-    t_fe = mm3(eye + dt * gradv, fe_in)
-    f_total = mm3(t_fe, fp_in)
-    fe_new, v_sinv_ut = clamp_singular(t_fe, 1.0 - params.theta_c,
-                                       1.0 + params.theta_s)
-    fp_new = mm3(v_sinv_ut, f_total)
+    with span("gradV"):
+        gradv = mk.gradv_gather(velg, gradw, flat, solid)
+    with span("F update"):
+        gmax = torch.amax(torch.abs(gradv), dim=(-2, -1))
+        scale_g = torch.clamp(params.max_gradv_dt
+                              / torch.clamp(dt * gmax, min=1e-12), max=1.0)
+        gradv = gradv * scale_g[:, None, None]
+        eye = torch.eye(3, **f32)
+        t_fe = mm3(eye + dt * gradv, fe_in)
+        f_total = mm3(t_fe, fp_in)
+        fe_new, v_sinv_ut = clamp_singular(t_fe, 1.0 - params.theta_c,
+                                           1.0 + params.theta_s)
+        fp_new = mm3(v_sinv_ut, f_total)
 
     # FLIP advection
-    dvc = cell_center_velocity_cm(velg) - cell_center_velocity_cm(velb)
-    vel = vel + mk.flip_delta(wt, flat, dvc, B, params.wall)
-    speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
-    max_speed = torch.max(speed)
-    max_dt = torch.tensor(params.max_dt, **f32)
-    dt_new = torch.where(max_speed != 0,
-                         torch.minimum(max_dt, params.dx / max_speed), max_dt)
-    pos, vel = advect_bounce(
-        pos, vel, dt_new, solid, B, e=0.0, rounding="out",
-        analytic_wall=params.wall if params.walls_only_solid else None)
+    with span("FLIP delta"):
+        dvc = cell_center_velocity_cm(velg) - cell_center_velocity_cm(velb)
+        vel = vel + mk.flip_delta(wt, flat, dvc, B, params.wall)
+    with span("advection"):
+        speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+        max_speed = torch.max(speed)
+        max_dt = host_wait("upload.max_dt", torch.tensor, params.max_dt,
+                           **f32)
+        dt_new = torch.where(max_speed != 0,
+                             torch.minimum(max_dt, params.dx / max_speed),
+                             max_dt)
+        pos, vel = advect_bounce(
+            pos, vel, dt_new, solid, B, e=0.0, rounding="out",
+            analytic_wall=params.wall if params.walls_only_solid else None)
 
     new_state = MpmState(pos=pos, vel=vel, FE=fe_new, FP=fp_new,
                          volume=volume, dt=dt_new, t=state.t + dt_new,
@@ -339,7 +359,9 @@ class MpmSim:
         return int(self.state.pos.shape[0])
 
     def step(self) -> Dict[str, Any]:
-        self.state, metrics = mpm_step(self.params, self.solid, self.state)
+        with span("frame"):
+            self.state, metrics = mpm_step(self.params, self.solid,
+                                           self.state)
         return metrics
 
     def steps(self, k: int) -> Dict[str, Any]:

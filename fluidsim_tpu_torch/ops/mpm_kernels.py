@@ -30,6 +30,7 @@ import torch
 from fluidsim_tpu_torch.core.splines import cround, dspline2, spline2
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.ops.svd3 import mm3, piola_linearized
+from fluidsim_tpu_torch.utils.profiling import span
 
 
 def sort_mpm(pos, vel, FE, FP, volume, bound: int):
@@ -162,11 +163,16 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     frame's ``transfer_kernels.chunk_plan`` of ``cell_start``, shared by
     every force scatter (with None each launch on the card builds its own;
     the CPU's plain scatter needs none).
+
+    Spans: the polar decomposition and ``sigma`` of ``f0`` are ``stress``;
+    in each ``dforce``, the K2 gw gather is ``apply.gather``, the 3x3
+    chain ``apply.stress`` and the K1 fg scatter ``apply.scatter``.
     """
     n = 2 * bound + 1
     p = pos_s.shape[0]
     fe_t = FE.transpose(-1, -2)
-    p0, dp_full, dp_spd = piola_linearized(FE, mu, lam)
+    with span("stress"):
+        p0, dp_full, dp_spd = piola_linearized(FE, mu, lam)
     valid = torch.all(torch.abs(cround(pos_s)) <= bound, dim=-1)
     scale = torch.where(valid, -volume, 0.0)
 
@@ -176,12 +182,18 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
                        ~solid)
 
     def f0():
-        return scatter_sigma(mm3(p0, fe_t))
+        with span("stress"):
+            sigma = mm3(p0, fe_t)
+        return scatter_sigma(sigma)
 
     def dforce_with(dp):
         def dforce(u):
-            g = _gather_gw(u, active, gradw, flat_s)
-            return scatter_sigma(mm3(dp(mm3(g, FE)), fe_t))
+            with span("apply.gather"):
+                g = _gather_gw(u, active, gradw, flat_s)
+            with span("apply.stress"):
+                sigma = mm3(dp(mm3(g, FE)), fe_t)
+            with span("apply.scatter"):
+                return scatter_sigma(sigma)
         return dforce
 
     if hessian == "hybrid":

@@ -4,7 +4,11 @@ counterpart of ``fluidsim_tpu/ops/pcg.py``.
 The JAX solver runs in a ``lax.while_loop``; here the loop runs on the host
 with the same predicate, ``(rr > tol2) & (k < maxiter)``, tested before every
 iteration, so the iteration count matches.  Testing it reads one scalar
-back from the device per iteration.
+back from the device per iteration (the host wait ``pcg.test``; one more
+test than iterations unless the loop stops at ``maxiter``).  The solve is
+the span ``pcg``, each operator apply ``pcg.apply`` and each
+preconditioner call ``pcg.precond``: what ``pcg`` launches itself are the
+CG's vector updates and dot products.
 
 ``reduce_fn`` makes the solve distributed, as the JAX ``reduce_fn`` does
 under ``shard_map``: every dot product is the reduction of the local sums
@@ -20,6 +24,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from fluidsim_tpu_torch.utils.profiling import host_wait, span, spanned
 
 
 class PCGResult(NamedTuple):
@@ -45,10 +51,16 @@ def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     operator's range).  ``reduce_fn`` maps a tensor of local f32 sums to
     the global ones (None: the sums are global; with it, the local sums are
     taken as without it and then reduced)."""
+    with span("pcg"):
+        return _pcg(apply_a, b, x0, precond, rtol, maxiter, reduce_fn)
+
+
+def _pcg(apply_a, b, x0, precond, rtol, maxiter, reduce_fn) -> PCGResult:
     if x0 is None:
         x0 = torch.zeros_like(b)
-    if precond is None:
-        precond = lambda r: r
+    apply_a = spanned("pcg.apply", apply_a)
+    precond = (lambda r: r) if precond is None else spanned("pcg.precond",
+                                                            precond)
     if reduce_fn is None:
         dot, dot2 = _dot, lambda a1, c1, a2, c2: (_dot(a1, c1), _dot(a2, c2))
     else:
@@ -67,7 +79,7 @@ def pcg(apply_a: Callable, b: torch.Tensor, x0: torch.Tensor | None = None,
     p = z
     rz, rr = dot2(r, z, r, r)
     k = 0
-    while k < maxiter and bool(rr > tol2):
+    while k < maxiter and host_wait("pcg.test", bool, rr > tol2):
         ap = apply_a(p)
         alpha = _safe_ratio(rz, dot(p, ap))
         x = x + alpha * p

@@ -69,6 +69,7 @@ from fluidsim_tpu_torch.ops import bucket_sort
 from fluidsim_tpu_torch.ops.rows import scatter_tile_starts_plain
 from fluidsim_tpu_torch.ops.smallmat import apply_mat27, outer_sum27
 from fluidsim_tpu_torch.ops.transfer import _KERNELS, _OFFSETS
+from fluidsim_tpu_torch.utils.profiling import host_wait
 
 WINDOW = 512    # cells per window of the bucket order and of K6a
 # Runs of (window, chunk) that one 1024-row output block of the bucket sort
@@ -314,10 +315,11 @@ def chunk_plan(cell_start: torch.Tensor, p: int) -> ChunkPlan:
     1 offsets, the last ``p``) ranges, built on ``cell_start``'s device,
     once per frame for all of the frame's K1 launches.  All of its device
     work (``_chunk_lists``) is queued before its one host read, the chunk
-    count (4 bytes), which sizes the lists (views of the P + 1 long ones)
-    and the kernels' scratch.  Counts its builds in ``.builds``."""
+    count (4 bytes; the host wait ``chunk_plan.count``), which sizes the
+    lists (views of the P + 1 long ones) and the kernels' scratch.  Counts
+    its builds in ``.builds``."""
     chunk_start, chunk_first, chunk_cell = _chunk_lists(cell_start, p)
-    nch = int(chunk_start[-1])
+    nch = host_wait("chunk_plan.count", int, chunk_start[-1])
     chunk_plan.builds += 1
     return ChunkPlan(cell_start, chunk_start, chunk_first[:nch + 1],
                      chunk_cell[:nch + 1])

@@ -464,6 +464,49 @@ def sim_rank(rank: int, world: int, device: str, kind: str, frames: int,
                  **{f"state_{k}": v for k, v in state.items()})
 
 
+def trace_rank(rank: int, world: int, device: str, out_path: str,
+               sim_kwargs: dict):
+    """Step the sharded MPM built from ``sim_kwargs`` for two frames, the
+    second (the first whose step reads the previous frame's lost count)
+    under a CPU ``torch.profiler`` with the program's spans traced, and
+    write on rank 0 to ``out_path`` (npz) what that frame did:
+    its ``fs:`` ranges (``names``, ``starts``, ``ends``), the host waits
+    by site (``wait_<site>``) and the collectives' calls and bytes
+    (``shift_pair.calls`` ...) made in it, its ``cg_iters`` and
+    ``spd_fallback``, and the sim's ``cap``, ``mig_cap``, ``tail_insert``,
+    ``n`` and ``nl``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidsim_tpu_torch.parallel import halo
+    from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
+    from fluidsim_tpu_torch.utils import profiling
+
+    def counts():
+        out = {f"wait_{k}": v for k, v in profiling.host_wait.counts.items()}
+        for fn in (halo.shift_pair, halo.all_reduce):
+            out[f"{fn.__name__}.calls"] = fn.calls
+            out[f"{fn.__name__}.bytes"] = fn.bytes
+        return out
+
+    sim = ShardedMpmSim(device=device, **sim_kwargs)
+    sim.step()
+    before = counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            profiling.tracing():
+        m = sim.step()
+    made = {k: v - before.get(k, 0) for k, v in counts().items()}
+    if rank != 0:
+        return
+    ranges = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events() if e.name.startswith(profiling.PREFIX)]
+    np.savez(out_path, names=np.array([r[0] for r in ranges]),
+             starts=np.array([r[1] for r in ranges]),
+             ends=np.array([r[2] for r in ranges]),
+             cg_iters=m["cg_iters"], spd_fallback=m["spd_fallback"],
+             cap=sim.cap, mig_cap=sim.mig_cap, tail_insert=sim.tail_insert,
+             n=sim.slab.n, nl=sim.nl, **made)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--world", type=int, default=4,

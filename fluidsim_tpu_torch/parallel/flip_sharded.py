@@ -73,6 +73,7 @@ from fluidsim_tpu_torch.parallel.halo import (all_reduce, edge_rows,
                                               migrate_neighbors, world)
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
+from fluidsim_tpu_torch.utils.profiling import host_wait
 
 W = 2             # transfer halo width (stencil 1 + cell-centre average 1)
 SENTINEL = 1.0e6  # parking position of dead particle slots
@@ -449,7 +450,7 @@ class LostParticleMonitor:
         prev, self._pending_lost = self._pending_lost, metrics.get("lost")
         if prev is None:
             return
-        lost = int(prev)
+        lost = host_wait("migrate.lost", int, prev)
         if lost > 0:
             self.lost_total += lost
             msg = (f"{type(self).__name__}: migration dropped {lost} "

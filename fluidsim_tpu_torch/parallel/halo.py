@@ -13,6 +13,13 @@ nothing is communicated at all.
 
 Every helper takes ``dim``, the axis of its tensors that runs along x (0,
 as in the JAX helpers, or 1 for the port's channel-major fields).
+
+The two collectives every exchange and reduction goes through count what
+this rank hands them, as the kernel wrappers count their launches:
+``shift_pair.calls`` and ``.bytes`` (the tensors sent, bool as uint8) and
+``all_reduce.calls`` and ``.bytes`` (the tensor reduced), only where
+something is communicated; while the program's spans are traced, each runs
+in the span ``halo`` or ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+
+from fluidsim_tpu_torch.utils.profiling import span
 
 
 def world(group=None) -> tuple[int, int]:
@@ -64,11 +73,20 @@ def shift_pair(to_left: Sequence[torch.Tensor],
                 for t in to_right]
         ops += [dist.P2POp(dist.irecv, t, right, group) for t in from_right]
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        shift_pair.calls += 1
+        sent = ((to_left if rank > 0 else [])
+                + (to_right if rank < size - 1 else []))
+        shift_pair.bytes += sum(t.numel() * t.element_size() for t in sent)
+        with span("halo"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     unwire = lambda t, like: t.to(torch.bool) if like.dtype == torch.bool else t
     return ([unwire(t, s) for t, s in zip(from_left, sent_right)],
             [unwire(t, s) for t, s in zip(from_right, sent_left)])
+
+
+shift_pair.calls = 0
+shift_pair.bytes = 0
 
 
 def _rows(t: torch.Tensor, dim: int, start: int, stop: int | None):
@@ -172,7 +190,14 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     (a new tensor; ``t`` itself at world size 1)."""
     if world(group)[1] == 1:
         return t
-    out = t.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
-                    else dist.ReduceOp.MAX, group=group)
+    all_reduce.calls += 1
+    all_reduce.bytes += t.numel() * t.element_size()
+    with span("all_reduce"):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=group)
     return out
+
+
+all_reduce.calls = 0
+all_reduce.bytes = 0

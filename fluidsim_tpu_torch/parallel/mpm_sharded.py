@@ -46,6 +46,7 @@ from fluidsim_tpu_torch.parallel.flip_sharded import (
     seed_owners, slab_gather, sort_slab)
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
+from fluidsim_tpu_torch.utils.profiling import host_wait, span
 
 
 @dataclasses.dataclass
@@ -84,45 +85,55 @@ def sharded_mpm_step(params: MpmParams, slab: Slab, cap: int, mig_cap: int,
     dev = state.pos.device
     f32 = dict(dtype=state.pos.dtype, device=dev)
     thr = params.mass_threshold
-    extra = torch.cat([state.FE.reshape(cap, 9), state.FP.reshape(cap, 9),
-                       state.volume[:, None]], dim=-1)
-    pos, vel, alive, flat, extra = sort_slab(slab, state.pos, state.vel,
-                                             state.alive, extra)
-    fe_in = extra[:, 0:9].reshape(cap, 3, 3)
-    fp_in = extra[:, 9:18].reshape(cap, 3, 3)
-    volume_in = extra[:, 18]
+    with span("sort"):
+        extra = torch.cat([state.FE.reshape(cap, 9),
+                           state.FP.reshape(cap, 9), state.volume[:, None]],
+                          dim=-1)
+        pos, vel, alive, flat, extra = sort_slab(slab, state.pos, state.vel,
+                                                 state.alive, extra)
+        fe_in = extra[:, 0:9].reshape(cap, 3, 3)
+        fp_in = extra[:, 9:18].reshape(cap, 3, 3)
+        volume_in = extra[:, 18]
 
-    w27t, gradw = mk.mpm_stencil(pos, b)
-    cell_start = tk.cell_starts(flat, n, slab.rows)
-    count = cell_start[-1:]                  # the alive prefix, on the device
+    with span("stencil"):
+        w27t, gradw = mk.mpm_stencil(pos, b)
+    with span("cell ranges"):
+        cell_start = tk.cell_starts(flat, n, slab.rows)
+        count = cell_start[-1:]              # the alive prefix, on the device
     # one chunk plan for the frame's K1 and K1 fg launches (the card's only)
-    plan = tk.chunk_plan(cell_start, cap) if cell_start.is_cuda else None
+    with span("chunk plan"):
+        plan = tk.chunk_plan(cell_start, cap) if cell_start.is_cuda else None
     ns_loc, ns_ext = ~slab.solid_loc, ~slab.solid_ext
-    acc = slab.fold(tk.p2g_scatter(w27t, vel, cell_start, n, plan), W, dim=1)
-    mass = torch.where(ns_loc, acc[0], 0.0)
-    mom = torch.where(ns_loc[None], acc[1:4], 0.0)
-    heavy = mass > thr
-    velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
-                       0.0)
+    with span("P2G"):
+        acc = slab.fold(tk.p2g_scatter(w27t, vel, cell_start, n, plan), W,
+                        dim=1)
+        mass = torch.where(ns_loc, acc[0], 0.0)
+        mom = torch.where(ns_loc[None], acc[1:4], 0.0)
+        heavy = mass > thr
+        velg = torch.where(heavy[None],
+                           mom / torch.where(heavy, mass, 1.0)[None], 0.0)
 
     # the volumes come from the density of frame 0 only (gathered every
     # frame, as in the JAX package)
-    fm = mk.density_fields(slab.halo(mass, W), slab.solid_ext)
-    dens = tk.g2p_gather(fm, w27t, flat, count)[0]
-    vol0 = 1.0 / torch.where(dens > 0, dens, 1.0)
-    volume = torch.where(state.frame == 0, torch.where(alive, vol0, 0.0),
-                         volume_in)
+    with span("density"):
+        fm = mk.density_fields(slab.halo(mass, W), slab.solid_ext)
+        dens = tk.g2p_gather(fm, w27t, flat, count)[0]
+        vol0 = 1.0 / torch.where(dens > 0, dens, 1.0)
+        volume = torch.where(state.frame == 0, torch.where(alive, vol0, 0.0),
+                             volume_in)
 
     active = heavy & ns_loc
     active_ext = slab.halo(active, W)
     velb = velg
 
-    mu, lam = hardening(params.mu0, params.lam0, params.hardening_eps,
-                        det3(fp_in), exponent_cap=params.hardening_max)
+    with span("hardening"):
+        mu, lam = hardening(params.mu0, params.lam0, params.hardening_eps,
+                            det3(fp_in), exponent_cap=params.hardening_max)
     fe_t = fe_in.transpose(-1, -2)
     vol_alive = torch.where(alive, volume, 0.0)
     hess = params.operator
-    p0, dp_full, dp_spd = piola_linearized(fe_in, mu, lam)
+    with span("stress"):
+        p0, dp_full, dp_spd = piola_linearized(fe_in, mu, lam)
     valid = torch.all(torch.abs(cround(pos)) <= b, dim=-1)
     scale = torch.where(valid, -vol_alive, 0.0)
 
@@ -133,92 +144,114 @@ def sharded_mpm_step(params: MpmParams, slab: Slab, cap: int, mig_cap: int,
         f = tk.p2g_scatter_force(gradw, m9, cell_start, n, plan)
         return slab.fold(torch.where(ns_ext[None], f, 0.0), W, dim=1)
 
-    f0 = scatter_sigma(mm3(p0, fe_t))
+    def explicit_force():
+        with span("stress"):
+            sigma = mm3(p0, fe_t)
+        return scatter_sigma(sigma)
 
     def dforce_with(dp):
         def dforce(wv_loc):
-            g = _gather_gw(slab.halo(wv_loc, W, dim=1), active_ext, gradw,
-                           flat, count)
-            return scatter_sigma(mm3(dp(mm3(g, fe_in)), fe_t))
+            with span("apply.gather"):
+                g = _gather_gw(slab.halo(wv_loc, W, dim=1), active_ext,
+                               gradw, flat, count)
+            with span("apply.stress"):
+                sigma = mm3(dp(mm3(g, fe_in)), fe_t)
+            with span("apply.scatter"):
+                return scatter_sigma(sigma)
         return dforce
 
-    mass_safe = torch.where(active, mass, 1.0)[None]
-    grav = torch.tensor(params.gravity, **f32)[:, None, None, None]
-    rhs = torch.where(active[None], velg + dt * (f0 / mass_safe + grav), 0.0)
-    beta_dt2 = params.beta * dt * dt
+    with span("solve"):
+        f0 = explicit_force()
+        mass_safe = torch.where(active, mass, 1.0)[None]
+        grav = host_wait("upload.gravity", torch.tensor, params.gravity,
+                         **f32)[:, None, None, None]
+        rhs = torch.where(active[None], velg + dt * (f0 / mass_safe + grav),
+                          0.0)
+        beta_dt2 = params.beta * dt * dt
 
-    def matvec_of(dforce):
-        def matvec(wv):
-            df = dforce(torch.where(active[None], wv, 0.0))
-            out = wv + beta_dt2 * (-df) / mass_safe
-            return torch.where(active[None], out, wv)
-        return matvec
+        def matvec_of(dforce):
+            def matvec(wv):
+                df = dforce(torch.where(active[None], wv, 0.0))
+                out = wv + beta_dt2 * (-df) / mass_safe
+                return torch.where(active[None], out, wv)
+            return matvec
 
-    # CG from x0 = rhs, the dot products all-reduced
-    if hess == "hybrid":
-        res_f = pcg(matvec_of(dforce_with(dp_full)), rhs, x0=rhs,
-                    rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap,
-                    reduce_fn=slab.psum)
-        bnorm2 = slab.psum(torch.sum((rhs * rhs).to(torch.float32)))
-        rtol32 = torch.tensor(params.cg_rtol, dtype=torch.float32, device=dev)
-        ok = bool(res_f.residual.to(torch.float32) ** 2 <= rtol32 ** 2 * bnorm2)
-        if ok:
-            solve_x, cg_iters = res_f.x, res_f.iters
+        # CG from x0 = rhs, the dot products all-reduced
+        if hess == "hybrid":
+            res_f = pcg(matvec_of(dforce_with(dp_full)), rhs, x0=rhs,
+                        rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap,
+                        reduce_fn=slab.psum)
+            bnorm2 = slab.psum(torch.sum((rhs * rhs).to(torch.float32)))
+            rtol32 = host_wait("upload.cg_rtol", torch.tensor, params.cg_rtol,
+                               dtype=torch.float32, device=dev)
+            ok = host_wait("solve.hybrid_check", bool,
+                           res_f.residual.to(torch.float32) ** 2
+                           <= rtol32 ** 2 * bnorm2)
+            if ok:
+                solve_x, cg_iters = res_f.x, res_f.iters
+            else:
+                res = pcg(matvec_of(dforce_with(dp_spd)), rhs, x0=rhs,
+                          rtol=params.cg_rtol, maxiter=params.cg_maxiter,
+                          reduce_fn=slab.psum)
+                solve_x, cg_iters = res.x, res_f.iters + res.iters
+            spd_used = 0 if ok else 1
         else:
-            res = pcg(matvec_of(dforce_with(dp_spd)), rhs, x0=rhs,
+            dp = dp_spd if hess == "spd" else dp_full
+            res = pcg(matvec_of(dforce_with(dp)), rhs, x0=rhs,
                       rtol=params.cg_rtol, maxiter=params.cg_maxiter,
                       reduce_fn=slab.psum)
-            solve_x, cg_iters = res.x, res_f.iters + res.iters
-        spd_used = 0 if ok else 1
-    else:
-        dp = dp_spd if hess == "spd" else dp_full
-        res = pcg(matvec_of(dforce_with(dp)), rhs, x0=rhs,
-                  rtol=params.cg_rtol, maxiter=params.cg_maxiter,
-                  reduce_fn=slab.psum)
-        solve_x, cg_iters = res.x, res.iters
-        spd_used = 1 if hess == "spd" else 0
-    velg = torch.where(active[None], solve_x, 0.0)
+            solve_x, cg_iters = res.x, res.iters
+            spd_used = 1 if hess == "spd" else 0
+        velg = torch.where(active[None], solve_x, 0.0)
 
     # deformation gradient update, with the deformation-increment limiter
-    gradv = _gather_gw(slab.halo(velg, W, dim=1), ns_ext, gradw, flat, count)
-    gmax = torch.amax(torch.abs(gradv), dim=(-2, -1))
-    scale_g = torch.clamp(params.max_gradv_dt
-                          / torch.clamp(dt * gmax, min=1e-12), max=1.0)
-    gradv = gradv * scale_g[:, None, None]
-    eye = torch.eye(3, **f32)
-    t_fe = mm3(eye + dt * gradv, fe_in)
-    f_total = mm3(t_fe, fp_in)
-    fe_new, v_sinv_ut = clamp_singular(t_fe, 1.0 - params.theta_c,
-                                       1.0 + params.theta_s)
-    fp_new = mm3(v_sinv_ut, f_total)
-    fe_new = torch.where(alive[:, None, None], fe_new, eye)
-    fp_new = torch.where(alive[:, None, None], fp_new, eye)
+    with span("gradV"):
+        gradv = _gather_gw(slab.halo(velg, W, dim=1), ns_ext, gradw, flat,
+                           count)
+    with span("F update"):
+        gmax = torch.amax(torch.abs(gradv), dim=(-2, -1))
+        scale_g = torch.clamp(params.max_gradv_dt
+                              / torch.clamp(dt * gmax, min=1e-12), max=1.0)
+        gradv = gradv * scale_g[:, None, None]
+        eye = torch.eye(3, **f32)
+        t_fe = mm3(eye + dt * gradv, fe_in)
+        f_total = mm3(t_fe, fp_in)
+        fe_new, v_sinv_ut = clamp_singular(t_fe, 1.0 - params.theta_c,
+                                           1.0 + params.theta_s)
+        fp_new = mm3(v_sinv_ut, f_total)
+        fe_new = torch.where(alive[:, None, None], fe_new, eye)
+        fp_new = torch.where(alive[:, None, None], fp_new, eye)
 
     # FLIP advection
-    dvc = (cell_center_velocity_cm(slab.halo(velg, W, dim=1))
-           - cell_center_velocity_cm(slab.halo(velb, W, dim=1)))
-    delta = slab_gather(slab, w27t, flat, count, dvc, within_ext)
-    vel = torch.where(alive[:, None], vel + delta, 0.0)
-    speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
-    max_speed = slab.pmax(torch.max(torch.where(alive, speed, 0.0)))
-    max_dt = torch.tensor(params.max_dt, **f32)
-    dt_new = torch.where(max_speed != 0,
-                         torch.minimum(max_dt, params.dx / max_speed), max_dt)
-    pos_new, vel_new = advect_bounce(
-        pos, vel, dt_new, slab.solid_full, b, 0.0, rounding="out",
-        analytic_wall=params.wall if params.walls_only_solid else None)
-    pos = torch.where(alive[:, None], pos_new, SENTINEL)
-    vel = torch.where(alive[:, None], vel_new, 0.0)
+    with span("FLIP delta"):
+        dvc = (cell_center_velocity_cm(slab.halo(velg, W, dim=1))
+               - cell_center_velocity_cm(slab.halo(velb, W, dim=1)))
+        delta = slab_gather(slab, w27t, flat, count, dvc, within_ext)
+        vel = torch.where(alive[:, None], vel + delta, 0.0)
+    with span("advection"):
+        speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+        max_speed = slab.pmax(torch.max(torch.where(alive, speed, 0.0)))
+        max_dt = host_wait("upload.max_dt", torch.tensor, params.max_dt,
+                           **f32)
+        dt_new = torch.where(max_speed != 0,
+                             torch.minimum(max_dt, params.dx / max_speed),
+                             max_dt)
+        pos_new, vel_new = advect_bounce(
+            pos, vel, dt_new, slab.solid_full, b, 0.0, rounding="out",
+            analytic_wall=params.wall if params.walls_only_solid else None)
+        pos = torch.where(alive[:, None], pos_new, SENTINEL)
+        vel = torch.where(alive[:, None], vel_new, 0.0)
 
     # migration of the whole particle: position, velocity, FE, FP, volume
-    eye9 = eye.reshape(9)
-    dead_row = torch.cat([torch.full((3,), SENTINEL, **f32),
-                          torch.zeros((3,), **f32), eye9, eye9,
-                          torch.zeros((1,), **f32)])
-    payload = torch.cat([pos, vel, fe_new.reshape(cap, 9),
-                         fp_new.reshape(cap, 9), volume[:, None]], dim=-1)
-    payload, alive, moved, lost = migrate(slab, payload, alive, dead_row,
-                                          cap, mig_cap, tail_insert)
+    with span("migrate"):
+        eye9 = eye.reshape(9)
+        dead_row = torch.cat([torch.full((3,), SENTINEL, **f32),
+                              torch.zeros((3,), **f32), eye9, eye9,
+                              torch.zeros((1,), **f32)])
+        payload = torch.cat([pos, vel, fe_new.reshape(cap, 9),
+                             fp_new.reshape(cap, 9), volume[:, None]], dim=-1)
+        payload, alive, moved, lost = migrate(slab, payload, alive, dead_row,
+                                              cap, mig_cap, tail_insert)
     new_state = ShardedMpmState(
         pos=payload[:, 0:3].contiguous(), vel=payload[:, 3:6].contiguous(),
         FE=payload[:, 6:15].reshape(cap, 3, 3).contiguous(),
@@ -344,10 +377,11 @@ class ShardedMpmSim(LostParticleMonitor):
         return int(self.slab.psum(self.state.alive.sum()))
 
     def step(self) -> Dict[str, Any]:
-        self.state, metrics = sharded_mpm_step(
-            self.params, self.slab, self.cap, self.mig_cap, self.tail_insert,
-            self.within_ext, self.state)
-        self._note_lost(metrics)
+        with span("frame"):
+            self.state, metrics = sharded_mpm_step(
+                self.params, self.slab, self.cap, self.mig_cap,
+                self.tail_insert, self.within_ext, self.state)
+            self._note_lost(metrics)
         return metrics
 
     def run(self, frames: int, callback=None):

@@ -1,6 +1,6 @@
 """Where the time of a frame goes: profile a few frames of ``FlipSim`` or
-``MpmSim`` and print each phase's wall time, the device time of the
-kernels it ran, the busiest kernels and the device's busy share.
+``MpmSim`` with the program's spans on and print each span's device time,
+the busiest kernels, the device's idle share and the frame's host waits.
 
     python -m fluidsim_tpu_torch.utils.frame_profile --mode apic
     python -m fluidsim_tpu_torch.utils.frame_profile --mode flip-bucket
@@ -13,41 +13,40 @@ scene ``mpm_cone`` at 127^3 (bound 63, 473,798 particles, the "hybrid"
 operator); seed 0, on "cuda".  After 5
 warm-up frames (past FLIP's splash of frames 1-4, whose projection runs up
 to 7 outer passes) the same 3 frames run four times from the same state:
-twice unprofiled, once under ``torch.profiler``, and once more
-unprofiled.  The frames are deterministic, so every run does the same
-work; their iteration counts are checked equal.
+twice unprofiled, once under ``torch.profiler`` with the program's spans
+traced (``profiling.tracing``), and once more unprofiled.  The frames are
+deterministic, so every run does the same work; their iteration counts are
+checked equal.
 
-Method.  Each phase (the functions ``flip_step`` or ``mpm_step`` calls,
-``PHASES``) is wrapped for the profiled run in a ``record_function`` range
-with a device synchronise at both ends, so every kernel a phase launches
-runs inside the phase's host range; a kernel counts for the phase whose
-range holds its midpoint.  The synchronises and the profiler's own
-per-operation cost make the profiled run slower than the unprofiled ones.  The frame time is the mean of the
-two unprofiled runs before the profile, and the busy share is the profiled
-run's kernel time over it; the run after the profile shows what the
-profiler leaves behind in the process.  The last line is a JSON object
-with every number.
+Method.  The spans are the frame's own (``profiling.span``), and the
+profiled run adds no synchronise: ``profiling.attribute`` gives each
+kernel's device time to the innermost span around its launch (a span's
+self time), and the idle share is that of the profiled run, 1 - the union
+of its device operations over its span (the first frame's start to the
+end of the last range or device operation), the wait idle the part of it
+in gaps that start inside a host wait.  The host waits a frame are
+``profiling.host_wait.counts`` over the profiled run.  The profiler's own
+per-operation cost makes the profiled run slower than the unprofiled ones;
+the frame time is the mean of the two unprofiled runs before the profile,
+and the run after the profile shows what the profiler leaves behind in the
+process.  The last line is a JSON object with every number.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import functools
 import json
 import subprocess
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from fluidsim_tpu_torch.models import flip, mpm
-from fluidsim_tpu_torch.ops import apic
-from fluidsim_tpu_torch.ops import mpm_kernels as mk
-from fluidsim_tpu_torch.ops import transfer_kernels as tk
 from fluidsim_tpu_torch.scenes import get_scene
+from fluidsim_tpu_torch.utils import profiling
 from fluidsim_tpu_torch.utils.card_inputs import (
     FLIP_BOUND as BOUND, FLIP_DENSITY as DENSITY, MPM_BOUND, SEED)
 
@@ -55,69 +54,13 @@ WARMUP = 5          # frames stepped before the profiled window
 FRAMES = 3          # frames in the window, run three times
 TOP_KERNELS = 30    # kernels listed, the busiest first
 
-# (phase, module, function): the calls of each frame, one phase each
-PHASES = {
-    "flip": (
-        ("sort", tk, "sort_by_cell"),
-        ("stencil weights", tk, "masked_weights_cm"),
-        ("P2G", tk, "p2g"),             # with its cell or window ranges and
-                                        # (K1) the frame's chunk plan
-        ("P2G", apic, "p2g_apic"),
-        ("projection", flip, "project"),
-        ("G2P", tk, "g2p"),
-        ("G2P", apic, "g2p_apic"),
-        ("advection", flip, "advect_bounce"),
-    ),
-    "mpm": (
-        ("sort", mk, "sort_mpm"),
-        ("stencil", mk, "mpm_stencil"),
-        ("cell ranges", tk, "cell_starts"),
-        ("chunk plan", tk, "chunk_plan"),   # K1's, once per frame
-        ("P2G", mk, "p2g_mpm"),
-        ("density", mk, "density"),
-        ("stress (polar)", mk, "make_force_fns"),
-        ("implicit solve", mpm, "pcg"),
-        ("gradV", mk, "gradv_gather"),
-        ("F update (SVD)", mpm, "clamp_singular"),
-        ("FLIP delta", mk, "flip_delta"),
-        ("advection", mpm, "advect_bounce"),
-    ),
-}
 # per frame: the counts that must agree between the runs
 _COUNTS = {"flip": ("outer_iters", "cg_iters"),
            "mpm": ("spd_fallback", "cg_iters")}
-_TAG = "phase:"
 
 
 def _kind(sim) -> str:
     return "mpm" if isinstance(sim, mpm.MpmSim) else "flip"
-
-
-@contextlib.contextmanager
-def _phase_ranges(kind, sync):
-    """Wrap the phase functions in synchronised ``record_function`` ranges
-    for the duration of the block."""
-    saved = []
-    for phase, mod, name in PHASES[kind]:
-        fn = getattr(mod, name)
-
-        # wraps() carries the function's attributes (``chunk_plan.builds``,
-        # which the function updates through its module's name) over
-        @functools.wraps(fn)
-        def wrapped(*args, _fn=fn, _phase=phase, **kwargs):
-            sync()
-            with record_function(_TAG + _phase):
-                out = _fn(*args, **kwargs)
-                sync()
-            return out
-
-        saved.append((mod, name, fn))
-        setattr(mod, name, wrapped)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def _run(sim, start, frames: int, sync):
@@ -140,10 +83,11 @@ def _run(sim, start, frames: int, sync):
 
 def profile_frames(sim, frames: int = FRAMES) -> dict:
     """Run ``frames`` frames from the sim's state four times (unprofiled
-    twice, profiled, unprofiled) and leave the sim after them; return
-    ms/frame of each run, the frames' iteration counts, each phase's wall
-    and kernel ms/frame, the kernels by device time, and the busy share of
-    the device."""
+    twice, profiled with the spans traced, unprofiled) and leave the sim
+    after them; return ms/frame of each run, the frames' iteration counts,
+    each span's calls and self device ms a frame, the kernels by device
+    time, the idle share and wait idle of the profiled run and its host
+    waits a frame by site."""
     kind = _kind(sim)
     cuda = sim.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -152,8 +96,10 @@ def profile_frames(sim, frames: int = FRAMES) -> dict:
     ms_a, frame_ms, counts = _run(sim, start, frames, sync)
     ms_b, _, counts_b = _run(sim, start, frames, sync)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with _phase_ranges(kind, sync), profile(activities=acts) as prof:
+    waits = Counter(profiling.host_wait.counts)
+    with profile(activities=acts) as prof, profiling.tracing():
         profiled_ms, _, counts_p = _run(sim, start, frames, sync)
+    waits = profiling.host_wait.counts - waits
     ms_after, _, counts_after = _run(sim, start, frames, sync)
     if not counts == counts_b == counts_p == counts_after:
         raise RuntimeError(f"the runs of the same frames differ: {counts}, "
@@ -161,32 +107,23 @@ def profile_frames(sim, frames: int = FRAMES) -> dict:
     frame_ms_mean = 0.5 * (ms_a + ms_b)
 
     events = prof.events()
-    ranges = [(e.name[len(_TAG):], e.time_range.start, e.time_range.end)
-              for e in events
-              if e.name.startswith(_TAG) and e.device_type == DeviceType.CPU]
-    wall = defaultdict(float)
-    for phase, t0, t1 in ranges:
-        wall[phase] += (t1 - t0) / 1e3 / frames
-    inside = defaultdict(float)
+    att = profiling.attribute(events)
+    calls = att["calls"]
     by_kernel = defaultdict(lambda: [0, 0.0])
-    kernel_ms = 0.0
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.name.startswith(_TAG):
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
-        dur = (e.time_range.end - e.time_range.start) / 1e3 / frames
-        kernel_ms += dur
         by_kernel[e.name][0] += 1
-        by_kernel[e.name][1] += dur
-        mid = 0.5 * (e.time_range.start + e.time_range.end)
-        for phase, t0, t1 in ranges:
-            if t0 <= mid <= t1:
-                inside[phase] += dur
-                break
+        by_kernel[e.name][1] += (e.time_range.end
+                                 - e.time_range.start) / 1e3 / frames
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
+    span_ms = {name: 1e3 * att["spans"].get(name, 0.0) / frames
+               for name in calls}
     mode = "mpm"
     if kind == "flip":
         bucket = sim.params.sort_method == "bucket"
         mode = sim.params.mode + ("-bucket" if bucket else "")
+    window = att["window_s"]
     return {
         "mode": mode,
         "particles": sim.num_particles,
@@ -198,10 +135,17 @@ def profile_frames(sim, frames: int = FRAMES) -> dict:
         "frame_ms": frame_ms,
         "profiled_ms_per_frame": profiled_ms,
         "after_profile_ms_per_frame": ms_after,
-        "phases": {p: {"wall_ms": wall[p], "kernel_ms": inside[p]}
-                   for p in sorted(wall, key=lambda p: -wall[p])},
-        "kernel_ms_per_frame": kernel_ms,
-        "busy_share": kernel_ms / frame_ms_mean,
+        "spans": {name: {"calls_per_frame": calls[name] / frames,
+                         "device_ms": span_ms[name]}
+                  for name in sorted(calls, key=lambda n: -span_ms[n])},
+        "device_ms_per_frame": 1e3 * att["device_s"] / frames,
+        "unattributed_ms_per_frame": 1e3 * att["unattributed_s"] / frames,
+        "idle_share": 1.0 - att["busy_s"] / window if window else None,
+        "wait_idle_ms_per_frame": 1e3 * att["wait_idle_s"] / frames,
+        "wait_idle_ms_by_site": {site: 1e3 * t / frames for site, t in
+                                 sorted(att["wait_idle"].items())},
+        "host_waits_per_frame": {site: n / frames
+                                 for site, n in sorted(waits.items())},
         "kernels": [{"name": name[:80], "launches_per_frame": n / frames,
                      "ms_per_frame": ms} for name, (n, ms) in top],
     }
@@ -240,11 +184,15 @@ def main(argv=None) -> int:
           + ", ".join(f"{t:.3f}" for t in out["frame_ms"])
           + f"), profiled {out['profiled_ms_per_frame']:.3f}, unprofiled "
           f"after the profile {out['after_profile_ms_per_frame']:.3f}")
-    print(f"{'phase':<16} {'wall ms/frame':>14} {'kernels ms/frame':>17}")
-    for phase, v in out["phases"].items():
-        print(f"{phase:<16} {v['wall_ms']:>14.3f} {v['kernel_ms']:>17.3f}")
-    print(f"all kernels {out['kernel_ms_per_frame']:.3f} ms/frame, busy share "
-          f"{out['busy_share']:.3f} of the unprofiled frame")
+    print(f"{'span':<24} {'calls/frame':>12} {'device ms/frame':>16}")
+    for name, v in out["spans"].items():
+        print(f"{name:<24} {v['calls_per_frame']:>12.1f} "
+              f"{v['device_ms']:>16.3f}")
+    print(f"device {out['device_ms_per_frame']:.3f} ms/frame "
+          f"({out['unattributed_ms_per_frame']:.3f} outside every span), "
+          f"idle share {out['idle_share']:.3f} of the profiled run, wait "
+          f"idle {out['wait_idle_ms_per_frame']:.3f} ms/frame; host waits "
+          f"a frame {out['host_waits_per_frame']}")
     for k in out["kernels"]:
         print(f"  {k['ms_per_frame']:9.3f} ms  {k['launches_per_frame']:7.1f}x"
               f"  {k['name']}")

@@ -104,8 +104,9 @@ def test_one_frame_from_a_carried_jax_state(mode, request):
 
 
 def test_frame_profile_covers_the_phases():
-    """The frame profiler times every phase of the frame, runs the same
-    frames in each of its runs and puts the wrapped functions back."""
+    """The frame profiler reads the frame's own spans: every phase of an
+    APIC frame, the CG's applies and preconditioner, the host waits, with
+    the same frames in each of its runs and no module attribute swapped."""
     from fluidsim_tpu_torch.ops import transfer_kernels as tk
     from fluidsim_tpu_torch.utils import frame_profile
 
@@ -114,35 +115,64 @@ def test_frame_profile_covers_the_phases():
                         device="cpu", mode="apic")
     sim.step()
     out = frame_profile.profile_frames(sim, frames=2)
-    assert set(out["phases"]) == {"sort", "stencil weights", "P2G",
-                                  "projection", "G2P", "advection"}
-    assert all(v["wall_ms"] > 0 and v["kernel_ms"] == 0
-               for v in out["phases"].values())
-    assert out["kernel_ms_per_frame"] == 0 and out["ms_per_frame"] > 0
+    waits = {"wait:" + site for site in ("pcg.test", "project.outer",
+                                         "project.scale", "upload.max_dt")}
+    assert set(out["spans"]) == {"frame", "sort", "weights", "P2G",
+                                 "projection", "pcg", "pcg.apply",
+                                 "pcg.precond", "G2P", "advection"} | waits
+    assert out["spans"]["frame"]["calls_per_frame"] == 1
+    assert out["spans"]["pcg.apply"]["calls_per_frame"] > 1
+    assert all(v["device_ms"] == 0 for v in out["spans"].values())
+    assert out["device_ms_per_frame"] == 0 and out["ms_per_frame"] > 0
+    assert out["idle_share"] == 1.0 and out["wait_idle_ms_per_frame"] == 0
     assert out["first_frame"] == 2 and len(out["frame_ms"]) == 2
     assert len(out["cg_iters"]) == 2 and out["cg_iters"][0] > 0
+    assert out["host_waits_per_frame"]["pcg.test"] == (
+        sum(out["cg_iters"]) + sum(out["outer_iters"])) / 2
     assert tk.sort_by_cell is sort and int(sim.state.frame) == 3
 
 
 def test_frame_profile_wraps_the_mpm_phases():
-    """Every MPM phase function is wrapped while the block runs and put
-    back after it, and a run reports the frame's fallback and CG counts
-    (one frame outside the profiler: under it an MPM frame's thousands of
-    small operations take tens of seconds on the CPU)."""
+    """An MPM frame opens the spans that the frame profiler reports, in
+    order, and leaves no module attribute swapped; a run reports the
+    frame's fallback and CG counts (one frame outside the profiler: under
+    it an MPM frame's thousands of small operations take seconds on the
+    CPU, which tests/test_torch_tracing.py spends once)."""
     from fluidsim_tpu_torch.models import mpm
-    from fluidsim_tpu_torch.utils import frame_profile
+    from fluidsim_tpu_torch.utils import frame_profile, profiling
 
-    phases = frame_profile.PHASES["mpm"]
-    originals = [getattr(mod, name) for _, mod, name in phases]
+    pcg = mpm.pcg
     sim = mpm.MpmSim("mpm_cone", density=10.0, device="cpu")
     start = sim.state
-    with frame_profile._phase_ranges("mpm", lambda: None):
-        assert all(getattr(mod, name) is not fn
-                   for (_, mod, name), fn in zip(phases, originals))
-        ms, frame_ms, counts = frame_profile._run(sim, start, 1, lambda: None)
-    assert all(getattr(mod, name) is fn
-               for (_, mod, name), fn in zip(phases, originals))
-    assert ms > 0 and len(frame_ms) == 1
+    opened = []
+    real = profiling.record_function
+
+    class Recorded:
+        def __init__(self, name):
+            opened.append(name)
+            self.range = real(name)
+
+        def __enter__(self):
+            return self.range.__enter__()
+
+        def __exit__(self, *exc):
+            return self.range.__exit__(*exc)
+
+    profiling.record_function = Recorded
+    try:
+        with profiling.tracing():
+            ms, frame_ms, counts = frame_profile._run(sim, start, 1,
+                                                      lambda: None)
+    finally:
+        profiling.record_function = real
+    top = [n for n in opened if not n.startswith(("fs:pcg", "fs:apply",
+                                                  "fs:wait", "fs:stress"))]
+    assert top == ["fs:" + n for n in (
+        "frame", "sort", "stencil", "cell ranges", "chunk plan", "P2G",
+        "density", "hardening", "solve", "gradV", "F update", "FLIP delta",
+        "advection")]
+    assert opened.count("fs:apply.gather") == counts[0][1] + 1
+    assert mpm.pcg is pcg and ms > 0 and len(frame_ms) == 1
     assert counts[0][0] == 0 and counts[0][1] > 0      # (spd_fallback, cg)
     assert frame_profile._kind(sim) == "mpm" and int(sim.state.frame) == 1
 
