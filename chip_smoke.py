@@ -278,6 +278,26 @@ plain version as in phase 3 and bit for bit against its order function
 or plain version, timed with its bound: entries ``<kernel>_257`` and
 ``<kernel>_255`` with the launches of (c) and (d).
 
+Phase 38, run after phase 37 and before phase 30: the MPM 3x3 chain's
+kernels (``csrc/mat3.cu``: ``piola_linearized``'s polar stress and its
+factor rows, the implicit apply ``StressDifferential.apply`` "full" and
+"spd", ``clamp_singular``, ``mm3``), each bit for bit against its plain
+version on the card: on the
+``synthetic.mat3_cases`` kinds (the CPU tests' random, near-singular,
+rotation and inverted matrices; the zero matrix, ranks 1 and 2, det < 0,
+equal singular values, exact zeros off the diagonal), and on the 255^3
+cone's own FE, FP, mu, lam and gathered g at frame 0 and after the fall's
+10 frames, ``mm3`` also with each operand transposed; there each timed
+beside its byte and operation bounds (the plain chain's f32 operations
+counted on the CPU) and its plain version.  ``MpmSim`` and
+``ShardedMpmSim`` (world size 1) at 255^3 run 2 frames with the kernels
+and 2 with the plain chain, the states bit for bit; their frames' launches
+are held to 1 polar stress, one apply of each variant per CG iteration and
+solve of that operator, 1 clamp and 4 ``mm3`` a frame; ptxas's register
+and spill lines for the four kernels, from the log kept beside the built
+library (none found, or a spill, fails).  Their entries in the JSON line
+below have ``replaces`` null and each its own launches a frame by path.
+
 The line before the last is a JSON object with one entry per kernel (and
 one per slab shape of phase 31, ``<kernel>_slab<rows>``, with the
 launches of the sharded path at world size 1 and the slab in ``slab``:
@@ -294,6 +314,7 @@ its wrapper's copy of the end ids to the host and its wait on it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3177,6 +3198,355 @@ def _validation_phase(dev, counted, torch):
     return results, launches
 
 
+# ---- phase 38: the MPM 3x3 chain's kernels (after 37, before phase 30) ---
+
+MAT3_ROWS = 100_003        # matrices of each synthetic kind: past a block edge
+MAT3_BOUND = 127           # mpm255.fall's cone: 255^3, 3,939,805 particles
+MAT3_FALL = 10             # the fall's frames
+MAT3_PLAIN_FRAMES = 2      # frames held to the plain chain bit for bit
+MAT3_SLAB_FRAMES = 2       # a slab rank's frames counted
+# the ATen calls that count as f32 operations of the plain chain
+_ARITH = frozenset(("add", "sub", "mul", "div", "sqrt", "abs", "neg",
+                    "reciprocal", "clamp", "clamp_min", "where", "gt", "lt",
+                    "ge", "ne", "argmin"))
+
+
+def _plain_ops(rows, fn, *args) -> float:
+    """f32 operations a row of the plain chain ``fn(*args)`` takes, on CPU
+    tensors of ``rows`` rows: the elements each arithmetic ATen call
+    writes (selects and compares included), over the rows."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in _ARITH:
+                Count.ops += out.numel()
+            return out
+
+    with Count():
+        fn(*args)
+    return Count.ops / rows
+
+
+def _mat3_ops(torch):
+    """Each kernel's plain chain's f32 operations a particle."""
+    from fluidsim_tpu_torch.ops import svd3 as sv
+    from fluidsim_tpu_torch.utils import synthetic
+
+    rows = 64
+    f = torch.as_tensor(synthetic.mat3_cases("near_identity", rows))
+    mu = lam = torch.ones(rows)
+    g9, scale = torch.ones(9, rows), torch.ones(rows)
+    _, dfull, dspd = sv.piola_linearized_plain(f, mu, lam)
+    return {"piola_linearized": _plain_ops(rows, sv.piola_linearized_plain,
+                                           f, mu, lam),
+            "stress_apply": _plain_ops(rows, dfull.apply_plain, g9, scale),
+            "stress_apply_spd": _plain_ops(rows, dspd.apply_plain, g9, scale),
+            "clamp_singular": _plain_ops(rows, sv.clamp_singular_plain, f,
+                                         0.975, 1.0075),
+            "mm3": _plain_ops(rows, sv.mm3_plain, f, f)}
+
+
+def _mat3_frame_inputs(sim, torch):
+    """What the 3x3 chain reads in a frame of the MPM sim ``sim`` from its
+    state: FE and FP as the sort's payload views, mu and lam, the K2 gw
+    gather ``g9`` of the grid velocity over the active cells, the force
+    scatter's scale (the frame-0 volumes at frame 0) and the F update's
+    ``I + dt gradV``."""
+    from fluidsim_tpu_torch.core.splines import cround
+    from fluidsim_tpu_torch.ops import mpm_kernels as mk
+    from fluidsim_tpu_torch.ops import transfer_kernels as tk
+    from fluidsim_tpu_torch.ops.svd3 import det3, hardening
+
+    prm, st = sim.params, sim.state
+    B, n = prm.bound, 2 * prm.bound + 1
+    pos_s, vel_s, fe, fp, vol, flat = mk.sort_mpm(st.pos, st.vel, st.FE,
+                                                  st.FP, st.volume, B)
+    w27t, gradw = mk.mpm_stencil(pos_s, B)
+    cs = tk.cell_starts(flat, n)
+    mass, mom = mk.p2g_mpm(w27t, vel_s, cs, sim.solid, B)
+    heavy = mass > prm.mass_threshold
+    velg = torch.where(heavy[None], mom / torch.where(heavy, mass, 1.0)[None],
+                       0.0)
+    dens = mk.density(mass, w27t, flat, sim.solid)
+    vol = torch.where(st.frame == 0, 1.0 / torch.where(dens > 0, dens, 1.0),
+                      vol)
+    mu, lam = hardening(prm.mu0, prm.lam0, prm.hardening_eps, det3(fp),
+                        exponent_cap=prm.hardening_max)
+    valid = torch.all(torch.abs(cround(pos_s)) <= B, dim=-1)
+    g9 = tk.g2p_gather_gw(torch.where((heavy & ~sim.solid)[None], velg, 0.0),
+                          gradw, flat)
+    gradv = g9.reshape(3, 3, -1).permute(2, 0, 1)
+    return dict(fe=fe, fp=fp, mu=mu, lam=lam, g9=g9,
+                scale=torch.where(valid, -vol, 0.0),
+                lhs=torch.eye(3, device=fe.device) + st.dt * gradv)
+
+
+def _mat3_synthetic(kind, dev, torch):
+    """``synthetic.mat3_cases(kind)`` as FE, with random FP, mu, lam, g9,
+    scale and ``I + 0.05 N`` for the F update's first factor."""
+    import numpy as np
+
+    from fluidsim_tpu_torch.ops.svd3 import hardening
+    from fluidsim_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(SEED)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    rows = MAT3_ROWS
+    mu, lam = hardening(16326.5, 255782.0, 10.0,
+                        t(rng.uniform(0.9, 1.1, rows)))
+    return dict(fe=t(synthetic.mat3_cases(kind, rows, SEED)),
+                fp=t(synthetic.mat3_cases("random", rows, SEED + 1)),
+                mu=mu, lam=lam, g9=t(rng.normal(size=(9, rows))),
+                scale=t(-rng.uniform(0.0, 2.0, rows)),
+                lhs=t(synthetic.mat3_cases("near_identity", rows, SEED + 2)))
+
+
+def _mat3_checks(label, inp, torch, ops=None):
+    """Each kernel against its plain version bit for bit on ``inp``, as the
+    frame calls them (and ``mm3`` with each operand transposed, the clamp
+    on FE itself too); with ``ops`` also timed beside its bounds, as
+    ``_compare`` does.  Returns the timed entries."""
+    from fluidsim_tpu_torch.ops import svd3 as sv
+
+    fe, fp, mu, lam = inp["fe"], inp["fp"], inp["mu"], inp["lam"]
+    g9, scale, lhs = inp["g9"], inp["scale"], inp["lhs"]
+    rows = fe.shape[0]
+    lo, hi = 1.0 - 0.025, 1.0 + 0.0075        # theta_c, theta_s
+
+    def polar():
+        p0, d, _ = sv.piola_linearized(fe, mu, lam)
+        return p0, d.factors
+
+    def polar_plain():
+        p0, d, _ = sv.piola_linearized_plain(fe, mu, lam)
+        return p0, sv.factor_rows(*d.factors)
+
+    _require_bitwise(f"polar stress ({label}): P0 and the factor rows (R, "
+                     "six of S, cof, J)", polar(), polar_plain(), torch)
+    p0, dfull, dspd = sv.piola_linearized(fe, mu, lam)
+    _, qfull, qspd = sv.piola_linearized_plain(fe, mu, lam)
+    for tag, d, q in (("full", dfull, qfull), ("spd", dspd, qspd)):
+        _require_bitwise(f"apply {tag} ({label})", d.apply(g9, scale),
+                         q.apply_plain(g9, scale), torch)
+    t_fe = sv.mm3(lhs, fe)
+    f_total = sv.mm3(t_fe, fp)
+    pairs = {"P0 FE^T": (p0, fe.transpose(-1, -2)), "(I + dt gradV) FE":
+             (lhs, fe), "T FP": (t_fe, fp), "FE^T FP": (fe.transpose(-1, -2),
+                                                       fp),
+             "FE^T FP^T": (fe.transpose(-1, -2), fp.transpose(-1, -2))}
+    for f in (t_fe, fe):
+        _require_bitwise(f"clamp ({label})", sv.clamp_singular(f, lo, hi),
+                         sv.clamp_singular_plain(f, lo, hi), torch)
+    inv = sv.clamp_singular(t_fe, lo, hi)[1]
+    pairs["V s^-1 U^T F"] = (inv, f_total)
+    for name, (a, b) in pairs.items():
+        _require_bitwise(f"mm3 {name} ({label})", sv.mm3(a, b),
+                         sv.mm3_plain(a, b), torch)
+    if ops is None:
+        return {}
+    b4 = 4 * rows
+    res = {"piola_linearized": _compare(
+        f"polar stress piola_linearized ({label})", polar, polar_plain, 0.0,
+        (fe, mu, lam), ops["piola_linearized"] * rows, torch)}
+    # the factors an apply reads: R, six of S, cof, J ("full"); cof ("spd")
+    for key, d, q, fac_rows in (("stress_apply", dfull, qfull, 25),
+                                ("stress_apply_spd", dspd, qspd, 9)):
+        res[key] = _compare(
+            f"apply {key} ({label})", lambda d=d: d.apply(g9, scale),
+            lambda q=q: q.apply_plain(g9, scale), 0.0,
+            (g9, fe, mu, lam, scale), ops[key] * rows, torch,
+            extra_bytes=fac_rows * b4)
+    res["clamp_singular"] = _compare(
+        f"clamp clamp_singular ({label})",
+        lambda: sv.clamp_singular(t_fe, lo, hi),
+        lambda: sv.clamp_singular_plain(t_fe, lo, hi), 0.0, (t_fe,),
+        ops["clamp_singular"] * rows, torch)
+    res["mm3"] = _compare(f"mm3 T FP ({label})", lambda: sv.mm3(t_fe, fp),
+                          lambda: sv.mm3_plain(t_fe, fp), 0.0, (t_fe, fp),
+                          ops["mm3"] * rows, torch)
+    for key in res:
+        res[key]["ops_per_particle"] = ops[key]
+    return res
+
+
+@contextlib.contextmanager
+def _plain_chain():
+    """The MPM frames' 3x3 chain on its plain versions: every wrapper the
+    frames call swapped for its plain version while the block runs."""
+    from fluidsim_tpu_torch.models import mpm
+    from fluidsim_tpu_torch.ops import mpm_kernels as mk
+    from fluidsim_tpu_torch.ops import svd3 as sv
+    from fluidsim_tpu_torch.parallel import mpm_sharded as ms
+
+    swaps = [(m, "mm3", sv.mm3_plain) for m in (mk, mpm, ms)]
+    swaps += [(m, "piola_linearized", sv.piola_linearized_plain)
+              for m in (mk, ms)]
+    swaps += [(m, "clamp_singular", sv.clamp_singular_plain)
+              for m in (mpm, ms)]
+    swaps.append((sv.StressDifferential, "apply",
+                  sv.StressDifferential.apply_plain))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    for obj, name, plain in swaps:
+        setattr(obj, name, plain)
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def _same_state(label, a, b, torch):
+    """Raise unless the two states' tensors hold the same bits."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.contiguous().view(torch.int32), y.contiguous().view(
+                torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: {f.name} not bit for bit equal")
+    print(f"bitwise {label}: equal")
+
+
+def _mat3_applies(m, params):
+    """An MPM frame's implicit applies by variant, from its metrics: one
+    per CG iteration and solve of each operator (a hybrid fallback's SPD
+    solve after ``cg_hybrid_cap`` iterations of the full one)."""
+    if params.hessian == "hybrid" and m["spd_fallback"]:
+        full = params.cg_hybrid_cap + 1
+        return full, m["cg_iters"] + _mpm_solves(m, params)[0] - full
+    applies = m["cg_iters"] + 1
+    return (0, applies) if params.hessian == "spd" else (applies, 0)
+
+
+def _mat3_frames(label, sim, frames, torch):
+    """Step ``frames`` frames with the mat3 launch counts set to 0 before
+    each; hold each frame's counts to 1 polar stress, the frame's applies
+    of each variant (``_mat3_applies``), 1 clamp and 4 ``mm3``.  Returns
+    the counts a frame, under the kernels' entry names, and the frames' CG
+    iterations."""
+    from fluidsim_tpu_torch.ops import svd3 as sv
+
+    wrappers = (sv.piola_linearized, sv.clamp_singular, sv.mm3)
+    applies = sv.StressDifferential.launches
+    per_frame, cg = [], []
+    for f in range(frames):
+        for fn in wrappers:
+            fn.launches = 0
+        applies.update(full=0, spd=0)
+        m = sim.step()
+        got = {fn.__name__: fn.launches for fn in wrappers}
+        got.update(stress_apply=applies["full"],
+                   stress_apply_spd=applies["spd"])
+        full, spd = _mat3_applies(m, sim.params)
+        want = {"piola_linearized": 1, "clamp_singular": 1, "mm3": 4,
+                "stress_apply": full, "stress_apply_spd": spd}
+        if got != want:
+            raise AssertionError(f"{label} frame {f}: launches {got}, "
+                                 f"expected {want}")
+        per_frame.append(got)
+        cg.append(m["cg_iters"])
+    print(f"{label}: launches a frame {json.dumps(per_frame[-1])}, CG "
+          f"iterations {cg}")
+    return per_frame[-1], cg
+
+
+def _mat3_against_plain(label, sim, frames, torch):
+    """``frames`` frames from the sim's state with the kernels and again
+    with the plain chain, the two states bit for bit; the sim is left at
+    its start."""
+    import dataclasses
+
+    copy = lambda s: dataclasses.replace(s, **{
+        f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
+    start = copy(sim.state)
+    for _ in range(frames):
+        sim.step()
+    got = sim.state
+    sim.state = copy(start)
+    with _plain_chain():
+        for _ in range(frames):
+            sim.step()
+    _same_state(f"{label}: {frames} frames with the kernels against the "
+                "plain chain", got, sim.state, torch)
+    sim.state = start
+
+
+def _mat3_ptxas():
+    """ptxas's lines for the four kernels of ``csrc/mat3.cu`` from the
+    build log kept beside the library; raise if a kernel has none, or on a
+    spill."""
+    from fluidsim_tpu_torch import native
+
+    names = ("polar_stress_kernel", "stress_apply_kernel",
+             "clamp_singular_kernel", "mm3_kernel")
+    lines, keep, out = native.build_log().splitlines(), False, []
+    for line in lines:
+        if "Compiling entry function" in line:
+            keep = any(k in line for k in names)
+        if keep:
+            out.append(line.strip())
+    missing = [k for k in names
+               if not any("Compiling entry function" in x and k in x
+                          for x in out)]
+    if missing:
+        raise AssertionError(f"no ptxas lines for {missing} in the build "
+                             f"log of {native.library_path().name}")
+    for line in out:
+        print("ptxas mat3:", line)
+    spills = [x for x in out if "spill" in x and (
+        "0 bytes spill stores" not in x or "0 bytes spill loads" not in x)]
+    if spills:
+        raise AssertionError(f"mat3 kernels spill: {spills}")
+    return out
+
+
+def _mat3_phase(dev, torch):
+    """Phase 38 (see the module docstring).  Returns (the kernels' entries,
+    their launches a frame by path)."""
+    from fluidsim_tpu_torch.models.mpm import MpmSim
+    from fluidsim_tpu_torch.parallel import dryrun
+    from fluidsim_tpu_torch.parallel.mpm_sharded import ShardedMpmSim
+    from fluidsim_tpu_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    ptxas = _mat3_ptxas()
+    ops = _mat3_ops(torch)
+    print(f"mat3: plain chain's f32 operations a particle {json.dumps(ops)}")
+    for kind in synthetic.MAT3_KINDS:
+        _mat3_checks(f"{kind}, {MAT3_ROWS} rows",
+                     _mat3_synthetic(kind, dev, torch), torch)
+    sim = MpmSim("mpm_cone", bound=MAT3_BOUND, seed=SEED, device=dev)
+    P = sim.num_particles
+    where = f"{2 * MAT3_BOUND + 1}^3, {P} particles"
+    _mat3_checks(f"{where}, frame 0", _mat3_frame_inputs(sim, torch), torch)
+    _mat3_against_plain(f"MpmSim {where}", sim, MAT3_PLAIN_FRAMES, torch)
+    launches = {}
+    launches["mpm255"], _ = _mat3_frames(f"MpmSim {where}", sim, MAT3_FALL,
+                                        torch)
+    results = _mat3_checks(f"{where}, after frame {MAT3_FALL - 1}",
+                           _mat3_frame_inputs(sim, torch), torch, ops)
+    del sim
+    with dryrun.process_group(dev):
+        sim = ShardedMpmSim("mpm_cone", bound=MAT3_BOUND, seed=SEED,
+                            device=dev)
+        label = f"ShardedMpmSim world 1, {where}"
+        _mat3_against_plain(label, sim, MAT3_PLAIN_FRAMES, torch)
+        launches["slab_rank"], _ = _mat3_frames(label, sim, MAT3_SLAB_FRAMES,
+                                                torch)
+        del sim
+    for entry in results.values():
+        entry.update(shape=where, ptxas=[x for x in ptxas if "Used" in x
+                                         or "spill" in x])
+    print(f"phase 38: {time.perf_counter() - t_phase:.2f} s")
+    return results, launches
+
+
 def _runtime_phases(dev, counted, torch, flip_particles, flip_ms,
                     mpm_particles, before_last):
     """Phases 27-30, in a scratch directory inside the checkout that is
@@ -3250,7 +3620,7 @@ def main() -> int:
     t0 = time.perf_counter()
     native.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {native.library_path().name}")
-    for line in native.build_log.splitlines():
+    for line in native.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas:", line.strip())
 
@@ -3623,6 +3993,8 @@ def main() -> int:
         shapes, valid_launches = _validation_phase(dev, counted, torch)
         sharded["results"].update(shapes)
         sharded["launches"].update(valid_launches)
+        # ---- 38. the MPM 3x3 chain's kernels ---------------------------
+        sharded["mat3"] = _mat3_phase(dev, torch)
 
     runtime_launches = _runtime_phases(dev, counted, torch, flip_particles,
                                        flip_ms, mpm_particles, sharded_phases)
@@ -3691,6 +4063,13 @@ def main() -> int:
                 "launches_by_path": {k: v[base(name)]
                                      for k, v in paths.items()}}
                for name, (src, rep, launches) in sources.items()]
+    # phase 38's kernels replace no TPU kernel; launches a frame by path
+    mat3, mat3_launches = sharded["mat3"]
+    kernels += [{"name": name, "route": "cuda", "source": csrc + "mat3.cu",
+                 "replaces": None, **entry, "launches_by_path": {
+                     path: counts[name]
+                     for path, counts in mat3_launches.items()}}
+                for name, entry in mat3.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

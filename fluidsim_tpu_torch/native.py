@@ -24,13 +24,15 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("transfer.cu", "stencil.cu", "bucket.cu", "layout.cu", "rows.cu")
+SOURCES = ("transfer.cu", "stencil.cu", "bucket.cu", "layout.cu", "rows.cu",
+           "mat3.cu")
 HEADERS = ("tile_search.cuh",)      # included by the sources: in the hash too
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as void*, sizes as int64)
     # the K1 modes, the K2 gathers and K3/K4 take the grid's x extent nx
@@ -83,10 +85,17 @@ _SIGNATURES = {
     # scale, 1/theta, nx, n, stream
     "fs_cheb_steps": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_int, ctypes.c_int, _P),
+    # the MPM 3x3 chain (mat3.cu): a (P, 3, 3) operand as its pointer and
+    # three element strides; outputs, then P and the stream
+    "fs_polar_stress": (_P, _LL, _LL, _LL, _P, _P, _P, _P, _LL, _P),
+    "fs_stress_apply": (_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P,
+                        ctypes.c_int, _LL, _P),
+    "fs_clamp_singular": (_P, _LL, _LL, _LL, ctypes.c_float, ctypes.c_float,
+                          _P, _P, _LL, _P),
+    "fs_mm3": (_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _P),
 }
 
 _lib: ctypes.CDLL | None = None
-build_log = ""          # nvcc's output (ptxas register/spill report) of the build
 
 
 def _nvcc() -> str:
@@ -110,12 +119,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfluidsim_kernels_{h.hexdigest()[:16]}.so"
 
 
+def build_log() -> str:
+    """nvcc's output of the build of this library (ptxas's register and
+    spill report of every kernel), kept beside it; "" before a build."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build() -> Path:
     """Compile the kernels if no library for these sources exists yet;
     return its path.  Each source compiles in its own ``nvcc`` process, all
     at once; the objects are linked under a temporary name and renamed into
-    place, so concurrent builders never load a partial file."""
-    global build_log
+    place, so concurrent builders never load a partial file.  nvcc's output
+    is written beside the library first (``build_log``)."""
     out = library_path()
     if out.exists():
         return out
@@ -127,17 +143,20 @@ def build() -> Path:
                                    "-o", o], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(SOURCES, objs)]
-        build_log = "".join(p.communicate()[0] for p in procs)
+        log = "".join(p.communicate()[0] for p in procs)
         failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         lib = os.path.join(tmp, out.name)
         res = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib, *objs],
                              capture_output=True, text=True)
-        build_log += res.stdout + res.stderr
+        log += res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
-                               f"{build_log}")
+                               f"{log}")
+        log_tmp = Path(tmp) / "build.log"
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
         os.replace(lib, out)
     return out
 

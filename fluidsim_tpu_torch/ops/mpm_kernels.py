@@ -156,9 +156,11 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     particles whose base cell lies in the box and 0 otherwise.
     ``dforce(u)`` is the same scatter of ``dP(g FE) FE^T``, where ``g`` is
     the K2 gw gather of ``u`` over the active cells: an explicit linear
-    chain, so no automatic differentiation is involved.  ``hessian`` is
-    "full" (the exact corotated differential), "spd" (its Gauss-Newton
-    part) or "hybrid", which returns ``(f0, dforce_full, dforce_spd)``.
+    chain, so no automatic differentiation is involved; the 3x3 chain from
+    K2 gw's rows to K1 fg's is one ``StressDifferential.apply`` (one kernel
+    on the card).  ``hessian`` is "full" (the exact corotated
+    differential), "spd" (its Gauss-Newton part) or "hybrid", which
+    returns ``(f0, dforce_full, dforce_spd)``.
     The polar decomposition runs once for all of them.  ``plan`` is the
     frame's ``transfer_kernels.chunk_plan`` of ``cell_start``, shared by
     every force scatter (with None each launch on the card builds its own;
@@ -176,24 +178,23 @@ def make_force_fns(pos_s, FE, volume, mu, lam, gradw, cell_start, flat_s,
     valid = torch.all(torch.abs(cround(pos_s)) <= bound, dim=-1)
     scale = torch.where(valid, -volume, 0.0)
 
-    def scatter_sigma(sigma):
-        m9 = (scale[:, None] * sigma.reshape(p, 9)).contiguous()
+    def scatter_m9(m9):
         return _masked(tk.p2g_scatter_force(gradw, m9, cell_start, n, plan),
                        ~solid)
 
     def f0():
         with span("stress"):
-            sigma = mm3(p0, fe_t)
-        return scatter_sigma(sigma)
+            m9 = (scale[:, None] * mm3(p0, fe_t).reshape(p, 9)).contiguous()
+        return scatter_m9(m9)
 
     def dforce_with(dp):
         def dforce(u):
             with span("apply.gather"):
-                g = _gather_gw(u, active, gradw, flat_s)
+                g9 = tk.g2p_gather_gw(_masked(u, active), gradw, flat_s)
             with span("apply.stress"):
-                sigma = mm3(dp(mm3(g, FE)), fe_t)
+                m9 = dp.apply(g9, scale)
             with span("apply.scatter"):
-                return scatter_sigma(sigma)
+                return scatter_m9(m9)
         return dforce
 
     if hessian == "hybrid":

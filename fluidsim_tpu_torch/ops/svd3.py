@@ -10,21 +10,78 @@ the card could run in TF32, and the elementwise form rounds the same on
 every device.  The reference's ``custom_jvp`` polar rotation and its
 ``jax.jvp`` of the cofactor matrix become the explicit differentials
 ``polar_delta`` and ``dcofactor3``.
+
+On the card the MPM frame's chain runs as four CUDA kernels of
+``csrc/mat3.cu``, a thread per particle with every matrix in registers,
+each equal to its plain version bit for bit: ``piola_linearized`` (the
+polar stress and the factors an apply reads), ``StressDifferential.apply``
+(an implicit apply's ``dP(g FE) FE^T``), ``clamp_singular`` and ``mm3``.
+Each takes its plain version (``piola_linearized_plain``,
+``StressDifferential.apply_plain``, ``clamp_singular_plain``,
+``mm3_plain``) for CPU tensors only, raises on any other device or on an
+operand its kernel does not take, and counts its launches in
+``.launches`` (the apply's by variant).  The plain functions run on any
+device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from fluidsim_tpu_torch import native
 
-def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched 3x3 matmul of (..., 3, 3) tensors."""
+
+def mm3_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 matmul of (..., 3, 3) tensors, on any device."""
     return torch.stack(
         [torch.stack([a[..., i, 0] * b[..., 0, j]
                       + a[..., i, 1] * b[..., 1, j]
                       + a[..., i, 2] * b[..., 2, j]
                       for j in range(3)], dim=-1)
          for i in range(3)], dim=-2)
+
+
+def _mat_strides(name: str, t: torch.Tensor, p: int, device):
+    """The element strides of ``t``, a (P, 3, 3) f32 operand on ``device``
+    in any layout (a transposed view, a slice of the sort's payload, a view
+    of (9, P) rows); raise on anything else."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != (p, 3, 3):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{(p, 3, 3)}")
+    return t.stride()
+
+
+def _launch(name: str, device, launch):
+    """Run ``launch(lib, stream)`` on ``device``; raise on a launch
+    error."""
+    lib = native.library()
+    with torch.cuda.device(device):
+        rc = launch(lib, native.stream_ptr(device))
+    native.check_launch(name, rc)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 matmul.  CPU tensors take ``mm3_plain`` ((..., 3, 3),
+    broadcast); CUDA operands, (P, 3, 3) f32 each in any layout, launch
+    ``fs_mm3`` (``csrc/mat3.cu``), equal to it bit for bit, into a new
+    (P, 3, 3) tensor."""
+    if a.device.type == "cpu":
+        return mm3_plain(a, b)
+    native.require_cuda(a, "mm3")
+    dev, p = a.device, a.shape[0]
+    sa, sb = _mat_strides("a", a, p, dev), _mat_strides("b", b, p, dev)
+    out = torch.empty((p, 3, 3), dtype=torch.float32, device=dev)
+    _launch("mm3", dev, lambda lib, stream: lib.fs_mm3(
+        a.data_ptr(), *sa, b.data_ptr(), *sb, out.data_ptr(), p, stream))
+    mm3.launches += 1
+    return out
+
+
+mm3.launches = 0
 
 
 def mv3(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +197,7 @@ def svd3(f: torch.Tensor):
     unrolled Jacobi, U from F V with Gram-Schmidt and an orthonormal
     completion for (near-)singular values.  s >= 0 descending, U and V
     orthogonal with ``det(U V^T) = sign(det F)``.  Returns (U, s, V^T)."""
-    w, v = _jacobi_eigh3(mm3(f.transpose(-1, -2), f))
+    w, v = _jacobi_eigh3(mm3_plain(f.transpose(-1, -2), f))
     w, v = _sort_desc3(w, v)
     s = torch.sqrt(torch.clamp(w, min=0.0))
 
@@ -149,7 +206,7 @@ def svd3(f: torch.Tensor):
     v = torch.stack([v[..., :, 0], v[..., :, 1], v[..., :, 2] * flip[..., None]],
                     dim=-1)
 
-    fv = mm3(f, v)
+    fv = mm3_plain(f, v)
     eye = torch.eye(3, dtype=f.dtype, device=f.device).expand(f.shape)
     u0 = _unit(fv[..., :, 0], eye[..., :, 0])
     f1 = fv[..., :, 1]
@@ -169,14 +226,16 @@ def svd3(f: torch.Tensor):
 def polar_rs(f: torch.Tensor):
     """(R, S) of the polar decomposition F = R S, from one SVD."""
     u, s, vt = svd3(f)
-    return mm3(u, vt), mm3(vt.transpose(-1, -2), s[..., :, None] * vt)
+    return mm3_plain(u, vt), mm3_plain(vt.transpose(-1, -2),
+                                       s[..., :, None] * vt)
 
 
 def polar_delta(r: torch.Tensor, s: torch.Tensor, df: torch.Tensor):
     """Rotation differential dR for a perturbation dF of F = R S: solve the
     3x3 skew system built from S (closed-form adjugate inverse) for the
     entries of ``R^T dR``, then ``dR = R skew(x)``.  Linear in ``dF``."""
-    rhs = mm3(r.transpose(-1, -2), df) - mm3(df.transpose(-1, -2), r)
+    rhs = (mm3_plain(r.transpose(-1, -2), df)
+           - mm3_plain(df.transpose(-1, -2), r))
     v = torch.stack([rhs[..., 0, 1], rhs[..., 0, 2], rhs[..., 1, 2]], dim=-1)
     m = _mat([[s[..., 0, 0] + s[..., 1, 1], s[..., 1, 2], -s[..., 0, 2]],
               [s[..., 1, 2], s[..., 0, 0] + s[..., 2, 2], s[..., 0, 1]],
@@ -189,7 +248,7 @@ def polar_delta(r: torch.Tensor, s: torch.Tensor, df: torch.Tensor):
     k = _mat([[zero, x[..., 0], x[..., 1]],
               [-x[..., 0], zero, x[..., 2]],
               [-x[..., 1], -x[..., 2], zero]])
-    return mm3(r, k)
+    return mm3_plain(r, k)
 
 
 def dcofactor3(f: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
@@ -216,34 +275,148 @@ def _ddot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def piola_linearized(fe: torch.Tensor, mu: torch.Tensor, lam: torch.Tensor):
-    """The corotated first Piola stress at FE,
-    ``P0 = 2 mu (FE - R) + lam (J - 1) cof(FE)``, and its two linear
-    differentials, from one polar decomposition:
+# the rows of ``fs_polar_stress``'s factors ``fac``, (25, P): what an apply
+# reads of R, S, cof and J, each matrix row-major
+FACTOR_ROWS = {"R": range(0, 9), "S": range(9, 15), "cof": range(15, 24),
+               "J": range(24, 25)}
+S_ENTRIES = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))  # polar_delta's
 
-      dP_full(dF) = 2 mu (dF - dR) + lam ((cof:dF) cof + (J - 1) dcof)
-      dP_spd(dF)  = 2 mu dF + lam (cof:dF) cof
 
-    ``dP_full`` is the exact corotated Hessian; ``dP_spd`` keeps its
-    positive-semidefinite Gauss-Newton part.  Returns (P0, dP_full, dP_spd).
-    """
-    r, s = polar_rs(fe)
-    j = det3(fe)
-    cof = cofactor3(fe)
-    mu_, lam_ = mu[..., None, None], lam[..., None, None]
-    p0 = 2.0 * mu_ * (fe - r) + (lam * (j - 1.0))[..., None, None] * cof
+def factor_rows(r: torch.Tensor, s: torch.Tensor, cof: torch.Tensor,
+                j: torch.Tensor) -> torch.Tensor:
+    """The (25, P) factor rows that ``fs_polar_stress`` writes, from the
+    plain factors: R's nine entries, the six of S that ``polar_delta``
+    reads, cof's nine, J."""
+    p = j.shape[0]
+    return torch.cat([r.reshape(p, 9).T, torch.stack(
+        [s[:, i, k] for i, k in S_ENTRIES]), cof.reshape(p, 9).T, j[None]])
 
-    def dp_full(df):
+
+class StressDifferential:
+    """The linear differential ``dP(dF)`` of the corotated Piola stress at
+    FE, from the factors of one polar decomposition (R, S, ``cof(FE)``,
+    J = det FE):
+
+      "full": dP(dF) = 2 mu (dF - dR) + lam ((cof:dF) cof + (J - 1) dcof)
+      "spd":  dP(dF) = 2 mu dF + lam (cof:dF) cof
+
+    the exact corotated Hessian and its positive-semidefinite Gauss-Newton
+    part.  ``factors`` is (R, S, cof, J) from the plain chain, or the
+    (25, P) rows ``fac`` that ``piola_linearized``'s kernel wrote.
+
+    ``dp.apply(g9, scale)`` is an implicit apply's whole 3x3 chain,
+    ``scale (dP(g FE) FE^T)`` as (P, 9) row-major rows (K1 fg's input),
+    with ``g[p, c, k] = g9[3c + k, p]`` (K2 gw's (9, P) output):
+    ``apply_plain`` for CPU tensors, the kernel ``fs_stress_apply`` on the
+    ``fac`` rows for CUDA tensors, counted in
+    ``StressDifferential.launches[variant]``.  ``dp(dF)``, the plain
+    chain on any device, takes the plain factors."""
+
+    launches = {"full": 0, "spd": 0}
+
+    def __init__(self, spd: bool, fe, mu, lam, factors):
+        self.spd, self.variant = spd, "spd" if spd else "full"
+        self.fe, self.mu, self.lam = fe, mu, lam
+        self.factors = factors
+
+    def __call__(self, df: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.factors, torch.Tensor):
+            raise TypeError("StressDifferential: the kernel's factor rows "
+                            "serve apply only (the plain chain needs "
+                            "piola_linearized_plain's factors)")
+        r, s, cof, j = self.factors
+        mu_, lam_ = self.mu[..., None, None], self.lam[..., None, None]
+        if self.spd:
+            return (2.0 * mu_ * df
+                    + lam_ * _ddot(cof, df)[..., None, None] * cof)
         dr = polar_delta(r, s, df)
-        dcof = dcofactor3(fe, df)
+        dcof = dcofactor3(self.fe, df)
         return (2.0 * mu_ * (df - dr)
                 + lam_ * (_ddot(cof, df)[..., None, None] * cof
                           + (j - 1.0)[..., None, None] * dcof))
 
-    def dp_spd(df):
-        return 2.0 * mu_ * df + lam_ * _ddot(cof, df)[..., None, None] * cof
+    def apply_plain(self, g9: torch.Tensor, scale: torch.Tensor):
+        """``scale (dP(g FE) FE^T)`` (P, 9) by the plain chain, on any
+        device."""
+        p = g9.shape[1]
+        g = g9.reshape(3, 3, p).permute(2, 0, 1)
+        sigma = mm3_plain(self(mm3_plain(g, self.fe)),
+                          self.fe.transpose(-1, -2))
+        return (scale[:, None] * sigma.reshape(p, 9)).contiguous()
 
-    return p0, dp_full, dp_spd
+    def apply(self, g9: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        """``scale (dP(g FE) FE^T)`` (P, 9): ``apply_plain`` for CPU
+        tensors, else one launch of ``fs_stress_apply`` (``csrc/mat3.cu``),
+        equal to it bit for bit, into a new (P, 9) tensor.  ``g9`` (9, P)
+        and ``scale`` (P,) f32 contiguous, on the device of the factor
+        rows."""
+        if g9.device.type == "cpu":
+            return self.apply_plain(g9, scale)
+        native.require_cuda(g9, "StressDifferential.apply")
+        fac, fe = self.factors, self.fe
+        if not isinstance(fac, torch.Tensor):
+            raise ValueError("StressDifferential.apply: no kernel factor "
+                             "rows (built by piola_linearized_plain)")
+        dev, p = g9.device, fe.shape[0]
+        native.check_tensor("g9", g9, torch.float32, (9, p), dev)
+        fs = _mat_strides("fe", fe, p, dev)
+        native.check_tensor("fac", fac, torch.float32, (25, p), dev)
+        for name, t in (("mu", self.mu), ("lam", self.lam),
+                        ("scale", scale)):
+            native.check_tensor(name, t, torch.float32, (p,), dev)
+        m9 = torch.empty((p, 9), dtype=torch.float32, device=dev)
+        _launch("StressDifferential.apply", dev,
+                lambda lib, stream: lib.fs_stress_apply(
+                    g9.data_ptr(), fe.data_ptr(), *fs, fac.data_ptr(),
+                    self.mu.data_ptr(), self.lam.data_ptr(),
+                    scale.data_ptr(), m9.data_ptr(), int(self.spd), p,
+                    stream))
+        StressDifferential.launches[self.variant] += 1
+        return m9
+
+
+def piola_linearized_plain(fe: torch.Tensor, mu: torch.Tensor,
+                           lam: torch.Tensor):
+    """``piola_linearized`` by the plain chain, on any device."""
+    r, s = polar_rs(fe)
+    j = det3(fe)
+    cof = cofactor3(fe)
+    p0 = 2.0 * mu[..., None, None] * (fe - r) + (
+        lam * (j - 1.0))[..., None, None] * cof
+    factors = (r, s, cof, j)
+    return (p0, StressDifferential(False, fe, mu, lam, factors),
+            StressDifferential(True, fe, mu, lam, factors))
+
+
+def piola_linearized(fe: torch.Tensor, mu: torch.Tensor, lam: torch.Tensor):
+    """The corotated first Piola stress at FE,
+    ``P0 = 2 mu (FE - R) + lam (J - 1) cof(FE)``, and its two linear
+    differentials from one polar decomposition.  Returns (P0, dP_full,
+    dP_spd), the differentials ``StressDifferential``s.
+
+    CPU tensors take ``piola_linearized_plain``.  CUDA tensors launch
+    ``fs_polar_stress`` (``csrc/mat3.cu``), equal to it bit for bit: ``fe``
+    (P, 3, 3) f32 in any layout, ``mu`` and ``lam`` (P,) f32 contiguous;
+    P0 is a new (P, 3, 3) tensor, and the differentials hold the kernel's
+    (25, P) factor rows (``FACTOR_ROWS``)."""
+    if fe.device.type == "cpu":
+        return piola_linearized_plain(fe, mu, lam)
+    native.require_cuda(fe, "piola_linearized")
+    dev, p = fe.device, fe.shape[0]
+    fs = _mat_strides("fe", fe, p, dev)
+    native.check_tensor("mu", mu, torch.float32, (p,), dev)
+    native.check_tensor("lam", lam, torch.float32, (p,), dev)
+    p0 = torch.empty((p, 3, 3), dtype=torch.float32, device=dev)
+    fac = torch.empty((25, p), dtype=torch.float32, device=dev)
+    _launch("piola_linearized", dev, lambda lib, stream: lib.fs_polar_stress(
+        fe.data_ptr(), *fs, mu.data_ptr(), lam.data_ptr(), p0.data_ptr(),
+        fac.data_ptr(), p, stream))
+    piola_linearized.launches += 1
+    return (p0, StressDifferential(False, fe, mu, lam, fac),
+            StressDifferential(True, fe, mu, lam, fac))
+
+
+piola_linearized.launches = 0
 
 
 def hardening(mu0: float, lam0: float, eps: float, jp: torch.Tensor,
@@ -258,10 +431,33 @@ def hardening(mu0: float, lam0: float, eps: float, jp: torch.Tensor,
     return mu0 * h, lam0 * h
 
 
-def clamp_singular(f: torch.Tensor, minv: float, maxv: float):
-    """Clamp F's singular values to ``[minv, maxv]``: returns
-    ``(U clamp(s) V^T, V clamp(s)^-1 U^T)``."""
+def clamp_singular_plain(f: torch.Tensor, minv: float, maxv: float):
+    """``clamp_singular`` by the plain chain, on any device."""
     u, s, vt = svd3(f)
     sc = torch.clamp(s, minv, maxv)
-    fe = mm3(u, sc[..., :, None] * vt)
-    return fe, mm3(vt.transpose(-1, -2), u.transpose(-1, -2) / sc[..., :, None])
+    fe = mm3_plain(u, sc[..., :, None] * vt)
+    return fe, mm3_plain(vt.transpose(-1, -2),
+                         u.transpose(-1, -2) / sc[..., :, None])
+
+
+def clamp_singular(f: torch.Tensor, minv: float, maxv: float):
+    """Clamp F's singular values to ``[minv, maxv]``: returns
+    ``(U clamp(s) V^T, V clamp(s)^-1 U^T)``.  CPU tensors take
+    ``clamp_singular_plain``; a CUDA ``f``, (P, 3, 3) f32 in any layout,
+    launches ``fs_clamp_singular`` (``csrc/mat3.cu``), equal to it bit for
+    bit, into two new (P, 3, 3) tensors."""
+    if f.device.type == "cpu":
+        return clamp_singular_plain(f, minv, maxv)
+    native.require_cuda(f, "clamp_singular")
+    dev, p = f.device, f.shape[0]
+    fs = _mat_strides("f", f, p, dev)
+    fe = torch.empty((p, 3, 3), dtype=torch.float32, device=dev)
+    inv = torch.empty_like(fe)
+    _launch("clamp_singular", dev, lambda lib, stream: lib.fs_clamp_singular(
+        f.data_ptr(), *fs, minv, maxv, fe.data_ptr(), inv.data_ptr(), p,
+        stream))
+    clamp_singular.launches += 1
+    return fe, inv
+
+
+clamp_singular.launches = 0

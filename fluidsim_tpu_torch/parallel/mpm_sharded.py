@@ -137,27 +137,28 @@ def sharded_mpm_step(params: MpmParams, slab: Slab, cap: int, mig_cap: int,
     valid = torch.all(torch.abs(cround(pos)) <= b, dim=-1)
     scale = torch.where(valid, -vol_alive, 0.0)
 
-    def scatter_sigma(sigma):
-        """K1 fg of ``scale * sigma`` on the transfer slab, masked to
-        non-solid cells, its halo folded back: (3, nl, n, n)."""
-        m9 = (scale[:, None] * sigma.reshape(cap, 9)).contiguous()
+    def scatter_m9(m9):
+        """K1 fg of the (cap, 9) rows ``m9`` on the transfer slab, masked
+        to non-solid cells, its halo folded back: (3, nl, n, n)."""
         f = tk.p2g_scatter_force(gradw, m9, cell_start, n, plan)
         return slab.fold(torch.where(ns_ext[None], f, 0.0), W, dim=1)
 
     def explicit_force():
         with span("stress"):
-            sigma = mm3(p0, fe_t)
-        return scatter_sigma(sigma)
+            m9 = (scale[:, None]
+                  * mm3(p0, fe_t).reshape(cap, 9)).contiguous()
+        return scatter_m9(m9)
 
     def dforce_with(dp):
         def dforce(wv_loc):
             with span("apply.gather"):
-                g = _gather_gw(slab.halo(wv_loc, W, dim=1), active_ext,
-                               gradw, flat, count)
+                g9 = tk.g2p_gather_gw(
+                    torch.where(active_ext[None], slab.halo(wv_loc, W, dim=1),
+                                0.0), gradw, flat, count)
             with span("apply.stress"):
-                sigma = mm3(dp(mm3(g, fe_in)), fe_t)
+                m9 = dp.apply(g9, scale)
             with span("apply.scatter"):
-                return scatter_sigma(sigma)
+                return scatter_m9(m9)
         return dforce
 
     with span("solve"):

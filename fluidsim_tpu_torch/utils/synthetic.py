@@ -2,8 +2,9 @@
 seed with numpy: the run tables of the bucket move (K5), skewed sorted
 states for the K1 modes (K1, K1 aff, K1 fg), a skewed window-grouped
 state for the base-cell scatter (K6a), a skewed sorted row state for
-the row scatter-add (K8b) and the edge cases of the G2P gather's tiles
-(K2).  ``chip_smoke.py`` holds the CUDA
+the row scatter-add (K8b), the edge cases of the G2P gather's tiles
+(K2) and 3x3 matrices for the MPM chain's kernels (``mat3_cases``).
+``chip_smoke.py`` holds the CUDA
 kernels to their plain versions on them, and the CPU tests hold the plain
 versions and the plans to numpy on the same inputs."""
 
@@ -243,3 +244,76 @@ def gather_edge_cases(p: int, n: int, seed: int = 0, device="cpu"):
     cases.append(("slab", fm[:, :nx].contiguous(), w27t,
                   *counted(faces, cut, nx * n * n)))
     return cases
+
+
+# the kinds of ``mat3_cases``: tests/test_torch_mpm_kernels.py's four, the F
+# update's neighbourhood of the identity, then the edge cases of svd3's
+# branches
+MAT3_KINDS = ("random", "near_singular", "rotation", "inverted",
+              "near_identity", "zero", "rank1", "rank2", "negative_det",
+              "equal_singular", "zero_offdiag")
+
+
+def mat3_cases(kind: str, count: int = 2000, seed: int = 0) -> np.ndarray:
+    """(count, 3, 3) f32 matrices of one of ``MAT3_KINDS``:
+
+    - ``random``, ``near_singular`` (a smallest singular value below 1e-4,
+      half with the two largest equal), ``rotation`` and ``inverted``
+      (``I + 0.3 N`` with a column negated), as the CPU tests draw them;
+    - ``near_identity``: ``I + 0.05 N``, deformation gradients;
+    - ``zero``; ``rank1`` (``a b^T``) and ``rank2`` (a zero singular
+      value): U's Gram-Schmidt and rank-1 fallbacks;
+    - ``negative_det``: random with det < 0 (the sign carried by U);
+    - ``equal_singular``: scaled rotations, scaled identities and
+      ``[[a, b, 0], [b, a, 0], [0, 0, c]]``, whose ``F^T F`` has equal
+      diagonal entries (tau = 0) with exact zeros or not off it;
+    - ``zero_offdiag``: random with one off-diagonal entry a row exactly
+      0, a quarter of them diagonal.
+    """
+    base = {"random": 0, "near_singular": 1, "rotation": 2, "inverted": 3}
+    rng = np.random.default_rng(seed * 16 + base.get(
+        kind, 4 + MAT3_KINDS.index(kind)))
+    f = rng.normal(size=(count, 3, 3))
+    if kind == "near_singular":
+        u, s, vt = np.linalg.svd(f)
+        s[:, 2] = rng.uniform(0, 1e-4, size=count)
+        s[: count // 2, 1] = s[: count // 2, 0]
+        f = u @ (s[:, :, None] * vt)
+    elif kind == "rotation":
+        q, _ = np.linalg.qr(f)
+        f = q * np.sign(np.linalg.det(q))[:, None, None]
+    elif kind == "inverted":
+        f = np.eye(3) + 0.3 * f
+        f[:, :, 0] *= -1.0
+    elif kind == "near_identity":
+        f = np.eye(3) + 0.05 * f
+    elif kind == "zero":
+        f = np.zeros_like(f)
+    elif kind == "rank1":
+        f = f[:, :, :1] * rng.normal(size=(count, 1, 3))
+    elif kind == "rank2":
+        u, s, vt = np.linalg.svd(f)
+        s[:, 2] = 0.0
+        f = u @ (s[:, :, None] * vt)
+    elif kind == "negative_det":
+        f[:, :, 0] *= -np.sign(np.linalg.det(f))[:, None]
+    elif kind == "equal_singular":
+        q, _ = np.linalg.qr(f)
+        scale = rng.choice([0.5, 1.0, 2.0, 3.0], size=(count, 1, 1))
+        f = q * scale
+        third = count // 3
+        f[:third] = np.eye(3) * scale[:third]
+        rest = count - 2 * third
+        g = np.zeros((rest, 3, 3))
+        g[:, 0, 0] = g[:, 1, 1] = rng.choice([1.0, 1.5, 2.0], size=rest)
+        g[:, 0, 1] = g[:, 1, 0] = rng.choice([0.25, 0.5], size=rest)
+        g[:, 2, 2] = rng.choice([0.5, 1.0, 2.0], size=rest)
+        f[2 * third:] = g
+    elif kind == "zero_offdiag":
+        for i in range(3):
+            j = (i + 1 + rng.integers(0, 2, size=count)) % 3
+            f[np.arange(count), i, j] = 0.0
+        f[: count // 4] *= np.eye(3)
+    elif kind != "random":
+        raise ValueError(f"mat3_cases: unknown kind {kind!r}")
+    return f.astype(np.float32)
