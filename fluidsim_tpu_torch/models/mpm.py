@@ -20,8 +20,8 @@ table of the mass and momentum P2G, the Jacobi stiffness P2G and the
 FLIP delta; the density gather and gradW (K1 fg, K2 gw) always read the
 MPM spline's, as in the JAX package.  The ``hybrid`` operator solves with the exact corotated
 Hessian under an iteration cap and, where that stops short of the
-tolerance, solves again with its SPD Gauss-Newton part: a host branch on
-the same test as the JAX package's ``lax.cond``.
+tolerance, solves again with its SPD Gauss-Newton part (``spd_resolve``):
+a host branch on the same test as the JAX package's ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from fluidsim_tpu_torch.models.flip import (advect_bounce, require_f32,
                                             run_frames, stack_metrics)
 from fluidsim_tpu_torch.ops import mpm_kernels as mk
 from fluidsim_tpu_torch.ops import transfer_kernels as tk
-from fluidsim_tpu_torch.ops.pcg import pcg
+from fluidsim_tpu_torch.ops.pcg import PCGResult, pcg
 from fluidsim_tpu_torch.ops.svd3 import clamp_singular, det3, hardening, mm3
 from fluidsim_tpu_torch.scenes import Scene, get_scene
 from fluidsim_tpu_torch.seeding import seed_particles
@@ -141,10 +141,22 @@ class MpmState:
     frame: torch.Tensor      # () int32
 
 
+def spd_resolve(matvec, b: torch.Tensor, precond,
+                params: MpmParams) -> PCGResult:
+    """The hybrid operator's fallback: CG on the SPD Gauss-Newton operator
+    ``matvec`` from ``x0 = b``, up to ``cg_maxiter`` iterations, in the span
+    ``solve.spd``.  ``mpm_step`` calls it through this module's name."""
+    with span("solve.spd"):
+        return pcg(matvec, b, x0=b, precond=precond, rtol=params.cg_rtol,
+                   maxiter=params.cg_maxiter)
+
+
 def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
     """One frame; returns (new_state, metrics).  ``cg_iters`` (the full
-    operator's iterations plus the SPD re-solve's) and ``spd_fallback``
-    are Python ints."""
+    operator's iterations plus the SPD re-solve's), ``spd_iters`` (the SPD
+    operator's alone: the re-solve's, all of them under ``hessian="spd"``,
+    else 0) and ``spd_fallback`` are Python ints.  The hybrid solve's exact
+    CG runs in the span ``solve.full``, its fallback in ``solve.spd``."""
     B = params.bound
     n = 2 * B + 1
     dt = state.dt
@@ -222,8 +234,9 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
 
         # CG starts at x0 = b: A = I + O(beta dt^2), so b is near the solution
         if hess == "hybrid":
-            res_f = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
-                        rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap)
+            with span("solve.full"):
+                res_f = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
+                            rtol=params.cg_rtol, maxiter=params.cg_hybrid_cap)
             bnorm2 = torch.sum((b * b).to(torch.float32))
             rtol32 = host_wait("upload.cg_rtol", torch.tensor, params.cg_rtol,
                                dtype=torch.float32, device=b.device)
@@ -233,17 +246,19 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
             if ok:
                 solve_x, cg_iters, cg_resid = (res_f.x, res_f.iters,
                                                res_f.residual)
+                spd_iters = 0
             else:
-                res = pcg(matvec_of(fns[2]), b, x0=b, precond=precond,
-                          rtol=params.cg_rtol, maxiter=params.cg_maxiter)
+                res = spd_resolve(matvec_of(fns[2]), b, precond, params)
                 solve_x, cg_iters, cg_resid = (res.x, res_f.iters + res.iters,
                                                res.residual)
+                spd_iters = res.iters
             spd_used = 0 if ok else 1
         else:
             res = pcg(matvec_of(fns[1]), b, x0=b, precond=precond,
                       rtol=params.cg_rtol, maxiter=params.cg_maxiter)
             solve_x, cg_iters, cg_resid = res.x, res.iters, res.residual
             spd_used = 1 if hess == "spd" else 0
+            spd_iters = res.iters if hess == "spd" else 0
         velg = torch.where(active[None], solve_x, 0.0)
 
     # deformation gradient update, with the deformation-increment limiter
@@ -283,6 +298,7 @@ def mpm_step(params: MpmParams, solid: torch.Tensor, state: MpmState):
     det_fp = det3(fp_new)
     metrics = {
         "cg_iters": cg_iters,
+        "spd_iters": spd_iters,
         "cg_residual": cg_resid,
         "spd_fallback": spd_used,
         "dt": dt_new,

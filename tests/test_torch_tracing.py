@@ -9,6 +9,7 @@ read back as the profiler recorded them.  ``attribute`` is held to
 synthetic events, since the CPU has no device timeline.
 """
 
+import dataclasses
 from collections import Counter
 from types import SimpleNamespace
 
@@ -147,6 +148,29 @@ def test_mpm_frame_spans_nest_and_count_the_waits():
     assert waits == {"pcg.test": m["cg_iters"] + int(stopped),
                      "solve.hybrid_check": 1, "upload.gravity": 1,
                      "upload.cg_rtol": 1, "upload.max_dt": 1}
+
+
+@pytest.mark.parametrize("cap", [1, 150])
+def test_mpm_hybrid_solve_spans_its_two_operators(cap):
+    """The exact CG opens ``solve.full`` once in every hybrid frame; a
+    fallback (forced here by a cap of one iteration) opens ``solve.spd``
+    once, and ``spd_iters`` counts the SPD solve's iterations alone."""
+    sim = _mpm()
+    sim.params = dataclasses.replace(sim.params, cg_hybrid_cap=cap)
+    m, ranges, _waits = _traced_step(sim)
+    names = Counter(r[0] for r in ranges)
+    assert names["solve.full"] == 1
+    _assert_nests(ranges, ["frame", "solve", "solve.full", "pcg"],
+                  every=False)
+    if cap == 1:
+        assert m["spd_fallback"] == 1 and names["solve.spd"] == 1
+        assert m["spd_iters"] == m["cg_iters"] - cap > 0
+        _assert_nests(ranges, ["frame", "solve", "solve.spd", "pcg"],
+                      every=False)
+    else:
+        assert m["spd_fallback"] == 0 and "solve.spd" not in names
+        assert m["spd_iters"] == 0 and m["cg_iters"] < cap
+    assert names["pcg"] == 1 + m["spd_fallback"]
 
 
 @pytest.mark.parametrize("kind", ["flip", "mpm"])
